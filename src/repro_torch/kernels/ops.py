@@ -1,0 +1,53 @@
+"""Dispatch for the port's kernels, and their launch counters.
+
+Each op takes the device of its tensors as the only switch: tensors on
+the CPU go to the kernel's plain PyTorch version (that is how the CPU
+tests run), tensors on a CUDA device go to the hand-written kernel —
+which launches or raises; there is no fallback.  Mixed devices raise.
+
+The launch counters are plain ints, one per kernel, kept by each
+kernel's CUDA wrapper where it launches (``knn_topk.launches``,
+``kmeans_assign.launches``); plain-version calls never count.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import kmeans_assign as _kmeans
+from . import knn_topk as _knn
+
+KERNELS = {"knn_topk": _knn, "kmeans_assign": _kmeans}
+
+
+def _device_type(*tensors: torch.Tensor) -> str:
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"tensors on devices {sorted(str(t.device) for t in tensors)}: "
+                         f"expected all on the CPU or all on one CUDA device")
+    return kinds.pop()
+
+
+def knn_topk(test_x, train_x, train_y, *, k: int = 5):
+    """(dists (m, k), labels (m, k) int32) of the k nearest training rows."""
+    if _device_type(test_x, train_x, train_y) == "cpu":
+        return _knn.knn_topk_plain(test_x, train_x, train_y, k)
+    return _knn.knn_topk_cuda(test_x, train_x, train_y, k)
+
+
+def kmeans_assign(x, centroids):
+    """(sums (k, d), counts (k,) int32, sse 0-d) of one fragment."""
+    if _device_type(x, centroids) == "cpu":
+        return _kmeans.kmeans_assign_plain(x, centroids)
+    return _kmeans.kmeans_assign_cuda(x, centroids)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        with mod._count_lock:
+            mod.launches = 0
