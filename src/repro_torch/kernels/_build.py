@@ -36,7 +36,7 @@ _I = ctypes.c_int
 # stream travel as c_void_p: a bare Python int would be cut to 32 bits.
 SIGNATURES = {
     "knn_topk_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P], _I),
+                         _P, _P, _P, _P, _P, _P], _I),
     "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),

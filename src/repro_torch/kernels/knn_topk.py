@@ -27,11 +27,11 @@ import torch
 from . import _build
 
 BIG = 1e30
-MAX_K = 32           # register list lengths the kernel is built for: 8/16/32
-_BLOCK_ROWS = 64     # test rows per CUDA block  (kBlockRows in csrc/knn_topk.cu)
-_TILE = 64           # training rows per tile   (kTile in csrc/knn_topk.cu)
-_BLOCKS_PER_SM = 8   # blocks the training-row split aims to keep on each SM
-_MAX_D = 400         # keeps the two shared tiles under Hopper's 227 KB
+MAX_K = 32             # register list lengths the kernel is built for: 8/16/32
+_BLOCK_ROWS = 256      # test rows per CUDA block (kBlockRows in csrc/knn_topk.cu)
+_TILE = 64             # training rows per shared tile (kTile there)
+_SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
+_SMEM_PER_SM = 233472  # shared memory of one SM
 
 launches = 0         # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()
@@ -74,6 +74,14 @@ def knn_topk_plain(test_x: torch.Tensor, train_x: torch.Tensor,
     return best_d, best_l
 
 
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one kernel block (see the .cu source)."""
+    ld = (d + 3) // 4 * 4
+    if (ld // 4) % 2 == 0:
+        ld += 4
+    return (_BLOCK_ROWS + 2 * _TILE) * ld * 4 + 2 * _TILE * 8
+
+
 def list_length(k: int) -> int:
     """The kernel's register list length for ``k`` (8, 16 or 32)."""
     for kb in (8, 16, 32):
@@ -100,26 +108,29 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"knn_topk_cuda: {name} must be contiguous")
     (m, d), n = test_x.shape, train_x.shape[0]
-    if d > _MAX_D:
-        raise ValueError(f"knn_topk_cuda supports d <= {_MAX_D}, got {d}")
+    smem = smem_bytes(d)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"knn_topk_cuda: d={d} needs {smem} B of shared memory "
+                         f"per block, more than {_SMEM_LIMIT}")
     kb = list_length(k)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_l = torch.empty((m, k), dtype=torch.int32, device=dev)
-    # cut the training rows into contiguous chunks so that enough blocks
-    # run to fill the card; each chunk is a whole number of tiles
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # cut the training rows into contiguous chunks (whole tiles) so that
+    # the grid fills the card in one wave of resident blocks
+    wave = (_SMEM_PER_SM // (smem + 1024)) * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
     row_blocks = math.ceil(m / _BLOCK_ROWS)
-    splits = max(1, min(math.ceil(_BLOCKS_PER_SM * sms / row_blocks),
-                        math.ceil(n / _TILE)))
+    splits = max(1, min(wave // row_blocks, math.ceil(n / _TILE)))
     chunk = math.ceil(math.ceil(n / splits) / _TILE) * _TILE
     splits = math.ceil(n / chunk)
+    train_sq = torch.empty((n,), dtype=torch.float32, device=dev)
     part_d = torch.empty((splits, m, kb), dtype=torch.float32, device=dev)
     part_l = torch.empty((splits, m, kb), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.knn_topk_launch(
             test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(),
-            m, n, d, k, kb, chunk, splits,
+            m, n, d, k, kb, chunk, splits, train_sq.data_ptr(),
             part_d.data_ptr(), part_l.data_ptr(), out_d.data_ptr(), out_l.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_topk")
