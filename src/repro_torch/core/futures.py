@@ -11,7 +11,7 @@ still see ``d3v1``).
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from .memory import (
     MemoryBudget,
@@ -249,14 +249,6 @@ class ObjectStore:
             self._transfer_matrix[(src, dst)] = (
                 self._transfer_matrix.get((src, dst), 0) + nb)
 
-    def transfer_matrix(self) -> List[dict]:
-        """JSON-friendly node×node movement matrix: one
-        ``{"src", "dst", "bytes"}`` row per nonzero cell, ``src == -1``
-        meaning the scheduler relayed the bytes (DESIGN.md §17)."""
-        with self._lock:
-            return [{"src": s, "dst": d, "bytes": b}
-                    for (s, d), b in sorted(self._transfer_matrix.items())]
-
     def node_bytes(self, node: int) -> int:
         """Resident governed bytes attributed to one locality domain —
         the scheduler's memory-aware placement reads this."""
@@ -270,11 +262,6 @@ class ObjectStore:
     def nbytes(self, key: Tuple[int, int]) -> int:
         with self._lock:
             return self._nbytes.get(key, 0)
-
-    def transfer_stats(self) -> Tuple[int, int]:
-        """(cross-domain reads, bytes moved) — the transfer ledger."""
-        with self._lock:
-            return self._transfers, self._transfer_bytes
 
     def transfer_detail(self) -> dict:
         """Source-attributed movement ledger (DESIGN.md §15):

@@ -2,10 +2,11 @@
 
 The paper's weak-scaling results hold only while every node's working set
 fits in RAM; COMPSs itself bounds that with per-node memory accounting.
-This module supplies the shared machinery that turns each of our object
-planes — the scheduler-side :class:`~repro_torch.core.futures.ObjectStore`, the
-process backend's :class:`~repro_torch.core.executors.SegmentPlane`, and the
-cluster agent's node-local plane — into a *bounded* cache:
+This module supplies the shared machinery that turns an object plane —
+in this slice of the port, the scheduler-side
+:class:`~repro_torch.core.futures.ObjectStore` (the process and cluster
+planes come with their backends) — into a *bounded* cache.  Only host
+ndarrays are governed; device tensors are never spilled:
 
 * :class:`MemoryBudget` — byte accounting for one address-space domain
   with high/low watermarks (evict when ``used`` crosses the high mark,

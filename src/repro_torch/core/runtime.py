@@ -149,13 +149,7 @@ class Runtime:
         telemetry_on = bool(tracing) if telemetry is None else bool(telemetry)
         # sampler thread only when telemetry was requested explicitly —
         # plain traced runs keep their thread count unchanged
-        self._want_sampler = bool(telemetry)
-        self._init_rest(workers_per_node, policy, tracing, retry,
-                        speculation, name, backend, telemetry_on)
-
-    def _init_rest(self, workers_per_node, policy, tracing, retry,
-                   speculation, name, backend,
-                   telemetry_on: bool = False) -> None:
+        want_sampler = bool(telemetry)
         if workers_per_node is None:
             # threads all share one address space => one locality domain
             workers_per_node = self.n_workers
@@ -185,7 +179,7 @@ class Runtime:
         self.executor = make_executor(backend, self.n_workers, label=name)
         self.executor.start(self)
 
-        if self.telemetry.enabled and self._want_sampler:
+        if self.telemetry.enabled and want_sampler:
             # no agents to heartbeat: an in-process sampler synthesizes
             # the per-node view instead
             self.telemetry.start_sampler(self)
@@ -659,12 +653,10 @@ class Runtime:
     # --------------------------------------------------------------- metrics
     def stats(self) -> dict:
         c = self.graph.counters()   # O(1): incrementally maintained
-        raw_ex = self.executor.stats()
         # uniform schema across backends (DESIGN.md §17): every canonical
         # executor counter present, 0 where the backend has no such concept
-        ex_stats = normalize_executor_stats(raw_ex)
+        ex_stats = normalize_executor_stats(self.executor.stats())
         data_plane = self.store.transfer_detail()
-        relay = data_plane["scheduler_relay_bytes"]
         return {
             "tasks_submitted": c["submitted"],
             "tasks_done": c["done"],
@@ -676,7 +668,7 @@ class Runtime:
             "critical_path_s": self.graph.critical_path_seconds(),
             "wallclock_s": self.tracer.wallclock(),
             "utilization": self.tracer.utilization(self.n_workers),
-            "scheduler_relay_bytes": relay,
+            "scheduler_relay_bytes": data_plane["scheduler_relay_bytes"],
             "p2p_bytes": data_plane["p2p_bytes"],
             "data_plane": data_plane,
             "executor": ex_stats,

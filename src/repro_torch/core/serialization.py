@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import os
 import struct
-import tempfile
 import weakref
 from typing import Any, Tuple
 
@@ -65,12 +64,8 @@ class MmapCodec:
 
     ``owned=True`` ties the file's lifetime to the returned view (a
     ``weakref.finalize`` unlinks it at GC — on POSIX the mapping stays
-    valid even after the unlink, so live slices keep working);
-    :meth:`spill` packages the write-then-own round trip.
+    valid even after the unlink, so live slices keep working).
     """
-
-    name = "mmap"
-    array_only = True
 
     def ser_to_file(self, obj: Any, path: str) -> int:
         arr = as_c_contiguous(obj)
@@ -90,15 +85,3 @@ class MmapCodec:
         if owned:
             weakref.finalize(view, _unlink_quiet, path)
         return view
-
-    def spill(self, obj: Any, dir: str = None) -> np.ndarray:
-        """Write ``obj`` to a fresh temp file and return a self-cleaning
-        zero-copy view: the file is unlinked when the view is collected."""
-        fd, path = tempfile.mkstemp(prefix="rjax_spill_", suffix=".rjx", dir=dir)
-        os.close(fd)
-        try:
-            self.ser_to_file(obj, path)
-            return self.de_from_file(path, owned=True)
-        except BaseException:
-            _unlink_quiet(path)
-            raise

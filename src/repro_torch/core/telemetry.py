@@ -1,26 +1,16 @@
-"""Live telemetry plane (DESIGN.md §17).
+"""Live telemetry plane (DESIGN.md §17), the port's copy.
 
-Production traffic is undebuggable from end-of-run aggregates alone, so
-the runtime keeps a *live* view of itself:
-
-* **Heartbeats** — every cluster node agent posts a periodic ``hb``
-  message on its existing scheduler channel (cadence settled by the
-  welcome handshake / ``RJAX_HEARTBEAT_S``; 0 disables) carrying its
-  node-plane bytes/spill/fault ledger, pool occupancy, and p2p fetch
-  counters.  The thread/process backends have no wire to ride, so an
-  in-process sampler thread synthesizes the equivalent snapshot from
-  ``executor.stats()`` + the store's memory ledger at the same cadence.
+* **Sampler** — the thread backend has no agents to heartbeat, so an
+  in-process sampler thread (started when ``telemetry=True``) records
+  ``executor.stats()`` + the store's memory ledger as a ``local``
+  pseudo-node heartbeat (cadence ``RJAX_HEARTBEAT_S``; 0 disables).
 * **Task stream** — a bounded ring of lifecycle events
-  (:class:`~repro_torch.core.tracing.TaskStream`), fed from ``Runtime.submit``
-  / ``begin_task`` / the completion paths.
-* **Snapshots** — the JSON payloads behind the dashboard endpoints
-  (:mod:`repro_torch.core.dashboard`): ``/api/status``, ``/api/tasks``,
-  ``/api/transfers``.
+  (:class:`~repro_torch.core.tracing.TaskStream`), fed from
+  ``Runtime.submit`` / ``begin_task`` / the completion paths.
 
-The hub itself is backend-agnostic: the cluster executor routes real
-agent heartbeats into :meth:`TelemetryHub.note_heartbeat`; the sampler
-calls the same method with a synthetic payload.  Everything here is
-counters and dict snapshots — no third-party dependencies.
+The dashboard that serves these snapshots comes with a later slice.
+Everything here is counters and dict snapshots — no third-party
+dependencies.
 """
 from __future__ import annotations
 
@@ -187,84 +177,3 @@ class TelemetryHub:
 
     def close(self) -> None:
         self._sampler_stop.set()
-
-    # ------------------------------------------------------------ snapshots
-    def snapshot_status(self, runtime) -> dict:
-        """The ``/api/status`` payload: runtime identity, task counters,
-        and the per-node heartbeat view (memory/occupancy gauges)."""
-        counters = runtime.graph.counters()
-        now = time.time()
-        inflight = self.inflight()
-        nodes = {}
-        for nid, ent in self.nodes().items():
-            entry = {"heartbeats": ent["count"],
-                     "age_s": round(now - ent["t"], 3),
-                     "inflight": inflight.get(nid, 0)}
-            entry.update(ent.get("payload") or {})
-            nodes[str(nid)] = entry
-        # failure-detector verdicts (DESIGN.md §19): merged per node so the
-        # dashboard shows exactly what liveness decisions are based on —
-        # including nodes that have never beaten (install is a synthetic
-        # beat, so they still appear, aging towards suspect/dead)
-        for nid, view in self._executor_liveness(runtime).items():
-            entry = nodes.setdefault(
-                str(nid), {"heartbeats": 0, "age_s": None,
-                           "inflight": inflight.get(nid, 0)})
-            entry["state"] = view.get("state")
-            entry["beat_age_s"] = view.get("beat_age_s")
-            # replicated intermediates resident on this node (§20)
-            entry["replicas"] = view.get("replicas", 0)
-        return {
-            "name": runtime.name,
-            "backend": runtime.backend,
-            "n_workers": runtime.n_workers,
-            "workers_per_node": runtime.workers_per_node,
-            "uptime_s": round(now - self.t_started, 3),
-            "telemetry_enabled": self.enabled,
-            "queue_len": runtime.scheduler.queue_len(),
-            "tasks": counters,
-            "inflight": {str(k): v for k, v in inflight.items()},
-            "ring": {"seq": self.stream.last_seq, "size": len(self.stream),
-                     "capacity": self.stream.capacity,
-                     "dropped": self.stream.dropped},
-            "nodes": nodes,
-        }
-
-    @staticmethod
-    def _executor_liveness(runtime) -> dict:
-        """The cluster executor's failure-detector snapshot (``{}`` for
-        backends without one)."""
-        live = getattr(getattr(runtime, "executor", None), "liveness", None)
-        if not callable(live):
-            return {}
-        try:
-            return live() or {}
-        except Exception:
-            return {}
-
-    def snapshot_tasks(self, runtime, since: int = 0,
-                       limit: Optional[int] = None) -> dict:
-        """The ``/api/tasks`` payload: lifecycle events newer than
-        ``since`` plus the clock anchor the client needs to place them."""
-        return {
-            "now": time.perf_counter(),
-            "t_start": runtime.tracer.t_start,
-            "last_seq": self.stream.last_seq,
-            "dropped": self.stream.dropped,
-            "events": self.stream.since(since, limit=limit),
-        }
-
-    def snapshot_transfers(self, runtime) -> dict:
-        """The ``/api/transfers`` payload: the node×node byte matrix from
-        the §15 ledger (source ``-1`` = the scheduler's own link) plus
-        the aggregate split it must stay consistent with."""
-        detail = runtime.store.transfer_detail()
-        return {
-            "matrix": detail.get("matrix", []),
-            "scheduler_relay_bytes": detail["scheduler_relay_bytes"],
-            "p2p_bytes": detail["p2p_bytes"],
-            "p2p_by_source": {str(k): v
-                              for k, v in detail["p2p_by_source"].items()},
-            "transfers": detail["transfers"],
-            "transfer_bytes": detail["transfer_bytes"],
-        }

@@ -132,6 +132,14 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def padded_ld(d: int) -> int:
+    """Shared-memory row stride of a (rows, d) fp32 tile: mirrors
+    ``repro::padded_ld`` in ``csrc/common.cuh`` (the wrappers size shared
+    memory with it)."""
+    ld = (d + 3) // 4 * 4
+    return ld + 4 if (ld // 4) % 2 == 0 else ld
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch function returned a non-zero ``cudaError_t``."""
     if err != 0:

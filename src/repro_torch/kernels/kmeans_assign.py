@@ -59,9 +59,7 @@ def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor):
 
 def smem_bytes(k: int, d: int) -> int:
     """Dynamic shared memory of one kernel block (see the .cu source)."""
-    ld = (d + 3) // 4 * 4
-    if (ld // 4) % 2 == 0:
-        ld += 4
+    ld = _build.padded_ld(d)
     return ((k + _THREADS) * ld + k + k * d + _THREADS) * 4 + (_THREADS + k) * 4
 
 

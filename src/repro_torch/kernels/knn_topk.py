@@ -76,10 +76,7 @@ def knn_topk_plain(test_x: torch.Tensor, train_x: torch.Tensor,
 
 def smem_bytes(d: int) -> int:
     """Dynamic shared memory of one kernel block (see the .cu source)."""
-    ld = (d + 3) // 4 * 4
-    if (ld // 4) % 2 == 0:
-        ld += 4
-    return (_BLOCK_ROWS + 2 * _TILE) * ld * 4 + 2 * _TILE * 8
+    return (_BLOCK_ROWS + 2 * _TILE) * _build.padded_ld(d) * 4 + 2 * _TILE * 8
 
 
 def list_length(k: int) -> int:

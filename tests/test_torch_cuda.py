@@ -63,7 +63,8 @@ def test_knn_topk_exact_on_integer_inputs(cuda, k):
     assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
 
 
-@pytest.mark.parametrize("m,n,d,k", [(1037, 10013, 50, 5), (77, 5000, 13, 20), (129, 3, 50, 3)])
+@pytest.mark.parametrize("m,n,d,k", [(1037, 10013, 50, 5), (77, 5000, 13, 20), (129, 3, 50, 3),
+                                     (300, 700, 140, 8), (5, 64, 1, 1)])
 def test_knn_topk_close_on_random_inputs(cuda, m, n, d, k):
     test, train, labels = _to(cuda, *_knn_inputs(m + n, m, n, d, integer=False))
     got_d, _ = tknn.knn_topk_cuda(test, train, labels, k)
@@ -72,7 +73,7 @@ def test_knn_topk_close_on_random_inputs(cuda, m, n, d, k):
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("n,d,k", [(5000, 50, 16), (1001, 13, 5)])
+@pytest.mark.parametrize("n,d,k", [(5000, 50, 16), (1001, 13, 5), (3000, 100, 64), (7, 3, 1)])
 def test_kmeans_assign_exact_on_integer_inputs(cuda, n, d, k):
     rng = np.random.default_rng(n)
     x, c = _to(cuda, rng.integers(-2, 3, size=(n, d)).astype(np.float32),
