@@ -1,11 +1,14 @@
 """The port's hand-written Hopper kernels, each beside its plain PyTorch
 version (``ops`` dispatches by device):
 
-* ``knn_topk``      — fused distance + running top-k (the paper's KNN_frag)
-* ``kmeans_assign`` — fused assign + partial sums (the paper's partial_sum)
+* ``knn_topk``        — fused distance + running top-k (the paper's KNN_frag)
+* ``kmeans_assign``   — fused assign + partial sums (the paper's partial_sum)
+* ``rmsnorm``         — fused RMSNorm (every LM block, and the final norm)
+* ``flash_attention`` — GQA attention forward with an online softmax
+  (cache-free prefill of the LM)
 
 CUDA C++ sources live in ``repro_torch/csrc``; ``_build`` compiles them
-with ``nvcc`` at the first CUDA launch.  The other four Pallas kernels of
-``repro.kernels`` are ported with later slices.
+with ``nvcc`` at the first CUDA launch.  The two recurrent-scan kernels of
+``repro.kernels`` (``ssd_scan``, ``rglru_scan``) come with a later slice.
 """
 from . import ops  # noqa: F401

@@ -32,6 +32,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> (argtypes, restype).  Every pointer and the
 # stream travel as c_void_p: a bare Python int would be cut to 32 bits.
 SIGNATURES = {
@@ -39,6 +41,9 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P], _I),
     "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P], _I),
+    "rmsnorm_launch": ([_P, _P, _P, _L, _I, _I, _I, _I, _F, _P], _I),
+    "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                ctypes.POINTER(_L), _I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

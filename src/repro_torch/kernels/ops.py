@@ -6,19 +6,22 @@ tests run), tensors on a CUDA device go to the hand-written kernel —
 which launches or raises; there is no fallback.  Mixed devices raise.
 
 The launch counters are plain ints, one per kernel, kept by each
-kernel's CUDA wrapper where it launches (``knn_topk.launches``,
-``kmeans_assign.launches``); plain-version calls never count.
+kernel's CUDA wrapper where it launches (``knn_topk.launches``, ...);
+plain-version calls never count.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from . import flash_attention as _flash
 from . import kmeans_assign as _kmeans
 from . import knn_topk as _knn
+from . import rmsnorm as _rms
 
-KERNELS = {"knn_topk": _knn, "kmeans_assign": _kmeans}
+KERNELS = {"knn_topk": _knn, "kmeans_assign": _kmeans, "rmsnorm": _rms,
+           "flash_attention": _flash}
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -41,6 +44,21 @@ def kmeans_assign(x, centroids):
     if _device_type(x, centroids) == "cpu":
         return _kmeans.kmeans_assign_plain(x, centroids)
     return _kmeans.kmeans_assign_cuda(x, centroids)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """``x · (1/√(mean(x²) + eps)) · scale`` over the last dim, in x's dtype."""
+    if _device_type(x, scale) == "cpu":
+        return _rms.rmsnorm_plain(x, scale, eps)
+    return _rms.rmsnorm_cuda(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """q (B, H, Sq, d), k/v (B, K, Skv, d) -> (B, H, Sq, d); masks count
+    positions from 0 in q and k."""
+    if _device_type(q, k, v) == "cpu":
+        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -9,8 +9,9 @@ it runs on the GPU machine as it is:
 Each kernel is held against its plain PyTorch version on the same
 inputs: exactly on integer-valued inputs (every distance and dot product
 is exact there, ties included), within stated tolerances on random
-ones; two launches must agree bitwise.  The pipelines on the card must
-agree with the same pipelines run on the CPU.
+ones (bf16 results within one bf16 rounding step); two launches must
+agree bitwise.  The pipelines and LM serving on the card must agree with
+the same runs on the CPU.
 """
 import numpy as np
 import pytest
@@ -19,9 +20,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.algorithms import kmeans, knn  # noqa: E402
 from repro_torch.core import api  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import kmeans_assign as tkm  # noqa: E402
 from repro_torch.kernels import knn_topk as tknn  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +128,82 @@ def test_pipelines_on_the_card_match_the_cpu(cuda):
         assert ops.launch_counts()["kmeans_assign"] == 4 * 5
     assert (on_card.predictions == on_cpu.predictions).mean() >= 0.999
     np.testing.assert_allclose(km_card.centroids, km_cpu.centroids, atol=1e-4)
+
+
+BF16_STEP = 2.0 ** -7
+
+
+def _close(got, want):
+    if got.dtype == torch.bfloat16:
+        # fp32 results that round to neighbouring bf16 values
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP, atol=1e-5)
+    else:
+        # fp32 sums in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(4096, 1024), (1001, 64), (77, 6144), (3, 5, 100), (9, 37)])
+@pytest.mark.parametrize("xdt,sdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32)])
+def test_rmsnorm_matches_plain(cuda, shape, xdt, sdt):
+    rng = np.random.default_rng(shape[-1])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda).to(xdt)
+    scale = torch.from_numpy(rng.standard_normal(shape[-1]).astype(np.float32)).to(cuda).to(sdt)
+    got = trms.rmsnorm_cuda(x, scale)
+    assert got.dtype == xdt and got.shape == x.shape
+    _close(got, trms.rmsnorm_plain(x, scale))
+    assert torch.equal(got, trms.rmsnorm_cuda(x, scale))
+
+
+@pytest.mark.parametrize("case", [(2, 16, 8, 128, 128, 64, True, None),
+                                  (2, 4, 2, 77, 77, 64, True, None),
+                                  (1, 4, 4, 40, 200, 64, False, None),
+                                  (1, 4, 2, 150, 70, 128, True, None),
+                                  (1, 4, 2, 300, 300, 64, True, 100),
+                                  (1, 16, 1, 100, 100, 64, True, None),
+                                  (1, 48, 1, 64, 64, 128, True, None),
+                                  (1, 4, 2, 65, 65, 16, False, 9)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    B, H, K, Sq, Skv, d, causal, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+
+    def view(heads, S):    # (B, S, heads, d) in memory, as the layer holds it
+        a = rng.standard_normal((B, S, heads, d)).astype(np.float32)
+        return torch.from_numpy(a).to(cuda).to(dtype).transpose(1, 2)
+
+    q, k, v = view(H, Sq), view(K, Skv), view(K, Skv)
+    got = tflash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
+    _close(got, tflash.flash_attention_plain(q, k, v, causal=causal, window=window))
+    assert torch.equal(got, tflash.flash_attention_cuda(q, k, v, causal=causal, window=window))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 2, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        trms.rmsnorm_cuda(x.half(), torch.ones(16, device=cuda))
+    with pytest.raises(ValueError):
+        trms.rmsnorm_cuda(x.transpose(0, 1), torch.ones(16, device=cuda))
+    with pytest.raises(TypeError):
+        tflash.flash_attention_cuda(x, x.bfloat16(), x)
+    with pytest.raises(ValueError):
+        tflash.flash_attention_cuda(x[..., :12], x[..., :12], x[..., :12])   # d = 12
+    with pytest.raises(ValueError):
+        tflash.flash_attention_cuda(x.transpose(2, 3), x, x)
+
+
+def test_serve_on_the_card_matches_the_cpu(cuda):
+    """qwen3-0.6b (reduced, fp32) served on the card and on the CPU from the
+    same weights gives the same tokens, through both kernels."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = lm.init_params(cfg, seed=0)
+    kw = dict(batch=2, prompt_len=40, gen_len=6, seed=0)
+    on_cpu = serve.serve_batch(cfg, device="cpu", params=model, **kw)
+    ops.reset_launch_counts()
+    on_card = serve.serve_batch(cfg, device=cuda, params=model.to(cuda), **kw)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert ops.launch_counts()["rmsnorm"] == 6 * (cfg.n_layers * 4 + 1)
+    torch.testing.assert_close(on_card["logits"].cpu(), on_cpu["logits"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])

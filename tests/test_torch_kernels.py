@@ -6,7 +6,10 @@ blocks, so several grid steps and ragged edges are covered) and against
 ``repro.kernels.ref``.  Inputs come from seeded NumPy and go to both.
 Integer-valued inputs make every distance and dot product exact, so those
 cases compare exactly, ties included; random normal inputs compare within
-the tolerances stated at each assertion.  The CUDA kernels themselves
+the tolerances stated at each assertion; bf16 cases feed both sides the
+same bf16 values and allow one bf16 rounding step (2^-7 relative) where
+two fp32 results round to neighbouring bf16 values.  The CUDA kernels
+themselves
 are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -20,9 +23,13 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.kmeans_assign import kmeans_assign as pallas_kmeans_assign  # noqa: E402
 from repro.kernels.knn_topk import knn_topk as pallas_knn_topk  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import kmeans_assign as tkm  # noqa: E402
 from repro_torch.kernels import knn_topk as tknn  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 
 
 def _knn_inputs(seed, m, n, d, integer):
@@ -156,8 +163,13 @@ def test_ops_dispatch_by_device_and_count_only_kernel_launches():
     ops.knn_topk(torch.from_numpy(test), torch.from_numpy(train), torch.from_numpy(labels), k=3)
     x, c = _km_inputs(0, 50, 4, 3, integer=False)
     ops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c))
+    x2 = torch.from_numpy(np.ones((3, 8), np.float32))
+    ops.rmsnorm(x2, x2[0])
+    q = torch.zeros((1, 2, 5, 16))
+    ops.flash_attention(q, q[:, :1], q[:, :1])
     # plain versions never count
-    assert ops.launch_counts() == {"knn_topk": 0, "kmeans_assign": 0}
+    assert ops.launch_counts() == {"knn_topk": 0, "kmeans_assign": 0, "rmsnorm": 0,
+                                   "flash_attention": 0}
     with pytest.raises(ValueError):
         ops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c).to("meta"))
 
@@ -172,6 +184,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
     x, c = _km_inputs(0, 50, 4, 3, integer=False)
     with pytest.raises(ValueError, match="CUDA"):
         tkm.kmeans_assign_cuda(torch.from_numpy(x), torch.from_numpy(c))
+    with pytest.raises(ValueError, match="CUDA"):
+        trms.rmsnorm_cuda(torch.from_numpy(x), torch.ones(4))
+    q = torch.zeros((1, 2, 5, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention_cuda(q, q, q)
     assert _build._lib is None
 
 
@@ -187,3 +204,117 @@ def test_argument_checks():
     assert [tknn.list_length(k) for k in (1, 8, 9, 32)] == [8, 8, 16, 32]
     with pytest.raises(ValueError):
         ops.kmeans_assign(torch.zeros((4, 3)), torch.zeros((2, 5)))
+
+
+# ------------------------------------------------------------------ rmsnorm
+BF16_STEP = 2.0 ** -7   # one bf16 rounding step, relative
+
+
+def _bf16_pair(a):
+    """The same bf16 values as a torch tensor and a jnp array."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.to(torch.float32).numpy()).astype(jnp.bfloat16)
+
+
+def _np(t):
+    return np.asarray(t, dtype=np.float32) if not isinstance(t, torch.Tensor) \
+        else t.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("shape", [(300, 64), (2, 37, 1024), (5, 6144), (1, 64)])
+def test_rmsnorm_plain_matches_pallas_and_ref_fp32(shape):
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    x = (rng.standard_normal(shape) * 3).astype(np.float32)
+    scale = rng.standard_normal(shape[-1]).astype(np.float32)
+    got = ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and got.shape == shape
+    pal = pallas_rmsnorm(jnp.asarray(x), jnp.asarray(scale), block_rows=64, interpret=True)
+    ref = jref.rmsnorm_ref(jnp.asarray(x), jnp.asarray(scale))
+    # fp32 sums of squares in two orders; the Pallas kernel's rsqrt vs
+    # 1/sqrt: a few ulps
+    np.testing.assert_allclose(got.numpy(), _np(pal), rtol=2e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=2e-6, atol=1e-6)
+
+
+def test_rmsnorm_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(7)
+    xt, xj = _bf16_pair((rng.standard_normal((77, 3, 64)) * 2).astype(np.float32))
+    st, sj = _bf16_pair(rng.standard_normal(64).astype(np.float32))
+    got = ops.rmsnorm(xt, st)
+    assert got.dtype == torch.bfloat16
+    pal = pallas_rmsnorm(xj, sj, block_rows=64, interpret=True)
+    ref = jref.rmsnorm_ref(xj, sj)
+    for want in (pal, ref):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_STEP, atol=1e-6)
+
+
+# ------------------------------------------------------------ flash attention
+# (B, H, K, Sq, Skv, d, causal, window): ragged causal GQA; non-causal with
+# Sq != Skv both ways; a window whose first KV block (16 keys) is wholly
+# masked for the later q blocks; MQA with G = 16; d = 128
+FLASH_CASES = [
+    (2, 4, 2, 77, 77, 64, True, None),
+    (1, 4, 4, 40, 72, 32, False, None),
+    (1, 4, 2, 72, 40, 16, True, None),
+    (1, 2, 1, 70, 70, 16, True, 20),
+    (1, 16, 1, 24, 24, 16, True, None),
+    (1, 2, 1, 20, 33, 128, False, 7),
+]
+
+
+def _flash_inputs(case):
+    B, H, K, Sq, Skv, d = case[:6]
+    rng = np.random.default_rng(sum(case[:6]))
+    return (rng.standard_normal((B, H, Sq, d)).astype(np.float32),
+            rng.standard_normal((B, K, Skv, d)).astype(np.float32),
+            rng.standard_normal((B, K, Skv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[str(c) for c in FLASH_CASES])
+def test_flash_attention_plain_matches_pallas_and_ref_fp32(case):
+    causal, window = case[6], case[7]
+    q, k, v = _flash_inputs(case)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    pal = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                       window=window, block_q=32, block_k=16, interpret=True)
+    ref = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   causal=causal, window=window)
+    # fp32 softmax over <= 77 keys in two orders (online vs dense)
+    np.testing.assert_allclose(got.numpy(), _np(pal), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:4], ids=[str(c) for c in FLASH_CASES[:4]])
+def test_flash_attention_plain_matches_pallas_bf16(case):
+    causal, window = case[6], case[7]
+    (qt, qj), (kt, kj), (vt, vj) = (_bf16_pair(a) for a in _flash_inputs(case))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    pal = pallas_flash(qj, kj, vj, causal=causal, window=window, block_q=32, block_k=16,
+                       interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pal), rtol=BF16_STEP, atol=1e-5)
+
+
+def test_flash_attention_plain_takes_strided_views():
+    """The attention layer passes (B, S, H, d) tensors as (B, H, S, d) views."""
+    q, k, v = _flash_inputs(FLASH_CASES[0])
+    views = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))).transpose(1, 2)
+             for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = ops.flash_attention(*views)
+    want = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_argument_checks():
+    q = torch.zeros((1, 4, 8, 16))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[:, :3], q[:, :3])          # H % K != 0
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[..., :8], q[..., :8])      # d mismatch
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError):
+        ops.rmsnorm(q, torch.ones(8))                      # scale width
