@@ -17,9 +17,11 @@ What differs from the JAX driver:
   back once, after the last step;
 * for ``input_mode == "embeds"`` the decode inputs are NumPy normals from
   ``default_rng([seed, step])`` (the JAX driver draws ``jax.random``
-  numbers, which torch cannot reproduce);
-* the result also carries ``logits``: the fp32 logits each token was
-  chosen from, ``(batch, gen_len, vocab)`` on the device.
+  numbers, which torch cannot reproduce).
+
+Serving keeps only the chosen tokens from step to step.  Checks that need
+the logits each token was chosen from get them from :func:`replay_logits`,
+which runs the same steps again, fed the served tokens.
 
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -62,6 +64,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _step_input(cfg: LMConfig, tok: torch.Tensor, step: int, seed: int) -> Dict:
+    """The input of decode step ``step``: the tokens ``tok`` (batch,) chosen
+    before it, or for ``input_mode == "embeds"`` fresh normals."""
+    if cfg.input_mode == "embeds":
+        x = np.random.default_rng([seed, step]).standard_normal((tok.shape[0], 1, cfg.d_model))
+        return {"embeds": torch.from_numpy(x.astype(np.float32)).to(tok.device)}
+    return {"tokens": tok[:, None]}
+
+
 @torch.no_grad()
 def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
                 seed: int = 0, device=None, params: Optional[LM] = None,
@@ -70,8 +81,8 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
     generate ``gen_len`` tokens each.  ``device=None`` means CUDA (raises
     without a card); ``params`` is the model to serve (default: random
     weights from ``init_params(cfg, seed)`` on the device).  Returns
-    ``tokens`` (batch, gen_len) int32, ``logits``, ``prefill_s``,
-    ``decode_s`` and ``decode_tokens_per_s``."""
+    ``tokens`` (batch, gen_len) int32, ``prefill_s``, ``decode_s`` and
+    ``decode_tokens_per_s``."""
     dev = resolve_device(device)
     if params is not None and params.device.type != dev.type:
         raise ValueError(f"params are on {params.device}, serving on {dev}")
@@ -89,7 +100,6 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
         t0 = time.perf_counter()
         dev_prompts = {k: torch.from_numpy(v).to(dev) for k, v in prompts.items()}
         logits, caches = model(dev_prompts, make_cache_len=cache_len, last_only=True)
-        step_logits = [logits[:, -1]]
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
@@ -98,14 +108,8 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
         t1 = time.perf_counter()
         pos = prompt_len
         for i in range(gen_len - 1):
-            if cfg.input_mode == "embeds":
-                step_in = {"embeds": torch.from_numpy(np.random.default_rng([seed, i])
-                                                      .standard_normal((batch, 1, cfg.d_model))
-                                                      .astype(np.float32)).to(dev)}
-            else:
-                step_in = {"tokens": next_tok[:, None]}
-            logits, caches = model(step_in, caches=caches, pos_offset=pos)
-            step_logits.append(logits[:, -1])
+            logits, caches = model(_step_input(cfg, next_tok, i, seed), caches=caches,
+                                   pos_offset=pos)
             next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             generated.append(next_tok)
             pos += 1
@@ -117,7 +121,6 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
         out_tokens = api.wait_on(post_task(host_tokens))
         return {
             "tokens": out_tokens,
-            "logits": torch.stack(step_logits, dim=1),
             "prefill_s": t_prefill,
             "decode_s": t_decode,
             "decode_tokens_per_s": batch * (gen_len - 1) / max(t_decode, 1e-9),
@@ -125,6 +128,29 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
     finally:
         if manage_runtime:
             api.runtime_stop()
+
+
+@torch.no_grad()
+def replay_logits(model: LM, prompts: Dict, tokens: np.ndarray, *, seed: int = 0
+                  ) -> torch.Tensor:
+    """The fp32 logits ``(batch, gen_len, vocab)`` each of ``tokens`` was
+    chosen from: :func:`serve_batch`'s prefill and decode steps run again on
+    ``model``, over ``prompts`` (as :func:`make_prompts` gives them), each
+    step fed the served token before it.  For checks: it holds
+    batch x gen_len x vocab fp32 values on the model's device, which
+    serving itself never keeps."""
+    dev = model.device
+    batch, gen_len = tokens.shape
+    prompt_len = sum(v.shape[1] for v in prompts.values())
+    toks = torch.from_numpy(tokens).to(dev)
+    logits, caches = model({k: torch.from_numpy(v).to(dev) for k, v in prompts.items()},
+                           make_cache_len=prompt_len + gen_len, last_only=True)
+    out = [logits[:, -1]]
+    for i in range(gen_len - 1):
+        logits, caches = model(_step_input(model.cfg, toks[:, i], i, seed), caches=caches,
+                               pos_offset=prompt_len + i)
+        out.append(logits[:, -1])
+    return torch.stack(out, dim=1)
 
 
 def main() -> None:

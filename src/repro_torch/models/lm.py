@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..algorithms.common import resolve_device
 from ..layers.attention import Attention, init_kv_cache
 from ..layers.mlp import MLP, init_normal_
 from ..layers.norms import RMSNorm
@@ -141,7 +142,8 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """The model's parameters and forward pass.  Parameters are allocated
-    uninitialised: fill them with :func:`init_params` or
+    uninitialised on ``device`` (``None``: CUDA, raising without a card):
+    fill them with :func:`init_params` or
     :func:`repro_torch.models.convert.load_jax_params`."""
 
     def __init__(self, cfg: LMConfig, device=None):
@@ -151,6 +153,7 @@ class LM(nn.Module):
                 raise NotImplementedError(f"block type {t!r} is not ported yet: {_LATER[t]}")
             if t not in ATTENTION_BLOCKS:
                 raise ValueError(f"unknown block type {t}")
+        device = resolve_device(device)
         self.cfg = cfg
         dt = cfg.param_dtype
         self.embed = (nn.Parameter(torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
@@ -215,9 +218,10 @@ class LM(nn.Module):
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
     """A model with random weights of the shapes and scales of
     ``repro.models.lm.init_params``: normal · 0.02 embeddings and head,
-    normal / √fan-in projections, unit norm scales.  The numbers come
-    from a ``torch.Generator`` on ``device`` seeded with ``seed``; they
-    cannot match ``jax.random`` (load those with ``convert``)."""
+    normal / √fan-in projections, unit norm scales, on ``device``
+    (``None``: CUDA, raising without a card).  The numbers come from a
+    ``torch.Generator`` on that device seeded with ``seed``; they cannot
+    match ``jax.random`` (load those with ``convert``)."""
     model = LM(cfg, device=device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)

@@ -198,12 +198,16 @@ def test_serve_on_the_card_matches_the_cpu(cuda):
     """qwen3-0.6b (reduced, fp32) served on the card and on the CPU from the
     same weights gives the same tokens, through both kernels."""
     cfg = get_config("qwen3-0.6b", reduced=True)
-    model = lm.init_params(cfg, seed=0)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.init_params(cfg, seed=0, device="cpu").to(cuda)
     kw = dict(batch=2, prompt_len=40, gen_len=6, seed=0)
-    on_cpu = serve.serve_batch(cfg, device="cpu", params=model, **kw)
+    on_cpu = serve.serve_batch(cfg, device="cpu", params=cpu_model, **kw)
     ops.reset_launch_counts()
-    on_card = serve.serve_batch(cfg, device=cuda, params=model.to(cuda), **kw)
+    on_card = serve.serve_batch(cfg, device=cuda, params=card_model, **kw)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     assert ops.launch_counts()["rmsnorm"] == 6 * (cfg.n_layers * 4 + 1)
-    torch.testing.assert_close(on_card["logits"].cpu(), on_cpu["logits"], rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])
+    prompts = serve.make_prompts(cfg, 2, 40, 0)
+    torch.testing.assert_close(serve.replay_logits(card_model, prompts, on_card["tokens"]).cpu(),
+                               serve.replay_logits(cpu_model, prompts, on_cpu["tokens"]),
+                               rtol=1e-4, atol=1e-4)

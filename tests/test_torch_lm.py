@@ -200,7 +200,7 @@ def _family(fam):
     jcfg = jlm.LMConfig(**tiny(fam, jnp, **FAMILIES[fam]))
     cfg = lm.LMConfig(**tiny(fam, torch, **FAMILIES[fam]))
     tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(0)))
-    model = convert.load_jax_params(lm.LM(cfg), tree)
+    model = convert.load_jax_params(lm.LM(cfg, device="cpu"), tree)
     return jcfg, cfg, tree, model
 
 
@@ -281,7 +281,7 @@ def test_token_by_token_decode_from_empty_caches_matches_full_forward():
 
 def test_init_params_has_the_jax_shapes_and_scales():
     cfg = configs.get_config("qwen3-0.6b", reduced=True)
-    model = lm.init_params(cfg, seed=0)
+    model = lm.init_params(cfg, seed=0, device="cpu")
     jcfg = jconfigs.get_config("qwen3-0.6b", reduced=True)
     tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(0)))
     flat = convert.flat_jax_params(model, tree)
@@ -292,7 +292,7 @@ def test_init_params_has_the_jax_shapes_and_scales():
     assert abs(std["blocks.0.attn.wq"] - 128 ** -0.5) < 0.01
     assert abs(std["blocks.2.mlp.w_down"] - 256 ** -0.5) < 0.01
     assert torch.equal(model.blocks[1].attn.q_norm.scale, torch.ones(16))
-    again = lm.init_params(cfg, seed=0)
+    again = lm.init_params(cfg, seed=0, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
 
 
@@ -307,6 +307,16 @@ def test_converter_refuses_a_tree_that_does_not_fit():
     bad = dict(tree, embed=tree["embed"][:, :5])
     with pytest.raises(ValueError):
         convert.load_jax_params(model, bad)
+
+
+def test_model_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = configs.get_config("qwen3-0.6b", reduced=True)
+    for build in (lambda: lm.init_params(cfg, seed=0), lambda: lm.LM(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert lm.LM(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "A9"), ("mamba2-780m", "A8"),

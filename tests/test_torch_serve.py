@@ -36,17 +36,20 @@ LOGIT_TOL = 1e-3
 def _converted(arch, seed):
     tree = jax.tree.map(np.asarray, jlm.init_params(jget_config(arch, reduced=True),
                                                     jax.random.PRNGKey(seed)))
-    return convert.load_jax_params(lm.LM(get_config(arch, reduced=True)), tree)
+    return convert.load_jax_params(lm.LM(get_config(arch, reduced=True), device="cpu"),
+                                 tree)
 
 
 def test_serve_batch_matches_jax_tokens():
     seed, kw = 0, dict(batch=2, prompt_len=12, gen_len=5)
     cfg = get_config("qwen3-0.6b", reduced=True)
+    model = _converted("qwen3-0.6b", seed)
     ops.reset_launch_counts()
-    mine = serve.serve_batch(cfg, seed=seed, device="cpu", params=_converted("qwen3-0.6b", seed),
-                             **kw)
+    mine = serve.serve_batch(cfg, seed=seed, device="cpu", params=model, **kw)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)   # plain versions on the CPU
-    logits = mine["logits"]
+    assert "logits" not in mine                 # serving keeps only the tokens
+    logits = serve.replay_logits(model, serve.make_prompts(cfg, 2, 12, seed), mine["tokens"],
+                                 seed=seed)
     assert logits.shape == (2, 5, cfg.vocab_size) and logits.dtype == torch.float32
     top2 = logits.topk(2, dim=-1).values
     assert float((top2[..., 0] - top2[..., 1]).min()) > LOGIT_TOL
@@ -88,7 +91,7 @@ def test_serve_batch_needs_a_card_unless_asked_for_the_cpu():
         serve.serve_batch(cfg, batch=1, prompt_len=4, gen_len=2)
     with pytest.raises(ValueError):      # a CPU model cannot serve on CUDA
         serve.serve_batch(cfg, batch=1, prompt_len=4, gen_len=2, device="meta",
-                          params=lm.init_params(cfg))
+                          params=lm.init_params(cfg, device="cpu"))
 
 
 def test_serve_cli_on_the_cpu():
