@@ -25,10 +25,16 @@ failure raises (the script then exits non-zero without a result):
              bf16, random weights from seed 0): 8 prompts of 512 tokens,
              32 generated tokens each, twice; then one cache-free forward
              over prompt + generated tokens, held against the served
-             logits (replayed) and against two controls.
+             logits (replayed) and against two controls;
+8. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
+             d 1536, 48 heads x 64, state 128, bf16), one control;
+9. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
+             12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, MQA with
+             head dim 256, window 2048, bf16, 9.6B parameters), one control.
 
-Then a ``{"kernels": [...]}`` line (launches counted during phases 4, 5
-and 7, times measured in phase 3) and, last, ``{"ok": true, "device":
+Each serve phase frees its model before the next.  Then a
+``{"kernels": [...]}`` line (launches counted during phases 4, 5 and
+7-9, times measured in phase 3) and, last, ``{"ok": true, "device":
 {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
 and the repository's ``src/repro_torch`` beside it.
@@ -54,11 +60,15 @@ PEAK_BYTES_PER_S = 3.35e12     # HBM3
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 
 SEED = 0
-# served vs full-forward qwen3-0.6b logits (phase 7): logits of scale
-# ~0.6 are rounded to bf16 (steps of 2^-8..2^-6) and the two paths round
-# differently in every one of 28 layers; sound runs read 0.056, and the
-# phase reads two controls against this limit (see PERF.md)
-LOGIT_TOL = 0.08
+# served vs full-forward logits, per served model (phases 7-9): logits are
+# rounded to bf16 and the two paths (prefill + decode, one cache-free
+# forward) round differently in every layer.  Each limit sits between the
+# sound reading and a decode fed the wrong tokens (the lagged control,
+# which each phase reads too); the readings are in PERF.md.  Sound and
+# lagged readings on one H100: qwen3-0.6b 0.056 and 2.5, mamba2-780m 0.18
+# and 6.1, recurrentgemma-9b 0.29 and 9.8.
+LOGIT_TOL = {"qwen3-0.6b": 0.08, "mamba2-780m": 0.25, "recurrentgemma-9b": 0.4}
+BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32    # every serve phase
 
 
 def emit(obj) -> None:
@@ -105,13 +115,21 @@ def device_kernels(fn):
     return out, table
 
 
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
+def device_ms(fn, reps: int, warmup: int = 2, tries: int = 3) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed,
-    averaged over ``reps`` calls after ``warmup`` calls."""
+    averaged over ``reps`` calls after ``warmup`` calls.  Every call
+    launches the same kernels, so each kernel's event count must be a
+    multiple of ``reps``; where it is not, the profiler lost events (seen
+    on the H100: a 5 us kernel read 0.9 us, SDPA above the card's peak),
+    and the window is profiled again, up to ``tries`` times."""
     for _ in range(warmup):
         fn()
-    _, table = device_kernels(lambda: [fn() for _ in range(reps)])
-    return sum(ms for ms, _ in table.values()) / reps
+    for _ in range(tries):
+        _, table = device_kernels(lambda: [fn() for _ in range(reps)])
+        if all(n % reps == 0 for _, n in table.values()):
+            return sum(ms for ms, _ in table.values()) / reps
+    raise RuntimeError(f"torch.profiler lost events in {tries} windows of {reps} calls: "
+                       f"{ {key[:60]: n for key, (_, n) in table.items()} }")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -317,8 +335,16 @@ def check_flash(fa_k, gen, cuda):
     # non-causal with Sq < Skv; causal with Sq > Skv; a window whose first
     # streamed KV block is wholly masked for the later query rows (rows
     # >= 228 of the block at 192 see nothing of keys 64..127); windows
-    # without causality; d = 16 and 128; G = 1, 16 and 48 (MQA)
+    # without causality; d = 16, 32, 128 and 256; G = 1, 16 and 48 (MQA);
+    # recurrentgemma's prefill (d 256, K 1, window 2048) and a d 256 window
+    # that bites (S 4096 > 2048)
     cases = [(8, 16, 8, 512, 512, 64, True, None),
+             (8, 16, 1, 512, 512, 256, True, 2048),
+             (1, 16, 1, 4096, 4096, 256, True, 2048),
+             (2, 4, 1, 300, 300, 256, True, 100),
+             (1, 4, 2, 90, 150, 256, False, None),
+             (2, 4, 1, 130, 130, 32, True, 16),
+             (1, 4, 4, 70, 40, 32, False, None),
              (2, 4, 2, 77, 77, 64, True, None),
              (1, 4, 4, 40, 200, 64, False, None),
              (1, 4, 2, 150, 70, 64, True, None),
@@ -339,24 +365,132 @@ def check_flash(fa_k, gen, cuda):
             want = fa_k.flash_attention_plain(q, k, v, causal=causal, window=window)
             close_in_dtype(got, want, f"flash_attention {(B, H, K, Sq, Skv, d, causal, window)} "
                                       f"{dtype}")
-    # the path shape: every layer's prefill in phase 7
-    B, H, K, S, d = 8, 16, 8, 512, 64
-    q, k, v = qkv(B, H, K, S, S, d, torch.bfloat16)
-    err = close_in_dtype(fa_k.flash_attention_cuda(q, k, v), fa_k.flash_attention_plain(q, k, v),
-                         "flash_attention timed")
-    flops = 4.0 * B * H * S * S * d / 2
-    nbytes = 2.0 * (2 * B * H * S * d + 2 * B * K * S * d)
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    def at_shape(B, H, K, S, d, window):
+        q, k, v = qkv(B, H, K, S, S, d, torch.bfloat16)
+        err = close_in_dtype(fa_k.flash_attention_cuda(q, k, v, window=window),
+                             fa_k.flash_attention_plain(q, k, v, window=window),
+                             "flash_attention timed")
+        flops = 4.0 * B * H * S * S * d / 2          # causal; the windows here do not bite
+        nbytes = 2.0 * (2 * B * H * S * d + 2 * B * K * S * d)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        return {"shape": {"B": B, "H": H, "K": K, "S": S, "d": d, "causal": True,
+                          "window": window, "dtype": "bf16"},
+                "max_abs_err": err,
+                **times(lambda: fa_k.flash_attention_cuda(q, k, v, window=window),
+                        lambda: fa_k.flash_attention_plain(q, k, v, window=window),
+                        time_library("flash_attention", q, k, v)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms_fp32_cores": bound(flops, nbytes)[0]}
+
+    row = at_shape(8, 16, 8, 512, 64, None)      # every layer's prefill in phase 7
+    # every local_attn layer's prefill in phase 9 (recurrentgemma-9b)
+    row["hybrid_shape"] = at_shape(8, 16, 1, 512, 256, 2048)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:92",
-            "shape": {"B": B, "H": H, "K": K, "S": S, "d": d, "causal": True, "dtype": "bf16"},
-            "max_abs_err": err,
-            **times(lambda: fa_k.flash_attention_cuda(q, k, v),
-                    lambda: fa_k.flash_attention_plain(q, k, v),
-                    time_library("flash_attention", q, k, v)),
+            "replaces": "src/repro/kernels/flash_attention.py:92", **row}
+
+
+def check_rglru(rg_k, gen, cuda):
+    """rglru_scan kernel vs its plain version; returns the kernels-line row."""
+    def inputs(B, S, R, dtype, with_h0):
+        la = -np.log1p(np.exp(gen.standard_normal((B, S, R))))      # -softplus: a in (0, 1)
+        la, b = (torch.from_numpy(a.astype(np.float32)).to(cuda).to(dtype)
+                 for a in (la, gen.standard_normal((B, S, R))))
+        h0 = (torch.from_numpy(gen.standard_normal((B, R)).astype(np.float32)).to(cuda)
+              if with_h0 else None)
+        return la, b, h0
+
+    def check(la, b, h0, what):
+        y, h = rg_k.rglru_scan_cuda(la, b, h0)
+        assert bitwise_equal((y, h), rg_k.rglru_scan_cuda(la, b, h0)), \
+            "rglru_scan: two launches differ"
+        py, ph = rg_k.rglru_scan_plain(la, b, h0)
+        err = close_in_dtype(y, py, f"rglru_scan y {what}")
+        close_in_dtype(h, ph, f"rglru_scan h_T {what}")
+        return err
+
+    # ragged R (off the 128-channel block), S off the 8-step unroll, an h0,
+    # bf16 log_a and b, one step
+    for B, S, R, dtype, with_h0 in ((3, 77, 100, torch.float32, False),
+                                    (2, 300, 4097, torch.float32, True),
+                                    (2, 129, 1000, torch.bfloat16, True),
+                                    (1, 1, 37, torch.bfloat16, False)):
+        check(*inputs(B, S, R, dtype, with_h0), (B, S, R, dtype, with_h0))
+    # the path shape: every rglru layer's prefill in phase 9 (fp32 gates)
+    B, S, R = 8, 512, 4096
+    la, b, _ = inputs(B, S, R, torch.float32, False)
+    err = check(la, b, None, "timed")
+    bound_ms, bound_by = bound(3.0 * B * S * R, 4.0 * (3 * B * S * R + B * R))
+    return {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan.py:52",
+            "shape": {"B": B, "S": S, "R": R, "dtype": "fp32"}, "max_abs_err": err,
+            **times(lambda: rg_k.rglru_scan_cuda(la, b), lambda: rg_k.rglru_scan_plain(la, b),
+                    reps=20, plain_reps=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_ms_fp32_cores": bound(flops, nbytes)[0]}
+            "library_note": "no single PyTorch call computes a linear recurrence"}
+
+
+def close_ssd(got, want, what: str) -> float:
+    """The kernel steps the recurrence; the plain version forms
+    exp(cs_i - cs_j) from fp32 cumulative sums over up to a chunk of steps,
+    whose rounding is relative to |cs|: within 1e-4 of the largest value
+    and 1e-4 relative.  Returns the largest absolute difference."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()),
+                               msg=lambda m: f"{what}: {m}")
+    return (got - want).abs().max().item()
+
+
+def check_ssd(ssd_k, gen, cuda):
+    """ssd_scan kernel vs its plain version; returns the kernels-line row."""
+    def inputs(B, S, H, P, N, dtype, dt=None):
+        # x, B and C as views into one (B, S, H*P + 2N) tensor: the layer's layout
+        packed = torch.from_numpy(gen.standard_normal((B, S, H * P + 2 * N)).astype(np.float32))
+        packed = packed.to(cuda).to(dtype)
+        if dt is None:
+            dt = np.log1p(np.exp(gen.standard_normal((B, S, H))))    # softplus
+        A = -torch.linspace(1.0, 16.0, H, device=cuda)               # the init's -exp(A_log)
+        return (packed[..., :H * P].reshape(B, S, H, P),
+                torch.from_numpy(dt.astype(np.float32)).to(cuda), A,
+                packed[..., H * P:H * P + N], packed[..., H * P + N:])
+
+    def check(args, chunk, what):
+        y, st = ssd_k.ssd_scan_cuda(*args)
+        assert bitwise_equal((y, st), ssd_k.ssd_scan_cuda(*args)), \
+            "ssd_scan: two launches differ"
+        py, pst = ssd_k.ssd_scan_plain(*args, chunk=chunk)
+        close_ssd(st, pst, f"ssd_scan state {what}")
+        return close_ssd(y, py, f"ssd_scan y {what}")
+
+    # ragged S (543: the full-forward check's length), P and N off the
+    # tiles, fp32 x; decays near 0 (dt 5..20) and near 1 (dt < 1e-3) in
+    # alternate heads
+    check(inputs(2, 543, 8, 64, 128, torch.bfloat16), 256, "S 543")
+    check(inputs(2, 77, 3, 40, 100, torch.float32), 32, "P 40, N 100")
+    H = 8
+    near = np.where(np.arange(H) % 2 == 0, 1e-3, 20.0)
+    dt = gen.uniform(0.0, 1.0, (2, 300, H)) * near
+    dt = np.where(np.arange(H) % 2 == 0, dt, np.maximum(dt, 5.0))
+    check(inputs(2, 300, H, 64, 128, torch.bfloat16, dt), 256, "extreme decays")
+    # the path shape: every layer's prefill in phase 8 (mamba2-780m)
+    B, S, H, P, N, Q = 8, 512, 48, 64, 128, 256
+    args = inputs(B, S, H, P, N, torch.bfloat16)
+    err = check(args, Q, "timed")
+    flops = B * H * (S // Q) * (2.0 * (Q * N + Q * P) * Q + 4.0 * Q * N * P)
+    nbytes = 2.0 * B * S * (H * P + 2 * N) + 4.0 * (B * S * H + H) \
+        + 4.0 * (B * S * H * P + B * H * P * N)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:72",
+            "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q, "dtype": "bf16"},
+            "max_abs_err": err,
+            **times(lambda: ssd_k.ssd_scan_cuda(*args),
+                    lambda: ssd_k.ssd_scan_plain(*args, chunk=Q), reps=10, plain_reps=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # the step-by-step recurrence the kernel runs: 5 flops per state
+            # element and step, on the fp32 CUDA cores
+            "bound_ms_fp32_cores": bound(5.0 * B * S * H * P * N, nbytes)[0],
+            "library_note": "no single PyTorch call computes the SSD scan"}
 
 
 # ----------------------------------------------------------------- pipelines
@@ -380,6 +514,95 @@ def knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, *, n_train, n_test
     return int((want == preds[idx]).sum())
 
 
+def only(ops, **nonzero) -> dict:
+    """The launch counts of a phase that launches ``nonzero`` and nothing else."""
+    return {**dict.fromkeys(ops.KERNELS, 0), **nonzero}
+
+
+def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
+    """Serve ``model`` (BATCH prompts of PROMPT_LEN tokens, GEN_LEN
+    generated tokens each) twice and check it: the launch counts are
+    ``want_counts``; the two runs give the same tokens; the replayed
+    logits choose the served tokens; one cache-free forward over prompt +
+    generated tokens is within ``LOGIT_TOL`` of them and chooses the served
+    token wherever its top-2 margin is clear; a replay fed the token
+    before each served one (the lagged control) is not.  Then one more
+    serve under the profiler for the device's idle share.  Fills
+    ``ph.info`` and returns (prompts, tokens, full-forward logits)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    tol = LOGIT_TOL[cfg.name]
+    kw = dict(batch=BATCH, prompt_len=PROMPT_LEN, gen_len=GEN_LEN, seed=SEED, device=cuda,
+              params=model)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve.serve_batch(cfg, **kw)
+    counts = ops.launch_counts()
+    assert counts == want_counts, (counts, want_counts)
+    toks = out["tokens"]
+    assert toks.shape == (BATCH, GEN_LEN) and toks.dtype == np.int32
+    assert toks.min() >= 0 and toks.max() < cfg.vocab_size
+    again = serve.serve_batch(cfg, **kw)
+    assert np.array_equal(toks, again["tokens"]), "two serve runs gave different tokens"
+    # the logits each token was chosen from, replayed: the same prefill
+    # and decode steps fed the served tokens, which they must choose again
+    prompts = serve.make_prompts(cfg, BATCH, PROMPT_LEN, SEED)
+    logits = serve.replay_logits(model, prompts, toks, seed=SEED)
+    assert logits.shape == (BATCH, GEN_LEN, cfg.vocab_size) and bool(logits.isfinite().all())
+    assert np.array_equal(logits.argmax(-1).cpu().numpy(), toks), \
+        "the replayed steps choose other tokens than the served ones"
+    # one cache-free forward over prompt + generated tokens (every prefill
+    # kernel over all positions) against the served logits (prefill, then
+    # the decode path over the caches)
+    seq = torch.from_numpy(np.concatenate([prompts["tokens"], toks[:, :-1]], axis=1)).to(cuda)
+    with torch.no_grad():
+        full = model({"tokens": seq})[0][:, PROMPT_LEN - 1:]
+    diff = (full - logits).abs()
+    # control: every decode step fed the token before the one served, as a
+    # cache or position off by one would; the check must fail on it
+    lagged = np.concatenate([toks[:, :1], toks[:, :-1]], axis=1)
+    control_lagged = float((full - serve.replay_logits(model, prompts, lagged, seed=SEED))
+                           .abs().max())
+    emit({"readings": ph.name, "logits_max_abs_diff": float(diff.max()),
+          "control_lagged_tokens": control_lagged, "logits_tol": tol})
+    assert float(diff.max()) <= tol, f"full forward vs served logits: {float(diff.max())}"
+    assert control_lagged > tol, \
+        f"the check does not see decode fed the wrong tokens: {control_lagged}"
+    top2 = full.topk(2, dim=-1)
+    clear = (top2.values[..., 0] - top2.values[..., 1]) > 2 * tol
+    agree = top2.indices[..., 0].cpu().numpy() == toks
+    assert agree[clear.cpu().numpy()].all(), "full-forward argmax differs from a served token"
+    ph.info.update(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                   params=sum(p.numel() for p in model.parameters()),
+                   batch=BATCH, prompt_len=PROMPT_LEN, gen_len=GEN_LEN,
+                   prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                   decode_tokens_per_s=out["decode_tokens_per_s"],
+                   second_run={k: again[k] for k in ("prefill_s", "decode_s",
+                                                     "decode_tokens_per_s")},
+                   launches=counts, logits_max_abs_diff=float(diff.max()),
+                   logits_rms_diff=float(diff.pow(2).mean().sqrt()),
+                   logits_tol=tol, control_lagged_tokens=control_lagged,
+                   clear_positions=int(clear.sum()), argmax_agree=int(agree.sum()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # where the device time goes: one more run under the profiler (CUDA
+    # activity only), its kernels' device time against the unprofiled
+    # second run's wall time
+    _, table = device_kernels(lambda: serve.serve_batch(cfg, **kw))
+    busy_s = sum(ms for ms, _ in table.values()) / 1e3
+    wall_s = again["prefill_s"] + again["decode_s"]
+    ours = {name: sum(ms for key, (ms, _) in table.items() if tag in key) / 1e3
+            for name, tag in (("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"),
+                              ("rglru_scan", "rglru_scan_kernel"),
+                              ("ssd_scan", "ssd_scan_kernel"))}
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])[:10]
+    ph.info["device"] = {"busy_s": busy_s, "wall_s": wall_s,
+                         "idle_share": 1.0 - busy_s / wall_s, "kernel_s": ours,
+                         "top": [[key[:80], ms, n] for key, (ms, n) in top]}
+    emit({ph.name: {k: ph.info[k] for k in ("prefill_s", "decode_s", "decode_tokens_per_s",
+                                            "peak_mem_gb")}})
+    return prompts, toks, full
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; one CUDA card is needed",
@@ -393,7 +616,9 @@ def main() -> int:
     from repro_torch.kernels import kmeans_assign as km_k
     from repro_torch.kernels import knn_topk as knn_k
     from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import rglru_scan as rg_k
     from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd_scan as ssd_k
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -424,7 +649,8 @@ def main() -> int:
 
     with Phase("kernels") as ph:
         rows = [check_knn(knn_k, gen, cuda), check_kmeans(km_k, gen, cuda),
-                check_rmsnorm(rms_k, gen, cuda), check_flash(fa_k, gen, cuda)]
+                check_rmsnorm(rms_k, gen, cuda), check_flash(fa_k, gen, cuda),
+                check_rglru(rg_k, gen, cuda), check_ssd(ssd_k, gen, cuda)]
         ph.info["kernels"] = [{k: r[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
                                                  "bound_ms")} for r in rows]
 
@@ -439,8 +665,7 @@ def main() -> int:
         ph.info["task_seconds"] = task_seconds(rt)
         counts = ops.launch_counts()
         launches["knn_topk"] = counts["knn_topk"]
-        assert counts == {"knn_topk": 64, "kmeans_assign": 0, "rmsnorm": 0,
-                          "flash_attention": 0}, counts
+        assert counts == only(ops, knn_topk=64), counts
         preds = res.predictions
         assert preds.shape == (50_000,) and preds.min() >= 0 and preds.max() < 4
         agree = knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, **knn_cfg)
@@ -458,8 +683,7 @@ def main() -> int:
         ph.info["task_seconds"] = task_seconds(rt)
         counts = ops.launch_counts()
         launches["kmeans_assign"] = counts["kmeans_assign"]
-        assert counts == {"knn_topk": 0, "kmeans_assign": 160, "rmsnorm": 0,
-                          "flash_attention": 0}, counts
+        assert counts == only(ops, kmeans_assign=160), counts
         assert r1.centroids.shape == (16, 50) and np.isfinite(r1.centroids).all()
         hist = r1.sse_history
         assert len(hist) == 10 and all(np.isfinite(hist))
@@ -477,8 +701,7 @@ def main() -> int:
         with api.runtime_start(n_workers=4, backend="thread") as rt:
             r = linreg.run_linreg(n_rows=n_rows, p=p, n_pred=100_000, fragments=fragments,
                                   pred_blocks=4, seed=SEED, device=cuda)
-        assert ops.launch_counts() == {"knn_topk": 0, "kmeans_assign": 0, "rmsnorm": 0,
-                                       "flash_attention": 0}
+        assert ops.launch_counts() == only(ops)
         ph.info["pipeline_seconds"] = rt.tracer.wallclock()
         ph.info["task_seconds"] = task_seconds(rt)
         assert r.predictions.shape == (100_000,) and np.isfinite(r.predictions).all()
@@ -498,96 +721,64 @@ def main() -> int:
         assert err_single <= 1e-8, f"beta is {err_single} from the single-shot solve"
         ph.info.update(tasks=r.n_tasks, beta_vs_truth=err_truth, beta_vs_single_shot=err_single)
 
+    by_phase = {}          # serve phase -> its launch counts
     with Phase("serve") as ph:
         cfg = get_config("qwen3-0.6b")
-        batch, prompt_len, gen_len = 8, 512, 32
         model = lm.init_params(cfg, seed=SEED, device=cuda)
-        kw = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len, seed=SEED, device=cuda,
-                  params=model)
-        ops.reset_launch_counts()
-        out = serve.serve_batch(cfg, **kw)
-        counts = ops.launch_counts()
         # 32 forwards (one prefill, 31 decode steps), each with 4 norms per
         # layer (ln1, ln2, q-norm, k-norm) and the final norm; the flash
         # kernel serves the cache-free prefill only, once per layer
-        want = {"knn_topk": 0, "kmeans_assign": 0, "rmsnorm": gen_len * (cfg.n_layers * 4 + 1),
-                "flash_attention": cfg.n_layers}
-        assert counts == want, (counts, want)
-        launches.update(rmsnorm=counts["rmsnorm"], flash_attention=counts["flash_attention"])
-        toks = out["tokens"]
-        assert toks.shape == (batch, gen_len) and toks.dtype == np.int32
-        assert toks.min() >= 0 and toks.max() < cfg.vocab_size
-        again = serve.serve_batch(cfg, **kw)
-        assert np.array_equal(toks, again["tokens"]), "two serve runs gave different tokens"
-        # the logits each token was chosen from, replayed: the same prefill
-        # and decode steps fed the served tokens, which they must choose again
-        prompts = serve.make_prompts(cfg, batch, prompt_len, SEED)
-        logits = serve.replay_logits(model, prompts, toks, seed=SEED)
-        assert logits.shape == (batch, gen_len, cfg.vocab_size) and bool(logits.isfinite().all())
-        assert np.array_equal(logits.argmax(-1).cpu().numpy(), toks), \
-            "the replayed steps choose other tokens than the served ones"
-        # one cache-free forward over prompt + generated tokens (every
-        # position through the flash kernel) against the served logits
-        # (prefill through flash, decode through the dense cache path)
-        seq = torch.from_numpy(np.concatenate([prompts["tokens"], toks[:, :-1]], axis=1)).to(cuda)
-        with torch.no_grad():
-            full = model({"tokens": seq})[0][:, prompt_len - 1:]
-
-        def gap(other) -> float:
-            return float((full - other).abs().max())
-
-        diff = (full - logits).abs()
-        assert float(diff.max()) <= LOGIT_TOL, f"full forward vs served logits: {float(diff.max())}"
-        top2 = full.topk(2, dim=-1)
-        clear = (top2.values[..., 0] - top2.values[..., 1]) > 2 * LOGIT_TOL
-        agree = top2.indices[..., 0].cpu().numpy() == toks
-        assert agree[clear.cpu().numpy()].all(), "full-forward argmax differs from a served token"
-        # controls, read by the same check: (1) every decode step fed the
-        # token before the one served, as a cache or position off by one
-        # would; the check must fail on it.  (2) The decode path with bf16
-        # scores and probabilities (the chunked path under attn_scores_bf16,
-        # the same weights from the same seed): a lower precision, recorded
-        lagged = np.concatenate([toks[:, :1], toks[:, :-1]], axis=1)
-        control_lagged = gap(serve.replay_logits(model, prompts, lagged, seed=SEED))
-        assert control_lagged > LOGIT_TOL, \
-            f"the check does not see decode fed the wrong tokens: {control_lagged}"
+        prompts, toks, full = serve_and_check(
+            ph, cfg, model, only(ops, rmsnorm=GEN_LEN * (cfg.n_layers * 4 + 1),
+                                 flash_attention=cfg.n_layers), cuda)
+        by_phase["serve"] = ph.info["launches"]
+        # control (2): the decode path with bf16 scores and probabilities (the
+        # chunked path under attn_scores_bf16, the same weights from the same
+        # seed): a lower precision, recorded
         low = lm.init_params(dataclasses.replace(cfg, attn_impl="chunked", attn_scores_bf16=True),
                              seed=SEED, device=cuda)
         assert all(torch.equal(a, b) for a, b in zip(model.parameters(), low.parameters()))
-        control_bf16_scores = gap(serve.replay_logits(low, prompts, toks, seed=SEED))
-        del low
-        ph.info.update(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-                       params=sum(p.numel() for p in model.parameters()),
-                       batch=batch, prompt_len=prompt_len, gen_len=gen_len,
-                       prefill_s=out["prefill_s"], decode_s=out["decode_s"],
-                       decode_tokens_per_s=out["decode_tokens_per_s"],
-                       second_run={k: again[k] for k in ("prefill_s", "decode_s",
-                                                         "decode_tokens_per_s")},
-                       launches=counts, logits_max_abs_diff=float(diff.max()),
-                       logits_rms_diff=float(diff.pow(2).mean().sqrt()),
-                       logits_tol=LOGIT_TOL, control_lagged_tokens=control_lagged,
-                       control_bf16_scores=control_bf16_scores,
-                       clear_positions=int(clear.sum()), argmax_agree=int(agree.sum()),
-                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        # where the device time goes: one more run under the profiler
-        # (CUDA activity only), its kernels' device time against the
-        # unprofiled second run's wall time
-        _, table = device_kernels(lambda: serve.serve_batch(cfg, **kw))
-        busy_s = sum(ms for ms, _ in table.values()) / 1e3
-        wall_s = again["prefill_s"] + again["decode_s"]
-        ours = {name: sum(ms for key, (ms, _) in table.items() if tag in key) / 1e3
-                for name, tag in (("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"))}
-        top = sorted(table.items(), key=lambda kv: -kv[1][0])[:10]
-        ph.info["device"] = {"busy_s": busy_s, "wall_s": wall_s,
-                             "idle_share": 1.0 - busy_s / wall_s, "kernel_s": ours,
-                             "top": [[key[:80], ms, n] for key, (ms, n) in top]}
-        print(json.dumps({"serve": {k: ph.info[k] for k in ("prefill_s", "decode_s",
-                                                            "decode_tokens_per_s")}}),
-              flush=True)
-        del model, full, diff, logits, out, again
+        ph.info["control_bf16_scores"] = float(
+            (full - serve.replay_logits(low, prompts, toks, seed=SEED)).abs().max())
+        del low, model, full
+        torch.cuda.empty_cache()
 
+    with Phase("serve_ssd") as ph:
+        cfg = get_config("mamba2-780m")
+        model = lm.init_params(cfg, seed=SEED, device=cuda)
+        # per forward: ln1 and the SSD's gated norm in each of 48 layers, and
+        # the final norm; the scan kernel serves the prefill, once per layer
+        serve_and_check(ph, cfg, model, only(ops, rmsnorm=GEN_LEN * (cfg.n_layers * 2 + 1),
+                                             ssd_scan=cfg.n_layers), cuda)
+        by_phase["serve_ssd"] = ph.info["launches"]
+        del model
+        torch.cuda.empty_cache()
+
+    with Phase("serve_hybrid") as ph:
+        cfg = get_config("recurrentgemma-9b")
+        model = lm.init_params(cfg, seed=SEED, device=cuda)
+        kinds = cfg.layer_types
+        # per forward: ln1 and ln2 in each of 38 layers, and the final norm;
+        # in the prefill, the RG-LRU scan once per rglru layer and the flash
+        # kernel once per local_attn layer
+        serve_and_check(ph, cfg, model,
+                        only(ops, rmsnorm=GEN_LEN * (cfg.n_layers * 2 + 1),
+                             rglru_scan=kinds.count("rglru"),
+                             flash_attention=kinds.count("local_attn")), cuda)
+        by_phase["serve_hybrid"] = ph.info["launches"]
+        del model
+        torch.cuda.empty_cache()
+
+    for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
+        launches[name] = sum(counts[name] for counts in by_phase.values())
+    for row in rows:
+        if row["name"] in ("rmsnorm", "flash_attention"):
+            row["launches_by_phase"] = {phase: counts[row["name"]]
+                                        for phase, counts in by_phase.items()
+                                        if counts[row["name"]]}
     for row in rows:
         row["launches"] = launches[row["name"]]
+        assert row["launches"] > 0, f"{row['name']} was not launched on its path"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     emit({"kernels": [{**{k: row[k] for k in keys}, **row} for row in rows]})

@@ -36,6 +36,17 @@
 // the block's first query are skipped: their terms would be wiped out by
 // a zero rescale, so skipping them gives the same result.  Padding of
 // every shared row stride keeps the accesses free of bank conflicts.
+//
+// Head dims: one template per d in {16, 32, 64, 128, 256}.  The tiles stay
+// 64 x 64 at every d; shared memory is 4 * (64 (d + 4) + 64 (d + 1) +
+// 64 d + 64 * 68) bytes, 215,296 at d 256 (recurrentgemma-9b's MQA heads):
+// under the 232,448-byte opt-in limit, one block per SM.  A thread then
+// holds 4 x 16 fp32 accumulators; ptxas's register and spill report for
+// every d is printed by chip_smoke.py's build phase (PERF.md records it).
+// At recurrentgemma's prefill (B 8, H 16, K 1, S 512, d 256, causal,
+// window 2048, bf16) the work is 17.2 GFLOP over 71 MB: 21 us of bytes at
+// 3.35 TB/s, 17 us at the bf16 tensor-core peak, 0.26 ms at the fp32
+// CUDA-core peak this version runs at.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -225,8 +236,10 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
                        int window, cudaStream_t s) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, B, H, K, Sq, Skv, st, causal, window, s);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, K, Sq, Skv, st, causal, window, s);
     case 64: return launch<T, 64>(q, k, v, o, B, H, K, Sq, Skv, st, causal, window, s);
     case 128: return launch<T, 128>(q, k, v, o, B, H, K, Sq, Skv, st, causal, window, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, K, Sq, Skv, st, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -235,10 +248,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 
 // q, o: (B, H, Sq, d); k, v: (B, K, Skv, d); all bf16 if bf16 else fp32,
 // each with a contiguous last axis and the element strides of its first
-// three axes in `strides` (a host array of 12: q, k, v, o).  d is 16, 64
-// or 128 (the head dims of the configs this slice serves; recurrentgemma's
-// 256 comes with its slice); window <= 0 means none.  Returns a
-// cudaError_t.
+// three axes in `strides` (a host array of 12: q, k, v, o).  d is 16, 32,
+// 64, 128 or 256 (the head dims of the configs and of their reduced
+// versions); window <= 0 means none.  Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int K, int Sq, int Skv, int d,
                                       const long long* strides, int causal, int window,

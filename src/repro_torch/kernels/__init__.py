@@ -6,9 +6,10 @@ version (``ops`` dispatches by device):
 * ``rmsnorm``         — fused RMSNorm (every LM block, and the final norm)
 * ``flash_attention`` — GQA attention forward with an online softmax
   (cache-free prefill of the LM)
+* ``rglru_scan``      — the RG-LRU linear recurrence (RG-LRU prefill)
+* ``ssd_scan``        — the Mamba-2 SSD scan (SSD prefill)
 
 CUDA C++ sources live in ``repro_torch/csrc``; ``_build`` compiles them
-with ``nvcc`` at the first CUDA launch.  The two recurrent-scan kernels of
-``repro.kernels`` (``ssd_scan``, ``rglru_scan``) come with a later slice.
+with ``nvcc`` at the first CUDA launch.
 """
 from . import ops  # noqa: F401

@@ -44,6 +44,9 @@ SIGNATURES = {
     "rmsnorm_launch": ([_P, _P, _P, _L, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(_L), _I, _I, _I, _P], _I),
+    "rglru_scan_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "ssd_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(_L), _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -37,7 +37,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128)   # the configs' head dims (reduced ones: 16)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the configs' head dims and their reduced ones
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # kernel launches since the last reset (plain int)

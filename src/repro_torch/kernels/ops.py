@@ -18,10 +18,12 @@ import torch
 from . import flash_attention as _flash
 from . import kmeans_assign as _kmeans
 from . import knn_topk as _knn
+from . import rglru_scan as _rglru
 from . import rmsnorm as _rms
+from . import ssd_scan as _ssd
 
 KERNELS = {"knn_topk": _knn, "kmeans_assign": _kmeans, "rmsnorm": _rms,
-           "flash_attention": _flash}
+           "flash_attention": _flash, "rglru_scan": _rglru, "ssd_scan": _ssd}
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -59,6 +61,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     if _device_type(q, k, v) == "cpu":
         return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(log_a, b, h0=None):
+    """(y (B, S, R) in b's dtype, h_T (B, R) fp32) of
+    ``h_t = exp(log_a_t)·h_{t−1} + b_t`` from ``h0`` (zeros if None)."""
+    tensors = (log_a, b) if h0 is None else (log_a, b, h0)
+    if _device_type(*tensors) == "cpu":
+        return _rglru.rglru_scan_plain(log_a, b, h0)
+    return _rglru.rglru_scan_cuda(log_a, b, h0)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """(y (B, S, H, P) fp32, final state (B, H, P, N) fp32) of the Mamba-2
+    SSD scan from a zero state; ``chunk`` is the plain version's chunk
+    length (the function does not depend on it)."""
+    if _device_type(x, dt, A, Bm, Cm) == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,9 @@
-"""Batched serving driver: prefill, then greedy decode with KV caches — the
-port of ``repro/launch/serve.py``.
+"""Batched serving driver: prefill, then greedy decode with KV caches or
+recurrent states — the port of ``repro/launch/serve.py``.  It serves
+the block types :mod:`repro_torch.models.lm` has so far: the
+dense-attention families, mamba2 (SSD blocks: the prefill builds each layer's final state
+and conv history, decode steps them) and recurrentgemma (RG-LRU blocks
+and local attention with ring caches).
 
 Request pre-processing (prompt synthesis, the tokenizer's stand-in) and
 response post-processing run as tasks on the port's runtime; prefill and
@@ -26,6 +30,7 @@ which runs the same steps again, fed the served tokens.
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --requests 8 --prompt-len 512 --gen-len 32
+    (also ``--arch mamba2-780m`` and ``--arch recurrentgemma-9b``)
 """
 from __future__ import annotations
 

@@ -8,7 +8,11 @@ layer ``s · len(block_pattern) + i`` is ``scan["b<i>"][...][s]``, and the
 keeps one block per layer with the same key names, and the same
 layouts — ``x @ W`` weights stay ``(in, out)``: **nothing is
 transposed**.  Leaves arrive as NumPy arrays (bf16 ones from
-``ml_dtypes`` included) and are cast to the parameter dtype.
+``ml_dtypes`` included) and must have the parameter's dtype: the
+recurrent layers keep some parameters in fp32 inside a bf16 model
+(``A_log``, ``D``, ``dt_bias``; ``lam``, ``w_r``, ``b_r``, ``w_i``,
+``b_i``), and a leaf that would be rounded or widened on the way in
+means the two models disagree about a parameter.
 """
 from __future__ import annotations
 
@@ -46,17 +50,21 @@ def flat_jax_params(model: LM, tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
 @torch.no_grad()
 def load_jax_params(model: LM, tree: Dict[str, Any]) -> LM:
-    """Copy every leaf of a JAX ``init_params`` tree into ``model``, cast to
-    its parameter dtype.  Raises on a missing or extra leaf or a shape
-    mismatch.  Returns ``model``."""
+    """Copy every leaf of a JAX ``init_params`` tree into ``model``.
+    Raises on a missing or extra leaf, a shape mismatch or a dtype
+    mismatch (an fp32 leaf for a bf16 parameter, or the reverse).
+    Returns ``model``."""
     flat = flat_jax_params(model, tree)
     params = dict(model.named_parameters())
     missing, extra = sorted(params.keys() - flat.keys()), sorted(flat.keys() - params.keys())
     if missing or extra:
         raise KeyError(f"JAX tree does not fit the model: missing {missing}, extra {extra}")
     for name, p in params.items():
-        arr = np.array(flat[name], dtype=np.float32)   # a writable copy
-        if arr.shape != tuple(p.shape):
-            raise ValueError(f"{name}: JAX leaf {arr.shape} vs parameter {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(arr))
+        leaf = flat[name]
+        if np.shape(leaf) != tuple(p.shape):
+            raise ValueError(f"{name}: JAX leaf {np.shape(leaf)} vs parameter {tuple(p.shape)}")
+        kind = np.dtype(leaf.dtype).name
+        if kind != str(p.dtype).removeprefix("torch."):
+            raise TypeError(f"{name}: JAX leaf is {kind}, the parameter {p.dtype}")
+        p.copy_(torch.from_numpy(np.array(leaf, dtype=np.float32)))   # exact for bf16
     return model

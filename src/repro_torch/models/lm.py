@@ -1,10 +1,10 @@
-"""Decoder-only LM: the port of ``repro/models/lm.py`` for the
-dense-attention block types.
+"""Decoder-only LM: the port of ``repro/models/lm.py``.
 
-A model is a cycle of block types (``block_pattern``) over ``n_layers``.
-This slice runs ``dense`` (GQA attention + MLP) and ``local_attn``
-(sliding-window GQA + MLP); ``moe``, ``ssd`` and ``rglru`` raise
-``NotImplementedError`` until their slices land (ROADMAP items A9, A8).
+A model is a cycle of block types (``block_pattern``) over ``n_layers``:
+``dense`` (GQA attention + MLP), ``local_attn`` (sliding-window GQA +
+MLP), ``ssd`` (a Mamba-2 SSD block, attention-free) and ``rglru`` (RG-LRU
+temporal mixing + MLP, RecurrentGemma's recurrent block).  ``moe`` raises
+``NotImplementedError`` until its slice lands (ROADMAP item A9).
 
 Where the JAX model stacks the layers of each pattern period and runs
 them with ``lax.scan`` (plus an unrolled tail), the port keeps one
@@ -14,9 +14,10 @@ keep the JAX layouts — ``(in, out)`` for every ``x @ W`` weight,
 ``(vocab, d_model)`` for ``embed``, ``(d_model, vocab)`` for ``lm_head``
 — and the module names mirror the JAX tree's keys, so
 :func:`repro_torch.models.convert.load_jax_params` copies leaves without
-transposing.  The norms and the cache-free attention run the port's
-hand-written kernels on a CUDA card (see ``layers/norms.py`` and
-``layers/attention.py``).
+transposing.  The norms, the cache-free attention and the recurrent
+prefill scans run the port's hand-written kernels on a CUDA card (see
+``layers/norms.py``, ``layers/attention.py``, ``layers/ssd.py`` and
+``layers/rglru.py``).
 """
 from __future__ import annotations
 
@@ -30,10 +31,12 @@ from ..algorithms.common import resolve_device
 from ..layers.attention import Attention, init_kv_cache
 from ..layers.mlp import MLP, init_normal_
 from ..layers.norms import RMSNorm
+from ..layers.rglru import RGLRU, init_rglru_cache
+from ..layers.ssd import SSD, init_ssd_cache
 
 ATTENTION_BLOCKS = ("dense", "local_attn")
-_LATER = {"moe": "ROADMAP item A9 (MoE)", "ssd": "ROADMAP item A8 (recurrent layers)",
-          "rglru": "ROADMAP item A8 (recurrent layers)"}
+BLOCK_TYPES = ATTENTION_BLOCKS + ("ssd", "rglru")
+_LATER = {"moe": "ROADMAP item A9 (MoE)"}
 
 
 @dataclass(frozen=True)
@@ -111,32 +114,75 @@ class LMConfig:
 
 
 class Block(nn.Module):
-    """``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``; ``local_attn`` adds the
-    sliding window and a ring cache of at most ``local_window`` slots."""
+    """One layer, with the JAX block's key names.  ``dense`` /
+    ``local_attn``: ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``
+    (``local_attn`` adds the sliding window and a ring cache of at most
+    ``local_window`` slots).  ``ssd``: ``x + ssd(ln1(x))``.  ``rglru``:
+    ``x + rec(ln1(x))``, then ``+ mlp(ln2(x))``."""
 
     def __init__(self, cfg: LMConfig, btype: str, device=None):
         super().__init__()
         self.cfg, self.btype = cfg, btype
         dt = cfg.param_dtype
         self.ln1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                              qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-                              dtype=dt, device=device)
-        self.ln2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, dtype=dt, device=device)
+        if btype in ATTENTION_BLOCKS:
+            self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                  qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+                                  dtype=dt, device=device)
+        elif btype == "ssd":
+            self.ssd = SSD(cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                           d_state=cfg.ssm_state, conv_width=cfg.conv_width, dtype=dt,
+                           device=device)
+        else:
+            self.rec = RGLRU(cfg.d_model, cfg.rnn_width or cfg.d_model,
+                             conv_width=cfg.conv_width, dtype=dt, device=device)
+        if btype != "ssd":
+            self.ln2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, dtype=dt,
+                           device=device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Each sub-layer's JAX shapes and scales (the norms keep their ones)."""
+        for name in ("attn", "ssd", "rec", "mlp"):
+            if hasattr(self, name):
+                getattr(self, name).init_weights(generator)
+
+    def init_cache(self, batch: int, cache_len: int, device) -> dict:
+        """An empty decode cache of this layer's type (the JAX shapes)."""
+        cfg = self.cfg
+        if self.btype == "ssd":
+            return init_ssd_cache(batch, cfg.d_model, expand=cfg.ssm_expand,
+                                  headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                                  conv_width=cfg.conv_width, dtype=cfg.compute_dtype,
+                                  device=device)
+        if self.btype == "rglru":
+            return init_rglru_cache(batch, cfg.rnn_width or cfg.d_model,
+                                    conv_width=cfg.conv_width, dtype=cfg.compute_dtype,
+                                    device=device)
+        if self.btype == "local_attn":
+            cache_len = min(cache_len, cfg.local_window)
+        return init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.hd, cfg.cache_dtype, device)
 
     def forward(self, x, *, cache, pos_offset, make_cache_len):
         cfg = self.cfg
-        window = cfg.local_window if self.btype == "local_attn" else None
-        mcl = make_cache_len
-        if window is not None and mcl is not None:
-            mcl = min(mcl, window)
-        a, new_cache = self.attn(
-            self.ln1(x), window=window, pos_offset=pos_offset, cache=cache,
-            make_cache_len=mcl, cache_dtype=cfg.cache_dtype, impl=cfg.attn_impl,
-            chunk=cfg.attn_chunk,
-            scores_dtype=torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32)
-        x = x + a
+        if self.btype == "ssd":
+            y, new_cache = self.ssd(self.ln1(x), chunk=cfg.ssm_chunk, cache=cache,
+                                    make_cache=make_cache_len is not None)
+            return x + y, new_cache
+        if self.btype == "rglru":
+            y, new_cache = self.rec(self.ln1(x), cache=cache,
+                                    make_cache=make_cache_len is not None)
+        else:
+            window = cfg.local_window if self.btype == "local_attn" else None
+            mcl = make_cache_len
+            if window is not None and mcl is not None:
+                mcl = min(mcl, window)
+            y, new_cache = self.attn(
+                self.ln1(x), window=window, pos_offset=pos_offset, cache=cache,
+                make_cache_len=mcl, cache_dtype=cfg.cache_dtype, impl=cfg.attn_impl,
+                chunk=cfg.attn_chunk,
+                scores_dtype=torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32)
+        x = x + y
         return x + self.mlp(self.ln2(x)), new_cache
 
 
@@ -151,7 +197,7 @@ class LM(nn.Module):
         for t in set(cfg.block_pattern):
             if t in _LATER:
                 raise NotImplementedError(f"block type {t!r} is not ported yet: {_LATER[t]}")
-            if t not in ATTENTION_BLOCKS:
+            if t not in BLOCK_TYPES:
                 raise ValueError(f"unknown block type {t}")
         device = resolve_device(device)
         self.cfg = cfg
@@ -170,11 +216,10 @@ class LM(nn.Module):
         return self.final_norm.scale.device
 
     def init_caches(self, batch: int, cache_len: int) -> List[dict]:
-        cfg = self.cfg
-        return [init_kv_cache(batch, min(cache_len, cfg.local_window)
-                              if blk.btype == "local_attn" else cache_len,
-                              cfg.n_kv_heads, cfg.hd, cfg.cache_dtype, self.device)
-                for blk in self.blocks]
+        """Empty decode caches, one per layer in layer order: KV caches
+        (ring caches of ``local_window`` slots for ``local_attn``), SSD
+        and RG-LRU states with their conv histories."""
+        return [blk.init_cache(batch, cache_len, self.device) for blk in self.blocks]
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
@@ -197,8 +242,8 @@ class LM(nn.Module):
                 pos_offset: int = 0, make_cache_len: Optional[int] = None,
                 last_only: bool = False) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """Returns (logits fp32 (B, S, V), new caches or None).  With
-        ``caches`` (decode) each layer's new K/V is written into its cache
-        in place.  ``last_only=True`` computes logits for the final
+        ``caches`` (decode) each attention layer's new K/V is written into
+        its cache in place; the recurrent layers return new states.  ``last_only=True`` computes logits for the final
         position only (prefill: no (B, S, V) tensor)."""
         x = self.embed_inputs(batch)
         new_caches = []
@@ -218,7 +263,8 @@ class LM(nn.Module):
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
     """A model with random weights of the shapes and scales of
     ``repro.models.lm.init_params``: normal · 0.02 embeddings and head,
-    normal / √fan-in projections, unit norm scales, on ``device``
+    normal / √fan-in projections, unit norm scales, the recurrent layers'
+    constants and conv scales (see their ``init_weights``), on ``device``
     (``None``: CUDA, raising without a card).  The numbers come from a
     ``torch.Generator`` on that device seeded with ``seed``; they cannot
     match ``jax.random`` (load those with ``convert``)."""
@@ -228,8 +274,7 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
     if model.embed is not None:
         init_normal_(model.embed, 0.02, gen)
     for blk in model.blocks:
-        blk.attn.init_weights(gen)
-        blk.mlp.init_weights(gen)
+        blk.init_weights(gen)
     if model.lm_head is not None:
         init_normal_(model.lm_head, 0.02, gen)
     return model

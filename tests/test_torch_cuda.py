@@ -25,7 +25,9 @@ from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import kmeans_assign as tkm  # noqa: E402
 from repro_torch.kernels import knn_topk as tknn  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rglru_scan as trglru  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
@@ -163,7 +165,12 @@ def test_rmsnorm_matches_plain(cuda, shape, xdt, sdt):
                                   (1, 4, 2, 300, 300, 64, True, 100),
                                   (1, 16, 1, 100, 100, 64, True, None),
                                   (1, 48, 1, 64, 64, 128, True, None),
-                                  (1, 4, 2, 65, 65, 16, False, 9)])
+                                  (1, 4, 2, 65, 65, 16, False, 9),
+                                  (2, 4, 1, 130, 130, 32, True, 16),
+                                  (1, 4, 2, 40, 90, 32, False, None),
+                                  (1, 16, 1, 200, 200, 256, True, 64),
+                                  (2, 2, 1, 77, 77, 256, True, None),
+                                  (1, 2, 2, 30, 70, 256, False, None)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain(cuda, case, dtype):
     B, H, K, Sq, Skv, d, causal, window = case
@@ -192,6 +199,118 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tflash.flash_attention_cuda(x[..., :12], x[..., :12], x[..., :12])   # d = 12
     with pytest.raises(ValueError):
         tflash.flash_attention_cuda(x.transpose(2, 3), x, x)
+
+
+@pytest.mark.parametrize("B,S,R", [(8, 512, 4096), (2, 33, 100), (1, 1, 37), (3, 9, 4097)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_matches_plain(cuda, B, S, R, dtype, with_h0):
+    rng = np.random.default_rng(B * S + R)
+    log_a = -np.log1p(np.exp(rng.standard_normal((B, S, R)))).astype(np.float32)
+    b = rng.standard_normal((B, S, R)).astype(np.float32)
+    la, bb = (torch.from_numpy(a).to(cuda).to(dtype) for a in (log_a, b))
+    h0 = torch.from_numpy(rng.standard_normal((B, R)).astype(np.float32)).to(cuda) \
+        if with_h0 else None
+    y, h = trglru.rglru_scan_cuda(la, bb, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32 and h.shape == (B, R)
+    py, ph = trglru.rglru_scan_plain(la, bb, h0)
+    _close(y, py)
+    # the fp32 state: the kernel's fmaf and expf against exp, *, + on
+    # the same values, over up to 512 contracting steps
+    torch.testing.assert_close(h, ph, rtol=1e-5, atol=1e-5)
+    assert _same((y, h), trglru.rglru_scan_cuda(la, bb, h0))
+
+
+def _ssd_args(dev, B, S, H, P, N, dtype, seed, dt_range=None):
+    """x, B and C as views into one (B, S, H*P + 2N) tensor, as the SSD
+    layer passes them; dt = softplus(normal) or uniform in ``dt_range``."""
+    rng = np.random.default_rng(seed)
+    packed = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * N)).astype(np.float32))
+    packed = packed.to(dev).to(dtype)
+    x = packed[..., :H * P].reshape(B, S, H, P)
+    if dt_range is None:
+        dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    else:
+        dt = rng.uniform(*dt_range, size=(B, S, H))
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    dt = torch.from_numpy(dt.astype(np.float32)).to(dev)
+    return x, dt, A, packed[..., H * P:H * P + N], packed[..., H * P + N:]
+
+
+def _close_ssd(got, want):
+    """The kernel steps the recurrence; the plain version forms
+    exp(cs_i - cs_j) from fp32 cumulative sums over up to a chunk of
+    steps, whose rounding is relative to |cs|: within 1e-4 of the largest
+    value, and 1e-4 relative."""
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 512, 8, 64, 128, 256), (1, 543, 4, 64, 128, 256),
+                                             (2, 77, 3, 40, 100, 32), (1, 5, 2, 8, 16, 8),
+                                             (2, 300, 2, 16, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+    args = _ssd_args(cuda, B, S, H, P, N, dtype, seed=S + P + N)
+    assert not args[0].is_contiguous()
+    y, st = tssd.ssd_scan_cuda(*args)
+    assert y.shape == (B, S, H, P) and st.shape == (B, H, P, N) and y.dtype == torch.float32
+    py, pst = tssd.ssd_scan_plain(*args, chunk=chunk)
+    _close_ssd(y, py)
+    _close_ssd(st, pst)
+    assert _same((y, st), tssd.ssd_scan_cuda(*args))
+
+
+@pytest.mark.parametrize("dt_range", [(0.0, 1e-3), (5.0, 20.0)], ids=["decay~1", "decay~0"])
+def test_ssd_scan_extreme_decays(cuda, dt_range):
+    args = _ssd_args(cuda, 2, 300, 4, 64, 128, torch.bfloat16, seed=7, dt_range=dt_range)
+    y, st = tssd.ssd_scan_cuda(*args)
+    py, pst = tssd.ssd_scan_plain(*args, chunk=256)
+    _close_ssd(y, py)
+    _close_ssd(st, pst)
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    z = torch.zeros((2, 3, 5), device=cuda)
+    with pytest.raises(TypeError):
+        trglru.rglru_scan_cuda(z.half(), z)
+    with pytest.raises(ValueError):
+        trglru.rglru_scan_cuda(z.transpose(0, 1).contiguous().transpose(0, 1), z)
+    x, dt, A, bm, cm = _ssd_args(cuda, 1, 4, 2, 8, 16, torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan_cuda(x, dt, A, bm.bfloat16(), cm)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan_cuda(x, dt.double(), A, bm, cm)
+    with pytest.raises(ValueError):
+        tssd.ssd_scan_cuda(x.transpose(2, 3), dt, A, bm, cm)
+    wide = torch.zeros((1, 4, 129), device=cuda)
+    with pytest.raises(ValueError):
+        tssd.ssd_scan_cuda(x, dt, A, wide, wide)                      # N > 128
+
+
+@pytest.mark.parametrize("arch,kernel", [("mamba2-780m", "ssd_scan"),
+                                         ("recurrentgemma-9b", "rglru_scan")])
+def test_recurrent_serve_on_the_card_matches_the_cpu(cuda, arch, kernel):
+    """The reduced recurrent models (fp32) served on the card and on the CPU
+    from the same weights give the same tokens (every step's top-2 margin
+    is above 2.5e-3 on the CPU), through the scan kernels."""
+    cfg = get_config(arch, reduced=True)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.init_params(cfg, seed=0, device="cpu").to(cuda)
+    kw = dict(batch=2, prompt_len=40, gen_len=6, seed=0)
+    on_cpu = serve.serve_batch(cfg, device="cpu", params=cpu_model, **kw)
+    ops.reset_launch_counts()
+    on_card = serve.serve_batch(cfg, device=cuda, params=card_model, **kw)
+    counts = ops.launch_counts()
+    kinds = [blk.btype for blk in card_model.blocks]
+    assert counts["ssd_scan"] == kinds.count("ssd")
+    assert counts["rglru_scan"] == kinds.count("rglru")
+    assert counts["flash_attention"] == kinds.count("local_attn")
+    assert counts[kernel] > 0
+    np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])
+    prompts = serve.make_prompts(cfg, 2, 40, 0)
+    torch.testing.assert_close(serve.replay_logits(card_model, prompts, on_card["tokens"]).cpu(),
+                               serve.replay_logits(cpu_model, prompts, on_cpu["tokens"]),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_serve_on_the_card_matches_the_cpu(cuda):

@@ -57,9 +57,12 @@ def test_port_files_exist():
                  "kernels/rmsnorm.py", "kernels/flash_attention.py", "layers/norms.py",
                  "layers/rope.py", "layers/mlp.py", "layers/attention.py", "models/lm.py",
                  "models/convert.py", "configs/__init__.py", "configs/qwen3_0_6b.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "kernels/rglru_scan.py", "kernels/ssd_scan.py",
+                 "layers/rglru.py", "layers/ssd.py", "configs/mamba2_780m.py",
+                 "configs/recurrentgemma_9b.py"):
         assert want in names
-    for src in ("knn_topk.cu", "kmeans_assign.cu", "rmsnorm.cu", "flash_attention.cu"):
+    for src in ("knn_topk.cu", "kmeans_assign.cu", "rmsnorm.cu", "flash_attention.cu",
+                "rglru_scan.cu", "ssd_scan.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src))
 
 

@@ -24,12 +24,16 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.kmeans_assign import kmeans_assign as pallas_kmeans_assign  # noqa: E402
 from repro.kernels.knn_topk import knn_topk as pallas_knn_topk  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import kmeans_assign as tkm  # noqa: E402
 from repro_torch.kernels import knn_topk as tknn  # noqa: E402
+from repro_torch.kernels import rglru_scan as trglru  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 
 
 def _knn_inputs(seed, m, n, d, integer):
@@ -167,9 +171,17 @@ def test_ops_dispatch_by_device_and_count_only_kernel_launches():
     ops.rmsnorm(x2, x2[0])
     q = torch.zeros((1, 2, 5, 16))
     ops.flash_attention(q, q[:, :1], q[:, :1])
+    la, b = torch.zeros((2, 3, 5)), torch.ones((2, 3, 5))
+    y, h = ops.rglru_scan(la, b)
+    assert torch.equal(y[:, -1], torch.full((2, 5), 3.0)) and torch.equal(h, y[:, -1])
+    y, st = ops.ssd_scan(torch.ones((1, 4, 2, 3)), torch.ones((1, 4, 2)), -torch.ones(2),
+                         torch.ones((1, 4, 5)), torch.ones((1, 4, 5)), chunk=2)
+    assert y.shape == (1, 4, 2, 3) and st.shape == (1, 2, 3, 5) and y.dtype == torch.float32
     # plain versions never count
     assert ops.launch_counts() == {"knn_topk": 0, "kmeans_assign": 0, "rmsnorm": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+    with pytest.raises(ValueError):
+        ops.rglru_scan(la, b, torch.zeros((2, 5), device="meta"))
     with pytest.raises(ValueError):
         ops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c).to("meta"))
 
@@ -189,6 +201,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_without_building():
     q = torch.zeros((1, 2, 5, 16))
     with pytest.raises(ValueError, match="CUDA"):
         tflash.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        trglru.rglru_scan_cuda(torch.zeros((2, 3, 5)), torch.zeros((2, 3, 5)))
+    x, bm = torch.zeros((1, 4, 2, 3)), torch.zeros((1, 4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan_cuda(x, torch.zeros((1, 4, 2)), -torch.ones(2), bm, bm)
     assert _build._lib is None
 
 
@@ -318,3 +335,130 @@ def test_flash_attention_argument_checks():
         ops.flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError):
         ops.rmsnorm(q, torch.ones(8))                      # scale width
+
+
+# ------------------------------------------------------------------ rglru_scan
+# (B, S, R, block_r of the Pallas run): R a multiple of the block; R = 100
+# and 37 off it (the Pallas wrapper pads R, the port's versions do not)
+RGLRU_CASES = [(2, 24, 64, 32), (1, 33, 100, 64), (3, 8, 37, 16)]
+
+
+def _rglru_inputs(B, S, R, seed):
+    rng = np.random.default_rng(seed)
+    log_a = -np.log1p(np.exp(rng.standard_normal((B, S, R)))).astype(np.float32)
+    return (log_a, rng.standard_normal((B, S, R)).astype(np.float32),
+            rng.standard_normal((B, R)).astype(np.float32))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=[str(c) for c in RGLRU_CASES])
+def test_rglru_scan_plain_matches_pallas_and_ref_fp32(case, with_h0):
+    B, S, R, blk = case
+    la, b, h0 = _rglru_inputs(B, S, R, sum(case))
+    h0 = h0 if with_h0 else None
+    y, hT = ops.rglru_scan(torch.from_numpy(la), torch.from_numpy(b),
+                           None if h0 is None else torch.from_numpy(h0))
+    assert y.dtype == torch.float32 and hT.dtype == torch.float32 and hT.shape == (B, R)
+    pal_y, pal_h = pallas_rglru(jnp.asarray(la), jnp.asarray(b),
+                                None if h0 is None else jnp.asarray(h0), block_r=blk,
+                                interpret=True)
+    ref_y, ref_h = jref.rglru_scan_ref(jnp.asarray(la), jnp.asarray(b),
+                                       None if h0 is None else jnp.asarray(h0))
+    # the same fp32 steps in the same order: exp and a*h + b may round an
+    # ulp apart between the frameworks, over <= 33 contracting steps
+    for want_y, want_h in ((pal_y, pal_h), (ref_y, ref_h)):
+        np.testing.assert_allclose(y.numpy(), _np(want_y), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(hT.numpy(), _np(want_h), rtol=1e-6, atol=1e-6)
+
+
+def test_rglru_scan_plain_matches_pallas_bf16():
+    """bf16 log_a and b: y in bf16 (each step's fp32 state rounded), h_T in
+    fp32."""
+    la, b, h0 = _rglru_inputs(2, 24, 100, 5)
+    (lat, laj), (bt, bj) = _bf16_pair(la), _bf16_pair(b)
+    y, hT = ops.rglru_scan(lat, bt, torch.from_numpy(h0))
+    assert y.dtype == torch.bfloat16 and hT.dtype == torch.float32
+    pal_y, pal_h = pallas_rglru(laj, bj, jnp.asarray(h0), block_r=64, interpret=True)
+    assert pal_y.dtype == jnp.bfloat16
+    # the fp32 states agree to an ulp or so (above), so the bf16 outputs
+    # are within one bf16 rounding step
+    np.testing.assert_allclose(_np(y), _np(pal_y), rtol=BF16_STEP, atol=1e-6)
+    np.testing.assert_allclose(hT.numpy(), _np(pal_h), rtol=1e-6, atol=1e-6)
+
+
+# -------------------------------------------------------------------- ssd_scan
+# (B, S, H, P, N, chunk): chunk divides S; S ragged against the chunk; S
+# shorter than the chunk (one chunk of S)
+SSD_CASES = [(2, 24, 3, 8, 16, 8), (1, 24, 2, 16, 8, 10), (2, 13, 2, 4, 4, 32)]
+
+
+def _ssd_inputs(B, S, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)   # softplus
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    return (rng.standard_normal((B, S, H, P)).astype(np.float32), dt, A,
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_ssd_scan_plain_matches_pallas_and_ref_fp32(case):
+    *shape, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(*shape, seed=sum(case))
+    y, st = ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), chunk=chunk)
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    assert st.shape == (shape[0], shape[2], shape[3], shape[4])
+    pal = pallas_ssd(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), chunk=chunk,
+                     interpret=True)
+    ref_y, ref_st = jref.ssd_scan_ref(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)))
+    # fp32: the chunked form's exp(cs_i - cs_j) of cumulative sums against
+    # the per-step products of the reference, sums in other orders
+    np.testing.assert_allclose(y.numpy(), _np(pal), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), _np(ref_y), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), _np(ref_st), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", SSD_CASES[:2], ids=[str(c) for c in SSD_CASES[:2]])
+def test_ssd_scan_plain_matches_pallas_bf16(case):
+    """bf16 x, B and C (dt and A fp32, as the layer passes them): the port
+    returns an fp32 y, the Pallas kernel y in bf16 — compared in bf16."""
+    *shape, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(*shape, seed=sum(case) + 1)
+    (xt, xj), (bt, bj), (ct, cj) = (_bf16_pair(a) for a in (x, Bm, Cm))
+    y, st = ops.ssd_scan(xt, torch.from_numpy(dt), torch.from_numpy(A), bt, ct, chunk=chunk)
+    assert y.dtype == torch.float32
+    pal = pallas_ssd(xj, jnp.asarray(dt), jnp.asarray(A), bj, cj, chunk=chunk, interpret=True)
+    assert pal.dtype == jnp.bfloat16
+    # the fp32 results agree to ~1e-5 (above): one bf16 rounding step apart
+    np.testing.assert_allclose(_np(y.to(torch.bfloat16)), _np(pal), rtol=BF16_STEP, atol=1e-5)
+    _, ref_st = jref.ssd_scan_ref(xj, jnp.asarray(dt), jnp.asarray(A), bj, cj)
+    np.testing.assert_allclose(st.numpy(), _np(ref_st), rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_scan_plain_takes_strided_views_and_any_chunk():
+    """The SSD layer passes x, B and C as views into its conv output; the
+    chunk length does not change the function (fp32 rounding aside)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(2, 20, 3, 4, 5, seed=9)
+    packed = torch.from_numpy(np.concatenate([x.reshape(2, 20, 12), Bm, Cm], axis=-1))
+    views = (packed[..., :12].reshape(2, 20, 3, 4), torch.from_numpy(dt), torch.from_numpy(A),
+             packed[..., 12:17], packed[..., 17:])
+    assert not views[0].is_contiguous()
+    want = ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), chunk=8)
+    assert all(torch.equal(a, b) for a, b in zip(ops.ssd_scan(*views, chunk=8), want))
+    for chunk in (1, 3, 20, 64):
+        for got, ref in zip(ops.ssd_scan(*views, chunk=chunk), want):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_scan_argument_checks():
+    with pytest.raises(ValueError):
+        ops.rglru_scan(torch.zeros((2, 3, 5)), torch.zeros((2, 3, 4)))
+    with pytest.raises(ValueError):
+        ops.rglru_scan(torch.zeros((2, 3, 5)), torch.zeros((2, 3, 5)), torch.zeros((2, 4)))
+    x = torch.zeros((1, 4, 2, 3))
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, torch.zeros((1, 4, 3)), -torch.ones(2), torch.zeros((1, 4, 5)),
+                     torch.zeros((1, 4, 5)))
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, torch.zeros((1, 4, 2)), -torch.ones(2), torch.zeros((1, 4, 5)),
+                     torch.zeros((1, 4, 6)))

@@ -193,6 +193,10 @@ FAMILIES = {
     "audio": dict(input_mode="embeds", vocab_size=64),
     "local_tied": dict(block_pattern=("dense", "local_attn"), local_window=3, n_layers=5,
                        tie_embeddings=True),
+    # tests/test_models.py's recurrent families
+    "ssd": dict(block_pattern=("ssd",), ssm_state=16, ssm_headdim=8, ssm_chunk=4),
+    "hybrid": dict(n_layers=7, block_pattern=("rglru", "rglru", "local_attn"), rnn_width=32,
+                   local_window=4),
 }
 
 
@@ -255,21 +259,26 @@ def test_prefill_decode_matches_full_forward(fam):
     assert torch.equal(last, logits_pre[:, -1:])
 
 
-def test_token_by_token_decode_from_empty_caches_matches_full_forward():
-    """``init_caches`` has the JAX caches' shapes (ring caches of
-    ``local_window`` slots for ``local_attn``), and decoding one token at
-    a time from them reproduces the full forward."""
-    jcfg, cfg, _, model = _family("local_tied")
+@pytest.mark.parametrize("fam", ["local_tied", "ssd", "hybrid"])
+def test_token_by_token_decode_from_empty_caches_matches_full_forward(fam):
+    """``init_caches`` has the JAX caches' shapes and values (ring caches of
+    ``local_window`` slots for ``local_attn``, zero SSD / RG-LRU states and
+    conv histories), and decoding one token at a time from them
+    reproduces the full forward."""
+    jcfg, cfg, _, model = _family(fam)
     caches = model.init_caches(2, 8)
     jcaches = jlm.init_caches(jcfg, 2, 8)
     period = len(cfg.block_pattern)
     for i, cache in enumerate(caches):
         want = jcaches["tail"][i - cfg.n_super * period] if i >= cfg.n_super * period \
             else jax.tree.map(lambda a: a[i // period], jcaches["scan"][f"b{i % period}"])
-        assert {k: tuple(v.shape) for k, v in cache.items()} == \
-            {k: tuple(v.shape) for k, v in want.items()}
-        assert torch.equal(cache["pos_map"], torch.from_numpy(np.asarray(want["pos_map"])))
-    assert caches[1]["k"].shape[1] == cfg.local_window
+        assert cache.keys() == want.keys()
+        for key in cache:
+            assert tuple(cache[key].shape) == tuple(want[key].shape)
+            assert str(cache[key].dtype).removeprefix("torch.") == np.asarray(want[key]).dtype.name
+            assert np.array_equal(cache[key].float().numpy(), _np(want[key]))
+        if model.blocks[i].btype == "local_attn":
+            assert cache["k"].shape[1] == cfg.local_window
     batch = _t(_batch(cfg, 2, 8))
     with torch.no_grad():
         full, _ = model(batch)
@@ -319,8 +328,53 @@ def test_model_needs_a_card_unless_asked_for_the_cpu():
     assert lm.LM(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "A9"), ("mamba2-780m", "A8"),
-                                       ("recurrentgemma-9b", "A8")])
+@pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "A9")])
 def test_later_block_types_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         lm.LM(configs.get_config(arch, reduced=True))
+
+
+@pytest.mark.parametrize("arch,n_params", [("mamba2-780m", 857_379_072),
+                                           ("recurrentgemma-9b", 9_572_782_080)])
+def test_recurrent_models_at_full_width_have_the_jax_shapes_and_dtypes(arch, n_params):
+    """Every parameter of the full-width model (built on the meta device:
+    nothing is allocated) has the shape and dtype of the JAX leaf that
+    ``convert`` maps onto it — from ``jax.eval_shape`` of ``init_params``,
+    whose leaves stand in as zero-stride NumPy views."""
+    shapes = jax.eval_shape(lambda: jlm.init_params(jconfigs.get_config(arch),
+                                                    jax.random.PRNGKey(0)))
+    tree = jax.tree.map(lambda a: np.broadcast_to(np.zeros((), a.dtype), a.shape), shapes)
+    model = lm.LM(configs.get_config(arch), device="meta")
+    flat = convert.flat_jax_params(model, tree)
+    params = dict(model.named_parameters())
+    assert flat.keys() == params.keys()
+    for name, p in params.items():
+        assert (tuple(p.shape), str(p.dtype).removeprefix("torch.")) == \
+            (flat[name].shape, flat[name].dtype.name), name
+    assert sum(p.numel() for p in params.values()) == n_params
+    fp32 = {n.split(".")[-1] for n, p in params.items() if p.dtype == torch.float32}
+    assert fp32 == ({"A_log", "D", "dt_bias"} if arch == "mamba2-780m"
+                    else {"lam", "w_r", "b_r", "w_i", "b_i"})
+
+
+def test_converter_refuses_a_leaf_of_another_dtype():
+    """A bf16 model keeps the RG-LRU's gate parameters in fp32: they load
+    from the JAX bf16 tree exactly, and a leaf whose dtype differs from
+    its parameter's is refused, either way round."""
+    arch = "recurrentgemma-9b"
+    jcfg = dataclasses.replace(jconfigs.get_config(arch, reduced=True), param_dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True), param_dtype=torch.bfloat16)
+    tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    model = convert.load_jax_params(lm.LM(cfg, device="cpu"), tree)
+    lam = model.blocks[0].rec.lam
+    assert lam.dtype == torch.float32
+    assert np.array_equal(lam.detach().numpy(), tree["scan"]["b0"]["rec"]["lam"][0])
+    assert model.blocks[0].rec.w_x.dtype == torch.bfloat16
+    wide = jax.tree.map(lambda a: a, tree)
+    wide["scan"]["b0"]["rec"]["w_x"] = tree["scan"]["b0"]["rec"]["w_x"].astype(np.float32)
+    with pytest.raises(TypeError, match="w_x"):
+        convert.load_jax_params(lm.LM(cfg, device="cpu"), wide)
+    narrow = jax.tree.map(lambda a: a, tree)
+    narrow["tail"][0]["rec"]["lam"] = tree["tail"][0]["rec"]["lam"].astype(jnp.bfloat16)
+    with pytest.raises(TypeError, match="lam"):
+        convert.load_jax_params(lm.LM(cfg, device="cpu"), narrow)
