@@ -243,8 +243,9 @@ class LM(nn.Module):
                 last_only: bool = False) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """Returns (logits fp32 (B, S, V), new caches or None).  With
         ``caches`` (decode) each attention layer's new K/V is written into
-        its cache in place; the recurrent layers return new states.  ``last_only=True`` computes logits for the final
-        position only (prefill: no (B, S, V) tensor)."""
+        its cache in place; the recurrent layers return new states.
+        ``last_only=True`` computes logits for the final position only
+        (prefill: no (B, S, V) tensor)."""
         x = self.embed_inputs(batch)
         new_caches = []
         for i, blk in enumerate(self.blocks):

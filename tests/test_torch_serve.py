@@ -2,8 +2,9 @@
 
 ``repro_torch.launch.serve.serve_batch(device="cpu")`` and
 ``repro.launch.serve.serve_batch`` serve qwen3-0.6b, mamba2-780m and
-recurrentgemma-9b (reduced) from the same parameters — the JAX ``init_params`` tree for the seed, carried across by
-``load_jax_params`` — and the same prompts.  Greedy decoding must pick
+recurrentgemma-9b (reduced) from the same parameters — the JAX
+``init_params`` tree for the seed, carried across by ``load_jax_params``
+— and the same prompts.  Greedy decoding must pick
 the same tokens; the test first checks that every step's top-2 logit
 margin is far above the fp32 differences between the two stacks, so a
 near-tie cannot decide it.
