@@ -11,6 +11,10 @@ failure raises (the script then exits non-zero without a result):
 1. device  — name, compute capability (>= 9.0), nvidia-smi's name and
              power limit;
 2. build   — nvcc builds the port's kernels from ``src/repro_torch/csrc``;
+             the toolkit's ``cuobjdump -sass`` counts the tensor-core
+             instructions (HMMA / HGMMA) of the bf16 flash kernel at every
+             head dim and of the knn tile kernel, which must be non-zero,
+             and ptxas must report 0 spill bytes for them;
 3. kernels — each hand-written kernel against its plain PyTorch version
              on the card: exactly on integer-valued inputs (ties
              included), within stated tolerances on random normal inputs
@@ -44,6 +48,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -56,6 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
 PEAK_FP32_FLOPS = 67e12        # fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12       # TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12     # HBM3
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 
@@ -95,6 +102,10 @@ class Phase:
         return False
 
 
+class NoDeviceActivity(RuntimeError):
+    """The profiler recorded no CUDA activity in a window."""
+
+
 def device_kernels(fn):
     """(fn's result, {kernel: [device ms, launches]}) of one call of ``fn``,
     from torch.profiler's CUDA activity.  Raises where the profiler sees
@@ -111,7 +122,7 @@ def device_kernels(fn):
         if us > 0:
             table[e.key] = [us / 1e3, e.count]
     if not table:
-        raise RuntimeError("torch.profiler saw no device activity")
+        raise NoDeviceActivity("torch.profiler saw no device activity")
     return out, table
 
 
@@ -119,13 +130,18 @@ def device_ms(fn, reps: int, warmup: int = 2, tries: int = 3) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed,
     averaged over ``reps`` calls after ``warmup`` calls.  Every call
     launches the same kernels, so each kernel's event count must be a
-    multiple of ``reps``; where it is not, the profiler lost events (seen
-    on the H100: a 5 us kernel read 0.9 us, SDPA above the card's peak),
-    and the window is profiled again, up to ``tries`` times."""
+    multiple of ``reps``; where it is not, or the window holds no device
+    activity at all, the profiler lost events (both seen on the H100: a
+    5 us kernel read 0.9 us, SDPA above the card's peak, an SDPA window
+    empty), and the window is profiled again, up to ``tries`` times."""
     for _ in range(warmup):
         fn()
+    table = {}
     for _ in range(tries):
-        _, table = device_kernels(lambda: [fn() for _ in range(reps)])
+        try:
+            _, table = device_kernels(lambda: [fn() for _ in range(reps)])
+        except NoDeviceActivity:
+            continue
         if all(n % reps == 0 for _, n in table.values()):
             return sum(ms for ms, _ in table.values()) / reps
     raise RuntimeError(f"torch.profiler lost events in {tries} windows of {reps} calls: "
@@ -162,6 +178,65 @@ def task_seconds(rt) -> dict:
     Kernels launch asynchronously: their device time lands in whichever
     later task waits on the card."""
     return {name: st["total"] for name, st in rt.tracer.task_duration_stats().items()}
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: {"registers", "spill_stores", "spill_loads"}} from the
+    ``-Xptxas -v`` lines of the build log."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            report[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report[fn]["registers"] = int(m.group(1))
+    return report
+
+
+def tensor_core_counts(lib_path: str) -> dict:
+    """{function: its HMMA / HGMMA instructions} in the built library's
+    SASS, from the toolkit's ``cuobjdump -sass``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : ([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+# the redesigned tensor-core kernels: (name in the report, pattern of the
+# mangled name); each must hold tensor-core instructions and spill nothing
+TENSOR_CORE_KERNELS = [(f"flash_fwd_bf16_tc<{d}>", rf"flash_fwd_bf16_tcILi{d}E")
+                       for d in (16, 32, 64, 128, 256)] + \
+                      [(f"knn_chunk_topk<{kb}>", rf"knn_chunk_topkILi{kb}E") for kb in (8, 16, 32)]
+
+
+def check_tensor_core_build(log: str, lib_path: str) -> dict:
+    """Per redesigned kernel: its HMMA/HGMMA count, registers and spill
+    bytes; raises where a count is 0 or a spill is not."""
+    counts, ptxas = tensor_core_counts(lib_path), ptxas_report(log)
+    out = {}
+    for name, pattern in TENSOR_CORE_KERNELS:
+        fns = [f for f in counts if re.search(pattern, f)]
+        assert len(fns) == 1, f"{name}: {len(fns)} functions in the SASS match {pattern}"
+        info = ptxas.get(fns[0], {})
+        out[name] = {"mma": counts[fns[0]], **info}
+        assert counts[fns[0]] > 0, f"{name} holds no tensor-core instruction"
+        assert info.get("spill_stores") == 0 and info.get("spill_loads") == 0, \
+            f"{name} spills: {info}"
+    return out
 
 
 def bitwise_equal(a, b) -> bool:
@@ -215,12 +290,15 @@ def check_knn(knn_k, gen, cuda):
     test, train, labels, err = normal_case(m, n, d, k)
     t = times(lambda: knn_k.knn_topk_cuda(test, train, labels, k),
               lambda: knn_k.knn_topk_plain(test, train, labels, k), reps=10, plain_reps=3)
-    bound_ms, bound_by = bound(2.0 * m * n * d, 4.0 * (m * d + n * d + n) + 8.0 * m * k)
+    # the kernel's route: three TF32 products per pair on the tensor cores
+    nbytes = 4.0 * (m * d + n * d + n) + 8.0 * m * k
+    bound_ms, bound_by = bound(3 * 2.0 * m * n * d, nbytes, PEAK_TF32_FLOPS)
     return {"name": "knn_topk", "route": "cuda",
             "source": "src/repro_torch/csrc/knn_topk.cu",
             "replaces": "src/repro/kernels/knn_topk.py:86",
             "shape": {"m": m, "n": n, "d": d, "k": k},
-            "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+            "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_fp32_cores": bound(2.0 * m * n * d, nbytes)[0]}
 
 
 def check_kmeans(km_k, gen, cuda):
@@ -642,10 +720,11 @@ def main() -> int:
                        sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     with Phase("build") as ph:
-        _build.library()
+        lib = _build.library()
         ph.info.update(build_seconds=_build.build_seconds, ptxas=[
             line.strip() for line in _build.build_log.splitlines()
             if "Compiling entry" in line or "Used" in line or "spill" in line])
+        ph.info["tensor_cores"] = check_tensor_core_build(_build.build_log, lib._name)
 
     with Phase("kernels") as ph:
         rows = [check_knn(knn_k, gen, cuda), check_kmeans(km_k, gen, cuda),

@@ -1,51 +1,120 @@
 // Fused squared distance + running top-k: the port of the Pallas kernel
-// src/repro/kernels/knn_topk.py :: knn_topk (body `_kernel`), which carries
-// the paper's KNN_frag task.
+// src/repro/kernels/knn_topk.py :: knn_topk (line 86, body `_kernel`),
+// which carries the paper's KNN_frag task.
 //
 // What it computes (the same as the Pallas kernel): for every test row x
 // and training row y, d2 = (|x|^2 - 2 x.y) + |y|^2 in fp32, and per test
 // row the k smallest d2 in ascending order with the labels of their
 // training rows.  Equal distances keep the lower training index first.
 //
-// What bounds it on an H100: arithmetic.  One call does 2*m*n*d flops on
-// m*d + n*d floats, e.g. m=12,500, n=125,000, d=50: 1.6e11 flops against
-// 28 MB, ~2.3 ms at the 67 TFLOP/s fp32 (non-tensor-core) peak against
-// ~0.01 ms of memory traffic.  So the design keeps the FMA pipes fed:
+// What bounds it on an H100: arithmetic.  One call does 2*m*n*d flops of
+// cross term on m*d + n*d floats, e.g. m 12,500, n 125,000, d 50: 1.6e11
+// flops against 28 MB of bytes (8 us at 3.35 TB/s).  On the fp32 CUDA
+// cores (67 TFLOP/s) that is 2.33 ms.  This kernel runs the cross term on
+// the tensor cores in 3xTF32, three TF32 products per pair, whose least
+// time is 3 * 2mnd / 495 TFLOP/s = 0.947 ms.
 //
-// * One block of 128 threads owns 256 test rows, staged once in shared
-//   memory; each thread owns two of them (rows tid and tid + 128) and
-//   accumulates their dot products with 16 training rows at once: per
-//   float4 of the depth, 2 loads of x and 16 broadcast loads of y feed
-//   128 FMAs in 32 independent chains.
-// * Training rows stream through a double-buffered shared tile of 64
-//   rows: `cp.async` copies the next tile (and its labels and |y|^2,
-//   from a pre-pass) while the current one is consumed, so global
-//   latency hides behind arithmetic.  The copy walks each thread's
-//   (row, column) without integer divisions.
-// * Each test row keeps a sorted register top-K (K = 8, 16 or 32, the
-//   smallest >= k).  A candidate enters with a strict `<`, so an equal
-//   distance from a later training row never displaces an earlier one —
-//   the Pallas kernel's tie rule.
+// Why 3xTF32.  A TF32 operand keeps 10 of fp32's 23 mantissa bits, so a
+// single TF32 product is off by ~1e-3 relative: at d 50 a distance moves
+// by ~0.03, far outside the rtol 1e-5 / atol 1e-3 it is held to.  Each
+// value is split as hi = tf32(v) and lo = tf32(v - hi) (rounded to
+// nearest, ties away, as `cvt.rna` rounds; v - hi is exact in fp32) and
+// x.y is taken as x_lo y_hi + x_hi y_lo + x_hi y_hi with fp32
+// accumulation; what it drops, x_lo y_lo, is ~2^-22 of |x||y|.  Integer
+// values in [-3, 3] are exact in TF32 (lo = 0), so integer-valued inputs
+// keep their exact distances.  tests/test_torch_kernels.py emulates both
+// roundings on the CPU.
+//
+// Design:
+//
+// * One block of 128 threads (4 warps) owns 128 test rows, staged once in
+//   shared memory as fp32; thread tid owns test row tid for the top-k, and
+//   warp w computes the cross terms of its own 32 rows, so a warp only
+//   ever waits for itself between the products and the top-k.
+// * Training rows stream through a double-buffered shared tile of 32 rows:
+//   `cp.async` copies the next tile (with its labels and |y|^2, from a
+//   pre-pass) while the current one is consumed.  Rows sit at a stride of
+//   d rounded up to 8, plus 4 floats, zero-padded: `ldmatrix` then reads
+//   8 rows without bank conflicts.  32-row tiles keep a block at 65 KB at
+//   d 50 (three per SM; 64-row tiles ran 8% slower at two per SM) and
+//   under the 227 KB limit up to d 272.
+// * Per 8-column step of the depth, each warp loads its A fragments (2 x
+//   m16) and the B fragments of the tile's rows (4 x n8) with `ldmatrix`
+//   (a b16 8 x 8 matrix is 8 rows of 4 floats, and lane l receives row
+//   l / 4, float l % 4: the TF32 fragment layout), splits each value into
+//   hi and lo in registers, and issues `mma.sync.m16n8k8` (TF32 in, fp32
+//   accumulate) three times per 16 x 8 tile.  The split is done where a
+//   fragment is loaded rather than stored split: hi/lo tiles of the test
+//   rows or of the training tile cost a block per SM or an extra barrier
+//   per tile, and both ran slower on the H100 (PERF.md).
+// * The warp writes its 32 x 32 cross-term tile to shared memory in fp32,
+//   transposed (a column per training row, stride 36: conflict-free both
+//   ways).  Each thread then walks its row's columns in training-index
+//   order: dist = (|x|^2 - 2 acc) + |y|^2, a test against the current
+//   k-th distance, and a sorted insertion into its register top-K (K = 8,
+//   16 or 32, the smallest >= k) with a strict `<`, so an equal distance
+//   from a later training row never displaces an earlier one (the Pallas
+//   kernel's tie rule) and no index is carried.  Columns go 8 at a time
+//   behind one test of their least distance: after the first tiles almost
+//   none enters, and the 8 then cost one branch.
 // * The training rows are cut into `splits` contiguous chunks (grid.y),
-//   chosen by the wrapper so that the grid fills the card in one wave;
-//   each chunk leaves a top-K per test row in scratch, and a second small
-//   kernel merges the chunks in chunk order with the same strict
+//   chosen by the wrapper so that the grid fills the card in one wave of
+//   resident blocks; each chunk leaves a top-K per test row in scratch, and a second
+//   small kernel merges the chunks in chunk order with the same strict
 //   insertion.  No atomics: the result is bitwise reproducible.
-// The cross term uses CUDA cores, not tensor cores (TF32 would not keep
-// fp32's distances); a wgmma version is later work.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;                  // threads per block
-constexpr int kRowsPerThread = 2;              // test rows per thread
-constexpr int kBlockRows = kThreads * kRowsPerThread;
-constexpr int kGroup = 16;  // training rows a thread accumulates at once
-constexpr int kTile = 64;   // training rows per shared tile (x2 buffers)
+constexpr int kBlockRows = kThreads;           // test rows per block, one per thread
+constexpr int kWarpRows = 32;                  // test rows of one warp's products
+constexpr int kTile = 32;   // training rows per shared tile (x2 buffers)
+constexpr int kSlices = kTile / 8;             // n8 slices of a tile
+constexpr int kLDC = kWarpRows + 4;  // column stride of a warp's cross-term tile
 constexpr float kBig = 1e30f;  // the Pallas kernel's "no candidate" value
+
+// Shared row stride, in floats, of a (rows, d) tile: d rounded up to 8
+// (the depth of one TF32 step), plus 4 (an odd number of float4s, as
+// repro::row_sqnorm wants, and 8 rows on distinct 4-bank groups).
+__host__ __device__ inline int tile_ld(int d) { return (d + 7) / 8 * 8 + 4; }
+
+// v = hi + lo + (what neither keeps), hi and lo TF32, each rounded to
+// nearest with ties away from zero, as `cvt.rna.tf32.f32` rounds a finite
+// value: half of the 13 dropped bits is added to the magnitude.  The
+// tensor core reads only the top 19 bits of a TF32 operand, so the low
+// bits are cleared only where hi's value is needed (v - hi, exact in
+// fp32).  Four integer and float operations per value, where `cvt.rna`
+// compiles to seven with its Inf/NaN guard; the inputs are finite.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) + 0x1000u;
+  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+
+__device__ __forceinline__ uint32_t repro_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices from shared memory, one row address per lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// c += a . b on one 16 x 8 tile, k 8: TF32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // Insert (dv, lv) into the ascending list bd[0..K): it goes before the
 // first entry it is strictly smaller than, the last entry falls off.
@@ -102,8 +171,9 @@ __global__ void row_sqnorms(const float* __restrict__ x, int n, int d,
   out[i] = s;
 }
 
+// One block per SM as the floor of the bound, as in csrc/flash_attention.cu.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
                const int* __restrict__ labels, const float* __restrict__ train_sq,
                int m, int n, int d, int ld, int chunk,
@@ -111,14 +181,16 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // kBlockRows x ld
   float* ys = xs + kBlockRows * ld;             // 2 x kTile x ld
-  float* ysq = ys + 2 * kTile * ld;             // 2 x kTile
+  float* cross = ys + 2 * kTile * ld;           // 4 warps x kTile x kLDC
+  float* ysq = cross + 4 * kTile * kLDC;        // 2 x kTile
   int* yl = reinterpret_cast<int*>(ysq + 2 * kTile);  // 2 x kTile
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;  // fragment row group, column in it
   const int row0 = blockIdx.x * kBlockRows;
   const int n0 = blockIdx.y * chunk;
   const int n1 = min(n, n0 + chunk);
-  const int ld4 = ld / 4;
   const Walk walk{tid / d, tid % d, kThreads / d, kThreads % d};
 
   repro::zero_shared(xs, (kBlockRows + 2 * kTile) * ld);
@@ -141,20 +213,23 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
   __pipeline_wait_prior(1);  // the test rows have landed
   __syncthreads();
 
-  const float4* xr[kRowsPerThread];
-  float xsq[kRowsPerThread];
-  float bd[kRowsPerThread][K];
-  int bl[kRowsPerThread][K];
+  const float xsq = repro::row_sqnorm(reinterpret_cast<const float4*>(xs + tid * ld), ld / 4);
+  float bd[K];
+  int bl[K];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    xr[i] = reinterpret_cast<const float4*>(xs + (tid + i * kThreads) * ld);
-    xsq[i] = repro::row_sqnorm(xr[i], ld4);
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      bd[i][s] = kBig;
-      bl[i][s] = 0;
-    }
+  for (int s = 0; s < K; ++s) {
+    bd[s] = kBig;
+    bl[s] = 0;
   }
+  const int steps = (d + 7) / 8;
+  // ldmatrix row addresses.  A, m-tile i: lane l feeds test row
+  // 16 i + (l & 7) + 8 ((l >> 3) & 1) at column 4 (l >> 4), giving
+  // a0..a3; B, slices j and j + 1: training row 8 j + (l & 7) + 8 (l >> 4)
+  // at column 4 ((l >> 3) & 1), giving b0, b1 of slice j, then of j + 1
+  const uint32_t xa = repro_smem_addr(
+      xs + (warp * kWarpRows + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 4 * (lane >> 4));
+  const int yoff = ((lane & 7) + 8 * (lane >> 4)) * ld + 4 * ((lane >> 3) & 1);
+  float* cw = cross + warp * kTile * kLDC;                 // this warp's cross terms
 
   int buf = 0;
   for (int t0 = n0; t0 < n1; t0 += kTile, buf ^= 1) {
@@ -163,59 +238,87 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
     __pipeline_wait_prior(1);  // this tile has landed
     __syncthreads();
     const int rows = min(kTile, n1 - t0);
-    const float* yt = ys + buf * kTile * ld;
-    const float* qt = ysq + buf * kTile;
-    const int* lt = yl + buf * kTile;
+    const uint32_t ya = repro_smem_addr(ys + buf * kTile * ld + yoff);
 
-    for (int g = 0; g < rows; g += kGroup) {
-      float acc[kRowsPerThread][kGroup];
+    float acc[2][kSlices][4];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int t = 0; t < kGroup; ++t) acc[i][t] = 0.f;
-      for (int j4 = 0; j4 < ld4; ++j4) {
-        float4 xv[kRowsPerThread];
+      for (int j = 0; j < kSlices; ++j)
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) xv[i] = xr[i][j4];
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const uint32_t col = 8 * s * sizeof(float);
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int t = 0; t < kGroup; ++t) {
-          const float4 yv = reinterpret_cast<const float4*>(yt + (g + t) * ld)[j4];
+      for (int i = 0; i < 2; ++i) {
+        uint32_t raw[4];
+        ldsm_x4(raw, xa + 16 * i * ld * sizeof(float) + col);
 #pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) {
-            acc[i][t] = fmaf(xv[i].x, yv.x, acc[i][t]);
-            acc[i][t] = fmaf(xv[i].y, yv.y, acc[i][t]);
-            acc[i][t] = fmaf(xv[i].z, yv.z, acc[i][t]);
-            acc[i][t] = fmaf(xv[i].w, yv.w, acc[i][t]);
-          }
-        }
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), ah[i][e], al[i][e]);
       }
 #pragma unroll
-      for (int t = 0; t < kGroup; ++t) {
-        const int r = g + t;
-        if (r < rows) {
-          const float q = qt[r];
-          const int lab = lt[r];
+      for (int j = 0; j < kSlices; j += 2) {
+        uint32_t raw[4], bh[4], bl[4];
+        ldsm_x4(raw, ya + 8 * j * ld * sizeof(float) + col);
 #pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) {
-            const float dist = (xsq[i] - 2.f * acc[i][t]) + q;
-            if (dist < bd[i][K - 1]) insert_sorted<K>(bd[i], bl[i], dist, lab);
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), bh[e], bl[e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_tf32(acc[i][j + h], al[i], bh[2 * h], bh[2 * h + 1]);
+            mma_tf32(acc[i][j + h], ah[i], bl[2 * h], bl[2 * h + 1]);
+            mma_tf32(acc[i][j + h], ah[i], bh[2 * h], bh[2 * h + 1]);
           }
-        }
       }
     }
-    __syncthreads();  // the buffer is refilled two tiles on
+    // cross terms to shared, a column per training row: element e of
+    // slice j of m-tile i is test row 16 i + g + 8 (e >> 1), training row
+    // 8 j + 2 q + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kSlices; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cw[(8 * j + 2 * q + (e & 1)) * kLDC + 16 * i + g + 8 * (e >> 1)] = acc[i][j][e];
+    __syncwarp();
+
+    // the walk, 8 columns at a time: one test of their least distance
+    // against the k-th skips the 8 unless one of them enters, and then
+    // they go in order (fmaf(-2, a, x) rounds as x - 2 a does: 2 a is exact)
+    const float* qt = ysq + buf * kTile;
+    const int* lt = yl + buf * kTile;
+    const float* ct = cw + lane;
+    int c = 0;
+    for (; c + 8 <= rows; c += 8) {
+      float dist[8], least = kBig;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        dist[u] = fmaf(-2.f, ct[(c + u) * kLDC], xsq) + qt[c + u];
+        least = fminf(least, dist[u]);
+      }
+      if (least < bd[K - 1]) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (dist[u] < bd[K - 1]) insert_sorted<K>(bd, bl, dist[u], lt[c + u]);
+      }
+    }
+    for (; c < rows; ++c) {
+      const float dist = fmaf(-2.f, ct[c * kLDC], xsq) + qt[c];
+      if (dist < bd[K - 1]) insert_sorted<K>(bd, bl, dist, lt[c]);
+    }
+    __syncthreads();  // the buffer is refilled two tiles on; the cross tile rewritten
   }
 
+  const int row = row0 + tid;
+  if (row < m) {
+    const long base = (static_cast<long>(blockIdx.y) * m + row) * K;
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = row0 + tid + i * kThreads;
-    if (row < m) {
-      const long base = (static_cast<long>(blockIdx.y) * m + row) * K;
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        part_d[base + s] = bd[i][s];
-        part_l[base + s] = bl[i][s];
-      }
+    for (int s = 0; s < K; ++s) {
+      part_d[base + s] = bd[s];
+      part_l[base + s] = bl[s];
     }
   }
 }
@@ -258,8 +361,9 @@ cudaError_t launch(const float* test, const float* train, const int* labels,
                    int m, int n, int d, int k, int chunk, int splits,
                    float* train_sq, float* part_d, int* part_l, float* out_d,
                    int* out_l, cudaStream_t stream) {
-  const int ld = repro::padded_ld(d);
-  const size_t smem = static_cast<size_t>(kBlockRows + 2 * kTile) * ld * sizeof(float) +
+  const int ld = tile_ld(d);
+  const size_t smem = (static_cast<size_t>(kBlockRows + 2 * kTile) * ld + 4 * kTile * kLDC) *
+                          sizeof(float) +
                       2 * kTile * (sizeof(float) + sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
       knn_chunk_topk<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -17,11 +17,15 @@ defined output (the Pallas kernel and ``ref.py`` disagree there too).
   the kernel against it.
 * :func:`flash_attention_cuda` — the hand-written CUDA kernel
   (``csrc/flash_attention.cu``, which documents its design and bound):
-  online softmax over streamed K/V blocks, fp32 accumulators.  It takes
-  bf16 or fp32 CUDA tensors whose last axis is contiguous — any strides
-  otherwise, so the attention layer passes ``(B, S, H, d)`` tensors as
-  transposed views without a copy — and returns its output in q's memory
-  layout.
+  online softmax over streamed K/V blocks, fp32 accumulators.  bf16
+  tensors go to its tensor-core route (``mma.sync`` with bf16 operands; P
+  split into two bf16 terms so that P·V keeps fp32-grade weights), fp32
+  tensors to its CUDA-core route (fp32 products).  It takes CUDA tensors
+  whose last axis is contiguous — any strides otherwise, so the attention
+  layer passes ``(B, S, H, d)`` tensors as transposed views without a
+  copy; on the bf16 route every pointer and stride must be a multiple of
+  16 bytes (its ``cp.async`` copies) — and returns its output in q's
+  memory layout.
 
 :func:`repro_torch.kernels.ops.flash_attention` picks one by device.
 """
@@ -42,6 +46,18 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()
+_ALIGN = 16           # bytes: the bf16 route's cp.async copies
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one kernel block (``TcCfg`` and
+    ``smem_floats`` in the .cu source): on the bf16 route a 64-row q tile
+    and a ring of two k and v tiles (64 rows, 32 at d 256), rows of d + 8
+    bf16; on the fp32 route the q, k, v and P tiles."""
+    if dtype == torch.bfloat16:
+        block_k = 32 if d >= 256 else 64
+        return (64 + 2 * 2 * block_k) * (d + 8) * 2
+    return 4 * (64 * (d + 4) + 64 * (d + 1) + 64 * d + 64 * 68)
 
 
 def _check_shapes(q, k, v, window) -> None:
@@ -80,7 +96,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernel.  q (B, H, Sq, d), k and v (B, K, Skv, d),
     all bf16 or all fp32 with a contiguous last axis, on one CUDA device;
-    d in ``HEAD_DIMS``.  Returns (B, H, Sq, d) in q's dtype and layout."""
+    d in ``HEAD_DIMS``; bf16 tensors with addresses and strides in
+    multiples of 16 bytes.  Returns (B, H, Sq, d) in q's dtype and
+    layout."""
     global launches
     _check_shapes(q, k, v, window)
     dev = q.device
@@ -98,6 +116,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
     o = torch.empty_like(q)   # q's strides where q is dense, else contiguous
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+            if t.data_ptr() % _ALIGN or any(t.stride(i) * 2 % _ALIGN for i in range(3)
+                                            if t.shape[i] > 1):
+                raise ValueError(f"flash_attention_cuda: bf16 {name} needs its address and "
+                                 f"strides {t.stride()} in multiples of {_ALIGN} bytes")
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, o) for i in range(3)))
     lib = _build.library()
     with torch.cuda.device(dev):

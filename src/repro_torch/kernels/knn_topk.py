@@ -12,8 +12,10 @@ training index (lower first).
   lower index wins ties.  It runs wherever its tensors live; the CPU
   tests use it, and ``chip_smoke.py`` holds the kernel against it.
 * :func:`knn_topk_cuda` — the hand-written CUDA kernel
-  (``csrc/knn_topk.cu``, which documents its design and bound).  It takes
-  only contiguous fp32 CUDA tensors and raises on anything else.
+  (``csrc/knn_topk.cu``, which documents its design and bound): the cross
+  term on the tensor cores in 3xTF32 (fp32-grade), the top-k walked per
+  test row in training-index order.  It takes only contiguous fp32 CUDA
+  tensors and raises on anything else.
 
 :func:`repro_torch.kernels.ops.knn_topk` picks one by device.
 """
@@ -28,8 +30,9 @@ from . import _build
 
 BIG = 1e30
 MAX_K = 32             # register list lengths the kernel is built for: 8/16/32
-_BLOCK_ROWS = 256      # test rows per CUDA block (kBlockRows in csrc/knn_topk.cu)
-_TILE = 64             # training rows per shared tile (kTile there)
+_BLOCK_ROWS = 128      # test rows per CUDA block (kBlockRows in csrc/knn_topk.cu)
+_TILE = 32             # training rows per shared tile (kTile there)
+_CROSS_FLOATS = 4 * _TILE * 36   # the four warps' cross-term tiles (kLDC = 36)
 _SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
 _SMEM_PER_SM = 233472  # shared memory of one SM
 
@@ -74,9 +77,28 @@ def knn_topk_plain(test_x: torch.Tensor, train_x: torch.Tensor,
     return best_d, best_l
 
 
+def tile_ld(d: int) -> int:
+    """Shared row stride, in floats, of the kernel's tiles: mirrors
+    ``tile_ld`` in ``csrc/knn_topk.cu`` (d rounded up to 8, plus 4)."""
+    return -(-d // 8) * 8 + 4
+
+
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one kernel block (see the .cu source)."""
-    return (_BLOCK_ROWS + 2 * _TILE) * _build.padded_ld(d) * 4 + 2 * _TILE * 8
+    """Dynamic shared memory of one kernel block (see the .cu source): the
+    test rows, two training tiles, the cross-term tiles, labels and norms."""
+    return ((_BLOCK_ROWS + 2 * _TILE) * tile_ld(d) + _CROSS_FLOATS) * 4 + 2 * _TILE * 8
+
+
+def partition(m: int, n: int, d: int, sms: int) -> tuple:
+    """(splits, chunk): the training rows cut into ``splits`` contiguous
+    chunks of ``chunk`` rows (whole tiles; the last may be short), so that
+    the ceil(m / 128) x splits blocks fill one wave of resident blocks on
+    ``sms`` SMs."""
+    wave = (_SMEM_PER_SM // (smem_bytes(d) + 1024)) * sms
+    row_blocks = math.ceil(m / _BLOCK_ROWS)
+    splits = max(1, min(wave // row_blocks, math.ceil(n / _TILE)))
+    chunk = math.ceil(math.ceil(n / splits) / _TILE) * _TILE
+    return math.ceil(n / chunk), chunk
 
 
 def list_length(k: int) -> int:
@@ -112,14 +134,7 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
     kb = list_length(k)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_l = torch.empty((m, k), dtype=torch.int32, device=dev)
-    # cut the training rows into contiguous chunks (whole tiles) so that
-    # the grid fills the card in one wave of resident blocks
-    wave = (_SMEM_PER_SM // (smem + 1024)) * \
-        torch.cuda.get_device_properties(dev).multi_processor_count
-    row_blocks = math.ceil(m / _BLOCK_ROWS)
-    splits = max(1, min(wave // row_blocks, math.ceil(n / _TILE)))
-    chunk = math.ceil(math.ceil(n / splits) / _TILE) * _TILE
-    splits = math.ceil(n / chunk)
+    splits, chunk = partition(m, n, d, torch.cuda.get_device_properties(dev).multi_processor_count)
     train_sq = torch.empty((n,), dtype=torch.float32, device=dev)
     part_d = torch.empty((splits, m, kb), dtype=torch.float32, device=dev)
     part_l = torch.empty((splits, m, kb), dtype=torch.int32, device=dev)

@@ -72,7 +72,8 @@ def test_knn_topk_exact_on_integer_inputs(cuda, k):
 
 
 @pytest.mark.parametrize("m,n,d,k", [(1037, 10013, 50, 5), (77, 5000, 13, 20), (129, 3, 50, 3),
-                                     (300, 700, 140, 8), (5, 64, 1, 1)])
+                                     (300, 700, 140, 8), (5, 64, 1, 1),
+                                     (12_500, 125_000, 50, 5)])   # one KNN_frag task
 def test_knn_topk_close_on_random_inputs(cuda, m, n, d, k):
     test, train, labels = _to(cuda, *_knn_inputs(m + n, m, n, d, integer=False))
     got_d, _ = tknn.knn_topk_cuda(test, train, labels, k)
@@ -158,7 +159,9 @@ def test_rmsnorm_matches_plain(cuda, shape, xdt, sdt):
     assert torch.equal(got, trms.rmsnorm_cuda(x, scale))
 
 
-@pytest.mark.parametrize("case", [(2, 16, 8, 128, 128, 64, True, None),
+@pytest.mark.parametrize("case", [(8, 16, 8, 512, 512, 64, True, None),      # qwen3's prefill
+                                  (8, 16, 1, 512, 512, 256, True, 2048),   # recurrentgemma's
+                                  (2, 16, 8, 128, 128, 64, True, None),
                                   (2, 4, 2, 77, 77, 64, True, None),
                                   (1, 4, 4, 40, 200, 64, False, None),
                                   (1, 4, 2, 150, 70, 128, True, None),
@@ -199,6 +202,25 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tflash.flash_attention_cuda(x[..., :12], x[..., :12], x[..., :12])   # d = 12
     with pytest.raises(ValueError):
         tflash.flash_attention_cuda(x.transpose(2, 3), x, x)
+
+
+def test_bf16_flash_refuses_views_off_16_bytes(cuda):
+    """The bf16 route copies 16-byte pieces: an address or a stride off a
+    multiple of 16 bytes is refused, not served another way."""
+    bf = torch.bfloat16
+    q = torch.zeros((1, 2, 8, 16), dtype=bf, device=cuda)
+    tflash.flash_attention_cuda(q, q, q)                           # aligned: launches
+    shifted = torch.zeros(2 * 8 * 16 + 1, dtype=bf, device=cuda)[1:].view(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tflash.flash_attention_cuda(shifted, q, q)                 # address off by 2 bytes
+    def padded(dtype, width):    # (1, 2, 8, 16) views into rows of `width`
+        return torch.zeros((1, 8, 2, width), dtype=dtype, device=cuda)[..., :16].transpose(1, 2)
+
+    with pytest.raises(ValueError, match="16 bytes"):
+        tflash.flash_attention_cuda(q, padded(bf, 20), padded(bf, 20))   # strides of 40 bytes
+    # the fp32 route takes strides off 16 bytes (72 here)
+    kv = padded(torch.float32, 18)
+    assert tflash.flash_attention_cuda(q.float(), kv, kv).shape == q.shape
 
 
 @pytest.mark.parametrize("B,S,R", [(8, 512, 4096), (2, 33, 100), (1, 1, 37), (3, 9, 4097)])

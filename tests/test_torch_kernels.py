@@ -462,3 +462,156 @@ def test_scan_argument_checks():
     with pytest.raises(ValueError):
         ops.ssd_scan(x, torch.zeros((1, 4, 2)), -torch.ones(2), torch.zeros((1, 4, 5)),
                      torch.zeros((1, 4, 6)))
+
+
+# ------------------------------------------------- the tensor-core designs
+# The CUDA kernels of flash_attention (bf16 route) and knn_topk run their
+# products on the tensor cores.  No card runs here, so these tests
+# emulate each kernel's arithmetic in PyTorch and hold it to the
+# tolerance the card checks apply to the kernel (tests/test_torch_cuda.py,
+# chip_smoke.py); a control with the cheaper rounding must fail it, so the
+# check can tell the two designs apart.
+SMEM_LIMIT = 232448     # dynamic shared memory a Hopper block may use
+
+
+def _flash_tc_emulation(q, k, v, causal, window, split_p, block_k=64):
+    """The bf16 route's arithmetic: fp32 scores of bf16 operands, the scale
+    (times log2 e) applied after the product, an online softmax over
+    64-key tiles in base 2 with fp32 max and row sum, and P.V with P as
+    bf16 hi + bf16 lo (or one bf16 P where not ``split_p``)."""
+    B, H, Sq, d = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, K, H // K, Sq, d)
+    kf, vf = k.float(), v.float()
+    scale_log2 = float(np.float32(1.4426950408889634 / np.sqrt(d)))
+    m = torch.full((B, K, H // K, Sq), tflash.NEG_INF)
+    l = torch.zeros((B, K, H // K, Sq))
+    acc = torch.zeros((B, K, H // K, Sq, d))
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        x = torch.einsum("bkgqd,bksd->bkgqs", qf, kt) * scale_log2
+        kv_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kv_pos <= q_pos
+        if window is not None:
+            ok &= (q_pos - kv_pos) < window
+        x = torch.where(ok, x, torch.tensor(tflash.NEG_INF))
+        mx = torch.maximum(m, x.amax(-1))
+        alpha, p = torch.exp2(m - mx), torch.exp2(x - mx[..., None])
+        l, m = l * alpha + p.sum(-1), mx
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bkgqs,bksd->bkgqd", hi, vt)
+        if split_p:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bkgqs,bksd->bkgqd", lo, vt)
+        acc = acc * alpha[..., None] + pv
+    return (acc / l.clamp(min=1e-30)[..., None]).reshape(B, H, Sq, d).to(torch.bfloat16)
+
+
+# (B, H, K, Sq, Skv, d, causal, window): the card checks' d 64 and d 256
+# cases, causal and windowed; the first is qwen3's prefill at batch 1, the
+# last recurrentgemma's (window 2048) at batch 1 and 2 heads
+FLASH_TC_CASES = [(1, 16, 8, 512, 512, 64, True, None),
+                  (1, 4, 2, 300, 300, 64, True, 100),
+                  (2, 4, 1, 300, 300, 256, True, 100),
+                  (1, 16, 1, 200, 200, 256, True, 64),
+                  (1, 2, 1, 512, 512, 256, True, 2048)]
+
+
+@pytest.mark.parametrize("case", FLASH_TC_CASES, ids=[str(c) for c in FLASH_TC_CASES])
+def test_flash_split_p_emulation_meets_the_card_tolerance(case):
+    B, H, K, Sq, Skv, d, causal, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+               for s in ((B, H, Sq, d), (B, K, Skv, d), (B, K, Skv, d)))
+    want = tflash.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    got = _flash_tc_emulation(q, k, v, causal, window, split_p=True)
+    # the card's check of a bf16 kernel: within one bf16 rounding step
+    torch.testing.assert_close(got.float(), want, rtol=BF16_STEP, atol=1e-5)
+    # control: one bf16 P (8 bits per weight) leaves that step
+    single = _flash_tc_emulation(q, k, v, causal, window, split_p=False)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(single.float(), want, rtol=BF16_STEP, atol=1e-5)
+
+
+def _tf32_rna(a):
+    """fp32 -> TF32 by round to nearest, ties away from zero (``cvt.rna``):
+    add half of the 13 dropped bits to the magnitude, then drop them."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _knn_tc_emulation(test, train, labels, k, three_products):
+    """knn_topk's arithmetic on the tensor cores: the cross term from TF32
+    operands, x_lo y_hi + x_hi y_lo + x_hi y_hi (or x_hi y_hi alone), in
+    fp32; fp32 norms; the k smallest with the lower index first on ties."""
+    xh, yh = _tf32_rna(test), _tf32_rna(train)
+    cross = torch.from_numpy(xh) @ torch.from_numpy(yh).T
+    if three_products:
+        xl, yl = _tf32_rna(test - xh), _tf32_rna(train - yh)
+        cross = (torch.from_numpy(xl) @ torch.from_numpy(yh).T
+                 + torch.from_numpy(xh) @ torch.from_numpy(yl).T) + cross
+    x, y = torch.from_numpy(test), torch.from_numpy(train)
+    d2 = ((x * x).sum(1)[:, None] - 2.0 * cross) + (y * y).sum(1)[None, :]
+    order = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+    return torch.gather(d2, 1, order), torch.from_numpy(labels)[order].to(torch.int32)
+
+
+@pytest.mark.parametrize("d", [50, 13])
+def test_knn_3xtf32_emulation_meets_the_card_tolerance(d):
+    test, train, labels = _knn_inputs(d, 500, 3000, d, integer=False)
+    want_d, _ = tknn.knn_topk_plain(torch.from_numpy(test), torch.from_numpy(train),
+                                    torch.from_numpy(labels), 5)
+    got_d, _ = _knn_tc_emulation(test, train, labels, 5, three_products=True)
+    # the card's check of the kernel's distances
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-3)
+    # control: one TF32 product keeps ~3 digits
+    single_d, _ = _knn_tc_emulation(test, train, labels, 5, three_products=False)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(single_d, want_d, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_knn_3xtf32_emulation_is_exact_on_integer_inputs(k):
+    """Integers in [-3, 3] are exact in TF32 (lo = 0): distances, ties and
+    labels equal the plain version's bit for bit."""
+    test, train, labels = _knn_inputs(k + 100, 70, 300, 50, integer=True)
+    want = tknn.knn_topk_plain(torch.from_numpy(test), torch.from_numpy(train),
+                               torch.from_numpy(labels), k)
+    got = _knn_tc_emulation(test, train, labels, k, three_products=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_flash_blocks_fit_in_shared_memory(d):
+    for dtype in tflash.DTYPES:
+        assert 0 < tflash.smem_bytes(d, dtype) <= SMEM_LIMIT
+    # the bf16 route's rows are 16-byte multiples (cp.async, ldmatrix)
+    assert (d + 8) * 2 % 16 == 0
+
+
+@pytest.mark.parametrize("d", [3, 13, 50, 100, 148])
+def test_knn_blocks_fit_in_shared_memory(d):
+    """Every depth the first kernel took (up to 148) still fits; rows are
+    padded to whole TF32 steps of 8 plus 4 floats."""
+    assert tknn.smem_bytes(d) <= SMEM_LIMIT
+    ld = tknn.tile_ld(d)
+    assert ld >= d and (ld - 4) % 8 == 0 and (ld // 4) % 2 == 1
+
+
+@pytest.mark.parametrize("m,n,d", [(12_500, 125_000, 50), (1037, 10013, 50), (129, 3, 50),
+                                   (5, 64, 1), (300, 700, 140)])
+def test_knn_partition_covers_the_training_rows(m, n, d):
+    """splits x chunk covers n exactly once: whole training tiles, no empty
+    chunk, no more blocks than one wave of an H100's 132 SMs holds; at one
+    KNN_frag task's shape that wave is nearly full."""
+    splits, chunk = tknn.partition(m, n, d, sms=132)
+    assert chunk % tknn._TILE == 0 and splits >= 1
+    assert (splits - 1) * chunk < n <= splits * chunk
+    blocks = -(-m // 128) * splits
+    wave = 233472 // (tknn.smem_bytes(d) + 1024) * 132
+    assert blocks <= max(wave, -(-m // 128))
+    if (m, n) == (12_500, 125_000):
+        assert blocks / wave > 0.95
