@@ -5,6 +5,12 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``--parent DIR`` also times the kernels of another checkout of the
+repository (for example ``git archive`` of the parent commit unpacked
+into ``build/parent``) beside this one's, in the same process on the same
+inputs, for ``kmeans_assign`` and bf16 ``ssd_scan``: their rows then carry
+``parent_ms``, read before and after this checkout's kernel.
+
 Phases, in order; each prints one JSON line with its wall time, and any
 failure raises (the script then exits non-zero without a result):
 
@@ -12,9 +18,11 @@ failure raises (the script then exits non-zero without a result):
              power limit;
 2. build   — nvcc builds the port's kernels from ``src/repro_torch/csrc``;
              the toolkit's ``cuobjdump -sass`` counts the tensor-core
-             instructions (HMMA / HGMMA) of the bf16 flash kernel at every
-             head dim and of the knn tile kernel, which must be non-zero,
-             and ptxas must report 0 spill bytes for them;
+             instructions (HMMA / HGMMA) of every tensor-core kernel (bf16
+             flash at every head dim, the knn tile kernel, the kmeans
+             partials kernel and the bf16 SSD chunk kernel at every
+             template), which must be non-zero, and ptxas must report 0
+             spill bytes for them;
 3. kernels — each hand-written kernel against its plain PyTorch version
              on the card: exactly on integer-valued inputs (ties
              included), within stated tolerances on random normal inputs
@@ -166,6 +174,37 @@ def time_library(name: str, *args) -> float:
                                                             enable_gqa=True), reps=20)
 
 
+PARENT = {}    # kernel name -> its wrapper module in the --parent checkout
+
+
+def load_parent(root: str) -> dict:
+    """The kernel modules of the port in another checkout at ``root``,
+    imported as the package ``parent_repro_torch``; their kernels build
+    into ``root/build/repro_torch``."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "src", "repro_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_repro_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_repro_torch"] = mod
+    spec.loader.exec_module(mod)
+    return {name: importlib.import_module(f"parent_repro_torch.kernels.{name}")
+            for name in ("kmeans_assign", "ssd_scan")}
+
+
+def with_parent(name: str, call, t_new) -> dict:
+    """``t_new()`` (the kernels-line times of this checkout's kernel) and,
+    with ``--parent``, the parent's kernel ``call(module)`` timed before
+    and after it: parent, this, parent."""
+    if name not in PARENT:
+        return t_new()
+    before = device_ms(lambda: call(PARENT[name]), reps=20)
+    t = t_new()
+    return {**t, "parent_ms": [before, device_ms(lambda: call(PARENT[name]), reps=20)]}
+
+
 def times(kernel, plain, library_ms=None, reps: int = 20, plain_reps: int = 10) -> dict:
     """The kernels-line times of one kernel, all device ms: ``ms``,
     ``plain_ms`` and ``library_ms``."""
@@ -220,7 +259,13 @@ def tensor_core_counts(lib_path: str) -> dict:
 # mangled name); each must hold tensor-core instructions and spill nothing
 TENSOR_CORE_KERNELS = [(f"flash_fwd_bf16_tc<{d}>", rf"flash_fwd_bf16_tcILi{d}E")
                        for d in (16, 32, 64, 128, 256)] + \
-                      [(f"knn_chunk_topk<{kb}>", rf"knn_chunk_topkILi{kb}E") for kb in (8, 16, 32)]
+                      [(f"knn_chunk_topk<{kb}>", rf"knn_chunk_topkILi{kb}E")
+                       for kb in (8, 16, 32)] + \
+                      [(f"kmeans_tc_partials<{mt},{ntw}>", rf"kmeans_tc_partialsILi{mt}ELi{ntw}E")
+                       for mt in (1, 2, 4) for ntw in (1, 2, 4)] + \
+                      [(f"ssd_chunk_bf16_tc<{nk},{int(al)}>",
+                        rf"ssd_chunk_bf16_tcILi{nk}ELb{int(al)}E")
+                       for nk in (1, 2, 4, 8) for al in (True, False)]
 
 
 def check_tensor_core_build(log: str, lib_path: str) -> dict:
@@ -338,7 +383,9 @@ def check_kmeans(km_k, gen, cuda):
     n, d, k = 500_000, 50, 16
     x, c, err = normal_case(n, d, k)
     n = x.shape[0]
-    t = times(lambda: km_k.kmeans_assign_cuda(x, c), lambda: km_k.kmeans_assign_plain(x, c))
+    t = with_parent("kmeans_assign", lambda m: m.kmeans_assign_cuda(x, c),
+                    lambda: times(lambda: km_k.kmeans_assign_cuda(x, c),
+                                  lambda: km_k.kmeans_assign_plain(x, c)))
     bound_ms, bound_by = bound(2.0 * n * k * d + 3.0 * n * d,
                                4.0 * (n * d + 2 * k * d + k + 1))
     return {"name": "kmeans_assign", "route": "cuda",
@@ -562,11 +609,13 @@ def check_ssd(ssd_k, gen, cuda):
             "replaces": "src/repro/kernels/ssd_scan.py:72",
             "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q, "dtype": "bf16"},
             "max_abs_err": err,
-            **times(lambda: ssd_k.ssd_scan_cuda(*args),
-                    lambda: ssd_k.ssd_scan_plain(*args, chunk=Q), reps=10, plain_reps=3),
+            **with_parent("ssd_scan", lambda m: m.ssd_scan_cuda(*args),
+                          lambda: times(lambda: ssd_k.ssd_scan_cuda(*args),
+                                        lambda: ssd_k.ssd_scan_plain(*args, chunk=Q),
+                                        reps=20, plain_reps=3)),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            # the step-by-step recurrence the kernel runs: 5 flops per state
-            # element and step, on the fp32 CUDA cores
+            # the step-by-step recurrence of the fp32 route: 5 flops per
+            # state element and step, on the fp32 CUDA cores
             "bound_ms_fp32_cores": bound(5.0 * B * S * H * P * N, nbytes)[0],
             "library_note": "no single PyTorch call computes the SSD scan"}
 
@@ -671,7 +720,7 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
     ours = {name: sum(ms for key, (ms, _) in table.items() if tag in key) / 1e3
             for name, tag in (("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"),
                               ("rglru_scan", "rglru_scan_kernel"),
-                              ("ssd_scan", "ssd_scan_kernel"))}
+                              ("ssd_scan", "ssd_"))}
     top = sorted(table.items(), key=lambda kv: -kv[1][0])[:10]
     ph.info["device"] = {"busy_s": busy_s, "wall_s": wall_s,
                          "idle_share": 1.0 - busy_s / wall_s, "kernel_s": ours,
@@ -681,7 +730,13 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
     return prompts, toks, full
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout whose kmeans_assign and ssd_scan kernels are timed "
+                         "beside this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; one CUDA card is needed",
               file=sys.stderr)
@@ -725,6 +780,10 @@ def main() -> int:
             line.strip() for line in _build.build_log.splitlines()
             if "Compiling entry" in line or "Used" in line or "spill" in line])
         ph.info["tensor_cores"] = check_tensor_core_build(_build.build_log, lib._name)
+        if args.parent:
+            PARENT.update(load_parent(args.parent))
+            PARENT["kmeans_assign"]._build.library()
+            ph.info["parent"] = args.parent
 
     with Phase("kernels") as ph:
         rows = [check_knn(knn_k, gen, cuda), check_kmeans(km_k, gen, cuda),
@@ -867,4 +926,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,38 +2,91 @@
 // bound from Python with ctypes; see repro_torch/kernels/_build.py).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace repro {
 
-// Row stride, in floats, of a (rows, d) tile staged in shared memory: d
-// rounded up to a multiple of 4 (rows are read as float4), then kept an
-// odd number of float4s.  With an odd float4 stride the 8 threads of one
-// LDS.128 phase, each reading its own row, land on 8 distinct 4-bank
-// groups: no bank conflicts.  The padding columns hold zeros, which leave
-// every dot product unchanged.
-__host__ __device__ inline int padded_ld(int d) {
-  int ld = (d + 3) / 4 * 4;
-  if ((ld / 4) % 2 == 0) ld += 4;
-  return ld;
+// ------------------------------------ copies and tensor-core fragments
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled where !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared; zero-filled where !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Copy rows [r0, r0 + rows) of a row-major (*, d) matrix into a shared
-// tile with row stride ld, reading global memory in one coalesced sweep.
-// Columns d..ld-1 of the tile are not touched (they stay zero).
-__device__ inline void stage_rows(float* __restrict__ tile,
-                                  const float* __restrict__ src, long r0,
-                                  int rows, int d, int ld) {
-  const float* base = src + r0 * d;
-  const int total = rows * d;
-  for (int g = threadIdx.x; g < total; g += blockDim.x) {
-    const int r = g / d;
-    tile[r * ld + (g - r * d)] = base[g];
-  }
+// four 8 x 8 b16 matrices from shared memory, one row address per lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 
-// |row|^2 of one zero-padded shared row, read as float4s (conflict-free
-// across threads reading their own rows, see padded_ld).
+// c += a . b on one 16 x 8 tile, k 16: bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a . b on one 16 x 8 tile, k 8: TF32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x0, x1) -> hi = their bf16 pair, lo = the bf16 pair of what hi misses
+// (x - hi is exact in fp32); x0 in the low half, as the fragments want
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// v = hi + lo + (what neither keeps), hi and lo TF32, each rounded to
+// nearest with ties away from zero, as `cvt.rna.tf32.f32` rounds a finite
+// value: half of the 13 dropped bits is added to the magnitude.  The
+// tensor core reads only the top 19 bits of a TF32 operand, so the low
+// bits are cleared only where hi's value is needed (v - hi, exact in
+// fp32).  Four integer and float operations per value, where `cvt.rna`
+// compiles to seven with its Inf/NaN guard; the inputs are finite.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) + 0x1000u;
+  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+
+// ---------------------------------------------------- fp32 row helpers
+
+// |row|^2 of one zero-padded shared row, read as float4s.
 __device__ __forceinline__ float row_sqnorm(const float4* __restrict__ row, int ld4) {
   float s = 0.f;
   for (int j4 = 0; j4 < ld4; ++j4) {

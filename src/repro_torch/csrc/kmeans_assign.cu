@@ -9,185 +9,468 @@
 //
 // What bounds it on an H100: memory.  One call reads n*d floats of points
 // and does ~2*n*k*d flops, e.g. n=500,000, d=50, k=16: 100 MB (~0.03 ms
-// at 3.35 TB/s) against 8e8 flops (~0.012 ms at 67 TFLOP/s).
+// at 3.35 TB/s) against 8e8 flops (~0.012 ms at 67 TFLOP/s; the tensor-core
+// route below does 3 + 2 TF32 products of that size, 4e9 flops, ~0.008 ms
+// at 495 TFLOP/s).
 //
-// Design, deterministic by construction (no atomics, so a replayed task
-// gives the same bits — lineage recovery depends on that):
-//  * kernel 1, `grid` persistent blocks of 128 threads: the centroids and
-//    |c|^2/2 are staged once in shared memory; the block walks tiles
-//    blockIdx.x, blockIdx.x + grid, ... of 128 points.  Each tile is
-//    loaded coalesced into shared memory, and one thread per point scores
-//    4 centroids per pass (one float4 load of x reused 4 times) and keeps
-//    the first strict maximum.  Then thread q of the block owns the
-//    (cluster, dim) sums q, q + 128, ... and adds the tile's points
-//    assigned to that cluster in point order; counts likewise per
-//    cluster, and the tile's sse by a fixed-shape tree.  The running
-//    per-block partials live in shared memory and are written once.
-//  * kernel 2 adds the `grid` partials of each output in block order.
-// The per-(cluster, dim) pass reads shared memory twice per point and
-// output, which costs more than the assignment at these shapes; a
-// one-hot tensor-core contraction (the Pallas kernel's second MXU matmul)
-// is later work.
+// Design, deterministic by construction (no float atomics, so a replayed
+// task gives the same bits — lineage recovery depends on that):
+//  * kernel 1: two persistent blocks of 8 warps per SM walk tiles
+//    blockIdx.x, blockIdx.x + grid, ... of T points (T = 256 while two
+//    blocks fit an SM, up to d 53 at k 16; fewer for wider points, see
+//    tile_points in kernels/kmeans_assign.py).  A tile is T*d contiguous
+//    floats, so it streams into a ring of two shared stages as 16-byte
+//    `cp.async` pieces of the flat array (4-byte pieces at the ragged
+//    ends, zero-filled past n): the next tile loads while the block works
+//    on this one, and the SM's other block fills the gaps of this one's
+//    barriers.
+//  * The assignment runs on the tensor cores too: warp w scores points
+//    32w .. 32w + 31 of the tile against 16 centroids per pass as 3xTF32
+//    `mma.sync.m16n8k8` products (x_lo c_hi + x_hi c_lo + x_hi c_hi, each
+//    operand split into TF32 hi + lo: fp32-grade dot products, exact on
+//    small integers); the centroids' fragments are split once per block
+//    into shared memory.  The argmax of x.c - |c|^2/2 keeps the first
+//    strict maximum: a lane's four clusters in order, then its quad by
+//    shuffles with the lower index on ties.  |x|^2 comes from the same
+//    fragments.  (On the fp32 CUDA cores, two points per thread, the
+//    assignment cost as much as the sums.)
+//  * The sums are the Pallas kernel's second matmul, on the tensor cores:
+//    sums (k x d) += onehot^T (k x T) . X (T x d) by `mma.sync.m16n8k8`
+//    in TF32 with fp32 accumulators.  The one-hot A fragment is built in
+//    registers from the tile's assignments (1.0 is exact in TF32; they
+//    are stored permuted so that a lane's four points of a 16-point step
+//    are one 16-byte load), and each X value is split into TF32 hi + lo
+//    (x - hi is exact in fp32): hi + lo keep 22 of fp32's 24 bits, within
+//    ~2^-22 of x, and every product with 1.0 is exact.  (Three bf16 terms
+//    would carry all 24 bits; their split cost 5.5 instructions a value
+//    against 4, and the pass is instruction-bound.)  k is padded to 16
+//    and d to 8: columns past d read neighbouring values and land in sums
+//    columns that are never stored.  Warp w owns the 8-dim column slices
+//    w, w + 8, ... of the sums for all clusters and keeps them in fp32
+//    accumulators across the block's tiles: one chain per term and 8-point
+//    half (4 independent mma chains where a warp owns one 16 x 8 tile, as
+//    at d 50, k 16), added in order at the end.
+//  * Counts: the lanes of one cluster found by `match_any`, added by
+//    their leader with a shared integer atomic (the same total in any
+//    order); the sse by a warp shuffle tree, kept per warp and summed in
+//    warp order.
+//  * kernel 2 sums the per-block partials: one warp per output, lanes
+//    striding over the blocks, then a fixed shuffle tree.
+// Limits: k <= 64 and d <= 256 (the accumulators of a warp stay in
+// registers).
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block = points per tile
-constexpr int kGroup = 4;      // centroids a thread scores per pass
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;
 
-__global__ void __launch_bounds__(kThreads)
-kmeans_block_partials(const float* __restrict__ x, const float* __restrict__ c,
-                      int n, int k, int d, int ld,
-                      float* __restrict__ part_sums, int* __restrict__ part_counts,
-                      float* __restrict__ part_sse) {
-  extern __shared__ float4 smem4[];
-  float* cs = reinterpret_cast<float*>(smem4);  // k x ld centroids
-  float* xs = cs + k * ld;                      // kThreads x ld points
-  float* hc = xs + kThreads * ld;               // k: |c|^2 / 2
-  float* sacc = hc + k;                         // k x d running sums
-  float* red = sacc + k * d;                    // kThreads: sse per point
-  int* asg = reinterpret_cast<int*>(red + kThreads);  // kThreads: cluster or -1
-  int* cnt = asg + kThreads;                    // k running counts
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mma_tf32;
+using repro::smem_addr;
+using repro::split_tf32;
 
-  const int tid = threadIdx.x;
-  const int kd = k * d;
-  const int ld4 = ld / 4;
-
-  repro::zero_shared(cs, (k + kThreads) * ld + k + kd);
-  for (int i = tid; i < k; i += kThreads) cnt[i] = 0;
-  __syncthreads();
-  repro::stage_rows(cs, c, 0, k, d, ld);
-  __syncthreads();
-  for (int i = tid; i < k; i += kThreads) {
-    hc[i] = 0.5f * repro::row_sqnorm(reinterpret_cast<const float4*>(cs + i * ld), ld4);
-  }
-  float sse = 0.f;  // this block's running sse (thread 0's copy counts)
-
-  const int n_tiles = (n + kThreads - 1) / kThreads;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int p0 = tile * kThreads;
-    const int rows = min(kThreads, n - p0);
-    __syncthreads();  // the previous tile is consumed (and hc is ready)
-    repro::stage_rows(xs, x, p0, rows, d, ld);
-    __syncthreads();
-
-    const float4* xr = reinterpret_cast<const float4*>(xs + tid * ld);
-    float best = -CUDART_INF_F;
-    int arg = 0;
-    for (int c0 = 0; c0 < k; c0 += kGroup) {
-      float acc[kGroup];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) acc[g] = 0.f;
-      for (int j4 = 0; j4 < ld4; ++j4) {
-        const float4 xv = xr[j4];
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) {
-          if (c0 + g < k) {
-            const float4 cv = reinterpret_cast<const float4*>(cs + (c0 + g) * ld)[j4];
-            acc[g] = fmaf(xv.x, cv.x, acc[g]);
-            acc[g] = fmaf(xv.y, cv.y, acc[g]);
-            acc[g] = fmaf(xv.z, cv.z, acc[g]);
-            acc[g] = fmaf(xv.w, cv.w, acc[g]);
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        if (c0 + g < k) {
-          const float v = acc[g] - hc[c0 + g];
-          if (v > best) {  // strict: the first index keeps a tie
-            best = v;
-            arg = c0 + g;
-          }
-        }
-      }
-    }
-    const bool valid = tid < rows;
-    asg[tid] = valid ? arg : -1;
-    red[tid] = valid ? repro::row_sqnorm(xr, ld4) - 2.f * best : 0.f;
-    __syncthreads();
-
-    for (int q = tid; q < kd; q += kThreads) {
-      const int cl = q / d;
-      const int j = q - cl * d;
-      float s = sacc[q];
-      for (int p = 0; p < rows; ++p) {
-        if (asg[p] == cl) s += xs[p * ld + j];
-      }
-      sacc[q] = s;
-    }
-    for (int cl = tid; cl < k; cl += kThreads) {
-      int s = 0;
-      for (int p = 0; p < rows; ++p) s += asg[p] == cl;
-      cnt[cl] += s;
-    }
-    for (int half = kThreads / 2; half > 0; half /= 2) {
-      if (tid < half) red[tid] += red[tid + half];
-      __syncthreads();
-    }
-    if (tid == 0) sse += red[0];
-  }
-  __syncthreads();
-
-  float* out_sums = part_sums + static_cast<long>(blockIdx.x) * kd;
-  for (int q = tid; q < kd; q += kThreads) out_sums[q] = sacc[q];
-  for (int cl = tid; cl < k; cl += kThreads) part_counts[static_cast<long>(blockIdx.x) * k + cl] = cnt[cl];
-  if (tid == 0) part_sse[blockIdx.x] = sse;
+// Position of point p of a tile in the permuted assignment array: lane
+// (g, t4) of a warp finds the points t4, t4 + 4, t4 + 8 and t4 + 12 of a
+// 16-point step, its four A-fragment columns, in one 16-byte load.
+__device__ __forceinline__ int asg_slot(int p) {
+  return (p & ~15) + 4 * (p & 3) + ((p & 15) >> 2);
 }
 
-// One thread per output element: sum the per-block partials in block order.
+// Queue one tile (floats [g0, g_end) of x, at most `floats` - 4 of them)
+// into a stage whose float `a` matches g0, a = (address of x[g0] / 4) % 4,
+// so that the 16-byte pieces of the flat array land 16-byte aligned.
+// Whole pieces inside the tile are one 16-byte copy each; the two ragged
+// ends go by 4-byte copies, and the stage past the tile reads as zero.
+__device__ __forceinline__ void issue_tile(float* stage, int floats, const float* x, long g0,
+                                           long g_end, int a) {
+  const float* base = x + g0 - a;
+  const int valid = a + static_cast<int>(g_end - g0);  // stage floats [a, valid) hold the tile
+  const int first = (a + 3) / 4;                        // the whole pieces: [first, last)
+  const int last = valid / 4;
+  const uint32_t dst0 = smem_addr(stage);
+  for (int i = first + threadIdx.x; i < last; i += kThreads) {
+    cp_async16(dst0 + 16 * i, base + 4 * i, true);
+  }
+  for (int i = last + (valid % 4 != 0) + threadIdx.x; i < floats / 4; i += kThreads) {
+    cp_async16(dst0 + 16 * i, x, false);
+  }
+  // the ragged ends: piece 0 (when a > 0) and piece `last` (when valid % 4)
+  if (threadIdx.x < 8) {
+    const bool head = threadIdx.x < 4;
+    const int i = head ? 0 : last;
+    if (head ? a > 0 : valid % 4 != 0 && (last > 0 || a == 0)) {
+      const int f = 4 * i + (threadIdx.x & 3);
+      const bool ok = f >= a && f < valid;
+      cp_async4(dst0 + 4 * f, ok ? base + f : x, ok);
+    }
+  }
+}
+
+// MT m-tiles of 16 clusters, NTW 8-dim column slices per warp
+template <int MT, int NTW>
+__global__ void __launch_bounds__(kThreads, 1)
+kmeans_tc_partials(const float* __restrict__ x, const float* __restrict__ c, int n, int k,
+                   int d, int T, int stage_floats, float* __restrict__ part_sums,
+                   int* __restrict__ part_counts, float* __restrict__ part_sse) {
+  constexpr int KP = 16 * MT;  // clusters padded to the m-tiles
+  const int kd8 = (d + 7) / 8;  // 8-dim k-steps of the scores
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);       // kStages x stage_floats
+  uint4* ctab = reinterpret_cast<uint4*>(ring + kStages * stage_floats);
+  float* hc = reinterpret_cast<float*>(ctab + MT * kd8 * 64);  // KP: |c|^2 / 2
+  int* asg = reinterpret_cast<int*>(hc + KP);          // T: cluster or -1, permuted
+  int* cnt = asg + T;                                  // KP: the block's counts
+  float* red = reinterpret_cast<float*>(cnt + KP);     // kWarps: sse per warp
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  // the centroids as B fragments of the scores, split into TF32 hi + lo:
+  // entry ((m kd8 + ks) 2 + nt) 32 + lane holds, for b0 = c[16 m + 8 nt +
+  // g][8 ks + t4] and b1 four dims on, {hi b0, hi b1, lo b0, lo b1} (zero
+  // past k and d)
+  for (int i = tid; i < MT * kd8 * 64; i += kThreads) {
+    const int ln = i & 31, nt = (i >> 5) & 1, mk = i >> 6;
+    const int cl = 16 * (mk / kd8) + 8 * nt + (ln >> 2);
+    const int j = 8 * (mk % kd8) + (ln & 3);
+    const float* cr = c + static_cast<long>(cl) * d;
+    const float v0 = cl < k && j < d ? cr[j] : 0.f;
+    const float v1 = cl < k && j + 4 < d ? cr[j + 4] : 0.f;
+    uint4 e;
+    split_tf32(v0, e.x, e.z);
+    split_tf32(v1, e.y, e.w);
+    ctab[i] = e;
+  }
+  for (int cl = tid; cl < KP; cl += kThreads) {
+    float s = 0.f;
+    for (int j = 0; cl < k && j < d; ++j) s = fmaf(c[cl * d + j], c[cl * d + j], s);
+    hc[cl] = 0.5f * s;
+    cnt[cl] = 0;
+  }
+
+  const int n_tiles = (n + T - 1) / T;
+  const int my_tiles = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int xmis = static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
+  auto issue = [&](int it) {
+    const long p0 = static_cast<long>(blockIdx.x + it * gridDim.x) * T;
+    const long g0 = p0 * d;
+    const long g_end = min(p0 + T, static_cast<long>(n)) * d;
+    issue_tile(ring + (it % kStages) * stage_floats, stage_floats, x, g0, g_end,
+               static_cast<int>((xmis + g0) & 3));
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < my_tiles) issue(s);
+    cp_async_commit();
+  }
+
+  // kChains independent accumulators per output tile, so that an mma need
+  // not wait for the last: one per term and k-step parity where a warp
+  // owns one tile, one per term where it owns two or three
+  constexpr int kChains = MT * NTW >= 4 ? 1 : (MT * NTW >= 2 ? 2 : 4);
+  float acc[MT][NTW][kChains][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int q = 0; q < NTW; ++q)
+#pragma unroll
+      for (int ch = 0; ch < kChains; ++ch)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][q][ch][e] = 0.f;
+  float sse = 0.f;        // this warp's running sse (every lane holds it)
+  const int ntd = (d + 7) / 8;
+
+  for (int it = 0; it < my_tiles; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile `it` landed; the stage and asg of tile it-1 are free
+    if (it + kStages - 1 < my_tiles) issue(it + kStages - 1);
+    cp_async_commit();
+
+    const long p0 = static_cast<long>(blockIdx.x + it * gridDim.x) * T;
+    const int rows = static_cast<int>(min(static_cast<long>(T), n - p0));
+    const float* xs = ring + (it % kStages) * stage_floats +
+                      static_cast<int>((xmis + p0 * d) & 3);
+
+    // assignment: warp w scores points 32w .. 32w + 31 of the tile, x . c
+    // in 3xTF32 on the tensor cores (x_lo c_hi + x_hi c_lo + x_hi c_hi),
+    // 16 clusters per pass; columns of x past d meet zero centroid columns
+    if (warp * 32 < T) {
+      const float* xw = xs + 32 * warp * d;
+      float best[2][2], xsq[2][2];   // [16-point half][row g | g + 8]
+      int arg[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          best[mt][r] = -CUDART_INF_F;
+          arg[mt][r] = 0;
+          xsq[mt][r] = 0.f;
+        }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float sc[2][2][4];           // [half][8-cluster slice][fragment]
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[mt][nt][e] = 0.f;
+        for (int ks = 0; ks < kd8; ++ks) {
+          const uint4 b0 = ctab[((m * kd8 + ks) * 2) * 32 + lane];
+          const uint4 b1 = ctab[((m * kd8 + ks) * 2 + 1) * 32 + lane];
+          const int j = 8 * ks + t4;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            // a0 (row g, dim j), a1 (row g + 8, j), a2 (g, j + 4), a3 (g + 8, j + 4)
+            const float* xr = xw + (16 * mt + g) * d + j;
+            const float v[4] = {xr[0], xr[8 * d], xr[4], xr[8 * d + 4]};
+            if (m == 0) {
+              xsq[mt][0] += (j < d ? v[0] * v[0] : 0.f) + (j + 4 < d ? v[2] * v[2] : 0.f);
+              xsq[mt][1] += (j < d ? v[1] * v[1] : 0.f) + (j + 4 < d ? v[3] * v[3] : 0.f);
+            }
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[q], al[q]);
+            mma_tf32(sc[mt][0], al, b0.x, b0.y);
+            mma_tf32(sc[mt][1], al, b1.x, b1.y);
+            mma_tf32(sc[mt][0], ah, b0.z, b0.w);
+            mma_tf32(sc[mt][1], ah, b1.z, b1.w);
+            mma_tf32(sc[mt][0], ah, b0.x, b0.y);
+            mma_tf32(sc[mt][1], ah, b1.x, b1.y);
+          }
+        }
+        // the first strict maximum of the pass: a lane's 4 clusters in
+        // order, then its quad, lower index on ties; then the running one
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float lb = -CUDART_INF_F;
+            int la = 0x7fffffff;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int cl = 16 * m + 8 * nt + 2 * t4 + e;
+                const float v = sc[mt][nt][2 * r + e] - hc[cl];
+                if (cl < k && v > lb) {
+                  lb = v;
+                  la = cl;
+                }
+              }
+#pragma unroll
+            for (int off = 1; off <= 2; off <<= 1) {
+              const float ob = __shfl_xor_sync(0xffffffffu, lb, off);
+              const int oa = __shfl_xor_sync(0xffffffffu, la, off);
+              if (ob > lb || (ob == lb && oa < la)) {
+                lb = ob;
+                la = oa;
+              }
+            }
+            if (lb > best[mt][r]) {  // strict: the earlier pass keeps a tie
+              best[mt][r] = lb;
+              arg[mt][r] = la;
+            }
+          }
+      }
+      float e = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float q = xsq[mt][r];
+          q += __shfl_xor_sync(0xffffffffu, q, 1);
+          q += __shfl_xor_sync(0xffffffffu, q, 2);
+          const int p = 32 * warp + 16 * mt + g + 8 * r;
+          const bool ok = p < rows;
+          if (t4 == 0) {
+            asg[asg_slot(p)] = ok ? arg[mt][r] : -1;
+            if (ok) e += q - 2.f * best[mt][r];
+          }
+        }
+      // the sse of the warp's points by a fixed shuffle tree
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
+      sse += e;
+    }
+    __syncthreads();  // asg is complete
+
+    // counts: lanes of one cluster found by match_any, their leader adds
+    // them (integer atomics: the same total in any order)
+    if (warp * 32 < T) {
+      const int cl = asg[tid];
+      const unsigned same = __match_any_sync(0xffffffffu, cl);
+      if (cl >= 0 && lane == __ffs(same) - 1) atomicAdd(cnt + cl, __popc(same));
+    }
+
+    // sums += onehot^T . X on the tensor cores: two k-steps of 8 points
+    // per 16, each with TF32 hi and lo terms of X
+    for (int ks = 0; ks < T / 16; ++ks) {
+      const int4 pa = *reinterpret_cast<const int4*>(asg + 16 * ks + 4 * t4);
+      const int pts[4] = {pa.x, pa.y, pa.z, pa.w};   // points t4 + 4r of the step
+      const float* xrow = xs + (16 * ks + t4) * d;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {     // points 8 half + {t4, t4 + 4}
+        uint32_t fa[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int c_lo = 16 * m + g, c_hi = c_lo + 8;
+          const int p0 = pts[2 * half], p1 = pts[2 * half + 1];
+          fa[m][0] = p0 == c_lo ? 0x3F800000u : 0u;
+          fa[m][1] = p0 == c_hi ? 0x3F800000u : 0u;
+          fa[m][2] = p1 == c_lo ? 0x3F800000u : 0u;
+          fa[m][3] = p1 == c_hi ? 0x3F800000u : 0u;
+        }
+#pragma unroll
+        for (int q = 0; q < NTW; ++q) {
+          const int nt = warp + kWarps * q;
+          if (nt < ntd) {
+            // columns past d read the next point's values (or the stage's
+            // zero tail): they land in sums columns that are never stored
+            const float* col = xrow + (8 * half) * d + 8 * nt + g;
+            uint32_t h0, l0, h1, l1;
+            split_tf32(col[0], h0, l0);
+            split_tf32(col[4 * d], h1, l1);
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              mma_tf32(acc[m][q][kChains == 4 ? 2 * half : 0], fa[m], l0, l1);
+              mma_tf32(acc[m][q][kChains == 4 ? 2 * half + 1 : (kChains == 2 ? 1 : 0)], fa[m], h0,
+                       h1);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // per-block partials: the sums straight from the accumulators (each
+  // (cluster, dim) belongs to one warp), the chains added lo first;
+  // counts and sse in warp order
+  float* out = part_sums + static_cast<long>(blockIdx.x) * k * d;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int q = 0; q < NTW; ++q) {
+      const int nt = warp + kWarps * q;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // the chains added in order: lo and hi of the first 8 points of a
+        // step, then of the second 8
+        float v = acc[m][q][0][e];
+#pragma unroll
+        for (int ch = 1; ch < kChains; ++ch) v += acc[m][q][ch][e];
+        const int cl = 16 * m + g + 8 * (e >> 1);
+        const int j = 8 * nt + 2 * t4 + (e & 1);
+        if (nt < ntd && cl < k && j < d) out[cl * d + j] = v;
+      }
+    }
+  if (lane == 0) red[warp] = sse;
+  __syncthreads();
+  if (tid < k) part_counts[static_cast<long>(blockIdx.x) * k + tid] = cnt[tid];
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w];
+    part_sse[blockIdx.x] = s;
+  }
+}
+
+// One warp per output: lanes add the per-block partials b = lane,
+// lane + 32, ... in order, then a fixed shuffle tree adds the lanes.
 __global__ void kmeans_reduce_blocks(const float* __restrict__ part_sums,
                                      const int* __restrict__ part_counts,
-                                     const float* __restrict__ part_sse,
-                                     int blocks, int k, int d,
-                                     float* __restrict__ sums,
-                                     int* __restrict__ counts,
+                                     const float* __restrict__ part_sse, int blocks, int k,
+                                     int d, float* __restrict__ sums, int* __restrict__ counts,
                                      float* __restrict__ sse) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
   const int kd = k * d;
   if (q < kd) {
     float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += part_sums[static_cast<long>(b) * kd + q];
-    sums[q] = s;
+    for (int b = lane; b < blocks; b += 32) s += part_sums[static_cast<long>(b) * kd + q];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) sums[q] = s;
   } else if (q < kd + k) {
     const int cl = q - kd;
     int s = 0;
-    for (int b = 0; b < blocks; ++b) s += part_counts[static_cast<long>(b) * k + cl];
-    counts[cl] = s;
+    for (int b = lane; b < blocks; b += 32) s += part_counts[static_cast<long>(b) * k + cl];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) counts[cl] = s;
   } else if (q == kd + k) {
     float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += part_sse[b];
-    *sse = s;
+    for (int b = lane; b < blocks; b += 32) s += part_sse[b];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) *sse = s;
   }
+}
+
+template <int MT, int NTW>
+cudaError_t launch_partials(const float* x, const float* c, int n, int k, int d, int T,
+                            int blocks, float* part_sums, int* part_counts, float* part_sse,
+                            cudaStream_t s) {
+  constexpr int KP = 16 * MT;
+  const int stage_floats = (T * d + 12 + 3) / 4 * 4;  // 8 floats past the tile
+  const size_t smem = (static_cast<size_t>(kStages) * stage_floats + KP + T + KP + kWarps) *
+                          sizeof(float) +
+                      static_cast<size_t>(MT) * ((d + 7) / 8) * 64 * sizeof(uint4);
+  cudaError_t err = cudaFuncSetAttribute(kmeans_tc_partials<MT, NTW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kmeans_tc_partials<MT, NTW><<<blocks, kThreads, smem, s>>>(
+      x, c, n, k, d, T, stage_floats, part_sums, part_counts, part_sse);
+  return cudaGetLastError();
+}
+
+template <int MT>
+cudaError_t dispatch_d(const float* x, const float* c, int n, int k, int d, int T, int blocks,
+                       float* ps, int* pc, float* pe, cudaStream_t s) {
+  const int ntw = ((d + 7) / 8 + kWarps - 1) / kWarps;
+  if (ntw <= 1) return launch_partials<MT, 1>(x, c, n, k, d, T, blocks, ps, pc, pe, s);
+  if (ntw <= 2) return launch_partials<MT, 2>(x, c, n, k, d, T, blocks, ps, pc, pe, s);
+  if (ntw <= 4) return launch_partials<MT, 4>(x, c, n, k, d, T, blocks, ps, pc, pe, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// `blocks` persistent blocks; part_* hold blocks x (k*d, k, 1) scratch.
-// Returns a cudaError_t.
-extern "C" int kmeans_assign_launch(const float* x, const float* c, int n,
-                                    int k, int d, int blocks, float* part_sums,
-                                    int* part_counts, float* part_sse,
-                                    float* sums, int* counts, float* sse,
+// `blocks` persistent blocks of tiles of T points (T a multiple of 32, at
+// most 256); part_* hold blocks x (k*d, k, 1) scratch.  1 <= k <= 64,
+// 1 <= d <= 256.  Returns a cudaError_t.
+extern "C" int kmeans_assign_launch(const float* x, const float* c, int n, int k, int d, int T,
+                                    int blocks, float* part_sums, int* part_counts,
+                                    float* part_sse, float* sums, int* counts, float* sse,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ld = repro::padded_ld(d);
-  const size_t smem = (static_cast<size_t>(k + kThreads) * ld + k + k * d + kThreads) *
-                          sizeof(float) +
-                      static_cast<size_t>(kThreads + k) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      kmeans_block_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kmeans_block_partials<<<blocks, kThreads, smem, s>>>(
-      x, c, n, k, d, ld, part_sums, part_counts, part_sse);
-  err = cudaGetLastError();
+  if (k < 1 || k > 64 || d < 1 || d > 256 || T < 32 || T > kThreads || T % 32) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err;
+  if (k <= 16) {
+    err = dispatch_d<1>(x, c, n, k, d, T, blocks, part_sums, part_counts, part_sse, s);
+  } else if (k <= 32) {
+    err = dispatch_d<2>(x, c, n, k, d, T, blocks, part_sums, part_counts, part_sse, s);
+  } else {
+    err = dispatch_d<4>(x, c, n, k, d, T, blocks, part_sums, part_counts, part_sse, s);
+  }
   if (err != cudaSuccess) return err;
   const int outputs = k * d + k + 1;
-  kmeans_reduce_blocks<<<(outputs + 127) / 128, 128, 0, s>>>(
+  kmeans_reduce_blocks<<<(outputs + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       part_sums, part_counts, part_sse, blocks, k, d, sums, counts, sse);
   return cudaGetLastError();
 }

@@ -84,38 +84,6 @@ constexpr float kBig = 1e30f;  // the Pallas kernel's "no candidate" value
 // repro::row_sqnorm wants, and 8 rows on distinct 4-bank groups).
 __host__ __device__ inline int tile_ld(int d) { return (d + 7) / 8 * 8 + 4; }
 
-// v = hi + lo + (what neither keeps), hi and lo TF32, each rounded to
-// nearest with ties away from zero, as `cvt.rna.tf32.f32` rounds a finite
-// value: half of the 13 dropped bits is added to the magnitude.  The
-// tensor core reads only the top 19 bits of a TF32 operand, so the low
-// bits are cleared only where hi's value is needed (v - hi, exact in
-// fp32).  Four integer and float operations per value, where `cvt.rna`
-// compiles to seven with its Inf/NaN guard; the inputs are finite.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) + 0x1000u;
-  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
-}
-
-__device__ __forceinline__ uint32_t repro_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 b16 matrices from shared memory, one row address per lane
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// c += a . b on one 16 x 8 tile, k 8: TF32 operands, fp32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Insert (dv, lv) into the ascending list bd[0..K): it goes before the
 // first entry it is strictly smaller than, the last entry falls off.
 // Fully unrolled so the lists stay in registers.
@@ -226,7 +194,7 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
   // 16 i + (l & 7) + 8 ((l >> 3) & 1) at column 4 (l >> 4), giving
   // a0..a3; B, slices j and j + 1: training row 8 j + (l & 7) + 8 (l >> 4)
   // at column 4 ((l >> 3) & 1), giving b0, b1 of slice j, then of j + 1
-  const uint32_t xa = repro_smem_addr(
+  const uint32_t xa = repro::smem_addr(
       xs + (warp * kWarpRows + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 4 * (lane >> 4));
   const int yoff = ((lane & 7) + 8 * (lane >> 4)) * ld + 4 * ((lane >> 3) & 1);
   float* cw = cross + warp * kTile * kLDC;                 // this warp's cross terms
@@ -238,7 +206,7 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
     __pipeline_wait_prior(1);  // this tile has landed
     __syncthreads();
     const int rows = min(kTile, n1 - t0);
-    const uint32_t ya = repro_smem_addr(ys + buf * kTile * ld + yoff);
+    const uint32_t ya = repro::smem_addr(ys + buf * kTile * ld + yoff);
 
     float acc[2][kSlices][4];
 #pragma unroll
@@ -253,23 +221,23 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         uint32_t raw[4];
-        ldsm_x4(raw, xa + 16 * i * ld * sizeof(float) + col);
+        repro::ldsm_x4(raw, xa + 16 * i * ld * sizeof(float) + col);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), ah[i][e], al[i][e]);
+        for (int e = 0; e < 4; ++e) repro::split_tf32(__uint_as_float(raw[e]), ah[i][e], al[i][e]);
       }
 #pragma unroll
       for (int j = 0; j < kSlices; j += 2) {
         uint32_t raw[4], bh[4], bl[4];
-        ldsm_x4(raw, ya + 8 * j * ld * sizeof(float) + col);
+        repro::ldsm_x4(raw, ya + 8 * j * ld * sizeof(float) + col);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), bh[e], bl[e]);
+        for (int e = 0; e < 4; ++e) repro::split_tf32(__uint_as_float(raw[e]), bh[e], bl[e]);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            mma_tf32(acc[i][j + h], al[i], bh[2 * h], bh[2 * h + 1]);
-            mma_tf32(acc[i][j + h], ah[i], bl[2 * h], bl[2 * h + 1]);
-            mma_tf32(acc[i][j + h], ah[i], bh[2 * h], bh[2 * h + 1]);
+            repro::mma_tf32(acc[i][j + h], al[i], bh[2 * h], bh[2 * h + 1]);
+            repro::mma_tf32(acc[i][j + h], ah[i], bl[2 * h], bl[2 * h + 1]);
+            repro::mma_tf32(acc[i][j + h], ah[i], bh[2 * h], bh[2 * h + 1]);
           }
       }
     }

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "knn_topk_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P], _I),
-    "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I,
+    "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P], _I),
     "rmsnorm_launch": ([_P, _P, _P, _L, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -138,14 +138,6 @@ def library() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
         _lib = lib
         return lib
-
-
-def padded_ld(d: int) -> int:
-    """Shared-memory row stride of a (rows, d) fp32 tile: mirrors
-    ``repro::padded_ld`` in ``csrc/common.cuh`` (the wrappers size shared
-    memory with it)."""
-    ld = (d + 3) // 4 * 4
-    return ld + 4 if (ld // 4) % 2 == 0 else ld
 
 
 def check(err: int, what: str) -> None:

@@ -10,9 +10,14 @@ ties); the outputs are the per-cluster sums ``(k, d)``, the counts
   of the Pallas kernel).  The CPU tests use it, and ``chip_smoke.py``
   holds the kernel against it.
 * :func:`kmeans_assign_cuda` — the hand-written CUDA kernel
-  (``csrc/kmeans_assign.cu``, which documents its design and bound).  It
-  is deterministic (no float atomics) and takes only contiguous fp32
-  CUDA tensors.
+  (``csrc/kmeans_assign.cu``, which documents its design and bound): two
+  persistent blocks per SM stream tiles of points through two-stage
+  ``cp.async`` rings and run both products on the tensor cores: the scores
+  ``x·c`` in 3xTF32 (fp32-grade), the per-cluster sums as a one-hot
+  contraction (each point split into TF32 hi + lo, within ~2⁻²² of
+  fp32).  It is
+  deterministic (no float atomics), takes contiguous fp32 CUDA tensors
+  with k <= 64 and d <= 256, and raises on anything else.
 
 :func:`repro_torch.kernels.ops.kmeans_assign` picks one by device.
 """
@@ -25,9 +30,13 @@ import torch
 
 from . import _build
 
-_THREADS = 128        # points per tile (kThreads in csrc/kmeans_assign.cu)
-_BLOCKS_PER_SM = 4    # persistent blocks per SM
-_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
+_THREADS = 256        # threads per block (kThreads in csrc/kmeans_assign.cu)
+_WARPS = _THREADS // 32
+_STAGES = 2           # tiles in the shared ring (kStages)
+_BLOCKS_PER_SM = 2    # persistent blocks per SM
+MAX_K = 64            # the sums of one warp stay in registers:
+MAX_D = 256           # at most 4 x 16 clusters by 4 x 8 dims
+_SMEM_PER_SM = 233472  # shared memory of one Hopper SM
 
 launches = 0          # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()
@@ -57,10 +66,41 @@ def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor):
     return sums, counts, sse
 
 
-def smem_bytes(k: int, d: int) -> int:
-    """Dynamic shared memory of one kernel block (see the .cu source)."""
-    ld = _build.padded_ld(d)
-    return ((k + _THREADS) * ld + k + k * d + _THREADS) * 4 + (_THREADS + k) * 4
+def _stage_floats(T: int, d: int) -> int:
+    return (T * d + 12 + 3) // 4 * 4
+
+
+def _padded_k(k: int) -> int:
+    """Clusters padded to the kernel's m-tiles: 16, 32 or 64."""
+    return 16 if k <= 16 else (32 if k <= 32 else 64)
+
+
+def smem_bytes(k: int, d: int, T: int = None) -> int:
+    """Dynamic shared memory of one kernel block (see the .cu source):
+    the ring of tiles, the centroids as TF32 hi/lo fragments (16 bytes per
+    lane, 8-cluster slice and 8-dim step), |c|²/2, the tile's assignments,
+    the block's counts and the per-warp sse."""
+    T = tile_points(k, d) if T is None else T
+    kp = _padded_k(k)
+    return (4 * (_STAGES * _stage_floats(T, d) + kp + T + kp + _WARPS)
+            + (kp // 16) * -(-d // 8) * 64 * 16)
+
+
+def tile_points(k: int, d: int) -> int:
+    """Points per tile: 256, halved (to 32 at least) until two blocks fit
+    one SM's shared memory (each with 1 KB the card reserves)."""
+    T = 256
+    while T > 32 and _BLOCKS_PER_SM * (smem_bytes(k, d, T) + 1024) > _SMEM_PER_SM:
+        T //= 2
+    return T
+
+
+def mma_chains(k: int, d: int) -> int:
+    """Independent accumulators per output tile in the kernel (kChains):
+    4 where a warp owns one 16 x 8 tile of the sums, 2 where it owns two
+    or three, else 1."""
+    tiles = (_padded_k(k) // 16) * next(q for q in (1, 2, 4) if 8 * _WARPS * q >= d)
+    return 1 if tiles >= 4 else (2 if tiles >= 2 else 4)
 
 
 def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
@@ -79,22 +119,22 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
         if not t.is_contiguous():
             raise ValueError(f"kmeans_assign_cuda: {name} must be contiguous")
     (n, d), k = x.shape, centroids.shape[0]
-    if smem_bytes(k, d) > _SMEM_LIMIT:
-        raise ValueError(f"kmeans_assign_cuda: k={k}, d={d} needs "
-                         f"{smem_bytes(k, d)} B of shared memory per block, "
-                         f"more than {_SMEM_LIMIT}")
+    if k > MAX_K or d > MAX_D:
+        raise ValueError(f"kmeans_assign_cuda: k={k}, d={d}; the kernel takes k <= {MAX_K} "
+                         f"and d <= {MAX_D}")
+    T = tile_points(k, d)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.int32, device=dev)
     sse = torch.empty((), dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(math.ceil(n / _THREADS), _BLOCKS_PER_SM * sms)
+    blocks = min(math.ceil(n / T), _BLOCKS_PER_SM * sms)
     part_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
     part_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
     part_sse = torch.empty((blocks,), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.kmeans_assign_launch(
-            x.data_ptr(), centroids.data_ptr(), n, k, d, blocks,
+            x.data_ptr(), centroids.data_ptr(), n, k, d, T, blocks,
             part_sums.data_ptr(), part_counts.data_ptr(), part_sse.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), sse.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

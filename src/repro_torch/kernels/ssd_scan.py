@@ -18,12 +18,15 @@ kernel is judged on y cast to x's dtype.
   padded by dt = 0 steps (decay 1, contribution 0) as the JAX layer pads
   it.  The CPU tests use it, and ``chip_smoke.py`` holds the kernel
   against it.
-* :func:`ssd_scan_cuda` — the hand-written CUDA kernel
-  (``csrc/ssd_scan.cu``, which documents its design and bound): the
-  recurrence step by step with the state in registers.  The function
-  does not depend on the chunk length, so the kernel takes no ``chunk``
-  and any S unpadded.  It reads x, dt, Bm and Cm through their
-  strides (the layer passes views into its conv output).
+* :func:`ssd_scan_cuda` — the hand-written CUDA kernels
+  (``csrc/ssd_scan.cu``, which documents their design and bound), one
+  route per dtype.  bf16 x, B and C run the chunked SSD on the tensor
+  cores (chunks of :data:`CHUNK` steps, the state in fp32 ``mma``
+  accumulators, fp32 operands split into bf16 hi + lo); fp32 inputs run
+  the recurrence step by step on the CUDA cores with the state in
+  registers.  The function does not depend on the chunk length, so the
+  kernel takes no ``chunk`` and any S unpadded.  It reads x, dt, Bm and
+  Cm through their strides (the layer passes views into its conv output).
 
 :func:`repro_torch.kernels.ops.ssd_scan` picks one by device.
 """
@@ -39,8 +42,22 @@ import torch.nn.functional as F
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_P = 128    # csrc/ssd_scan.cu: 4 lanes per state row, at most 512 threads
-MAX_N = 128    # and at most 32 state columns per lane
+MAX_P = 128    # csrc/ssd_scan.cu: 16 state rows per warp, at most 8 warps;
+MAX_N = 128    # the state of a warp in registers
+CHUNK = 32     # steps per chunk of the bf16 route (kQ)
+_STAGES = 2    # chunks in its shared ring (kStages)
+_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
+
+
+def smem_bytes(P: int, N: int) -> int:
+    """Dynamic shared memory of one block of the bf16 route (mirrors
+    ``tc::smem_bytes`` in the .cu source): two stages of x, B and C as
+    bf16 tiles padded to 16 columns (N to 16, 32, 64 or 128) plus 16
+    bytes a row, and dt; then M's hi and lo tiles."""
+    pp = 16 * -(-P // 16)
+    np_ = 16 * next(nk for nk in (1, 2, 4, 8) if 16 * nk >= N)
+    stage = 2 * CHUNK * (pp + 8) + 4 * CHUNK * (np_ + 8) + 4 * CHUNK
+    return _STAGES * stage + 4 * CHUNK * (CHUNK + 8)
 
 launches = 0          # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()

@@ -107,6 +107,29 @@ def test_kmeans_assign_close_on_random_inputs(cuda):
     torch.testing.assert_close(sse, psse, rtol=1e-5, atol=0.0)
 
 
+def test_kmeans_assign_at_the_path_shape(cuda):
+    """One partial_sum task of run_kmeans on 8M points: 500k x 50, k 16."""
+    rng = np.random.default_rng(11)
+    x, c = _to(cuda, rng.standard_normal((500_000, 50)).astype(np.float32),
+               rng.standard_normal((16, 50)).astype(np.float32))
+    top2 = (x @ c.T - 0.5 * (c * c).sum(1)).topk(2, dim=1).values
+    x = x[(top2[:, 0] - top2[:, 1]) >= 1e-4].contiguous()
+    got = tkm.kmeans_assign_cuda(x, c)
+    assert _same(got, tkm.kmeans_assign_cuda(x, c))
+    psums, pcounts, psse = tkm.kmeans_assign_plain(x, c)
+    assert torch.equal(got[1], pcounts)
+    torch.testing.assert_close(got[0], psums, rtol=1e-5, atol=1e-5 * psums.abs().max().item())
+    torch.testing.assert_close(got[2], psse, rtol=1e-5, atol=0.0)
+
+
+def test_kmeans_assign_refuses_k_and_d_beyond_its_registers(cuda):
+    x = torch.zeros((100, 257), device=cuda)
+    with pytest.raises(ValueError, match="d <= 256"):
+        tkm.kmeans_assign_cuda(x, x[:2])
+    with pytest.raises(ValueError, match="k <= 64"):
+        tkm.kmeans_assign_cuda(x[:, :8].contiguous(), x[:65, :8].contiguous())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((10, 4), device=cuda)
     with pytest.raises(TypeError):
@@ -267,7 +290,8 @@ def _close_ssd(got, want):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 512, 8, 64, 128, 256), (1, 543, 4, 64, 128, 256),
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(8, 512, 48, 64, 128, 256),    # mamba2's prefill
+                                             (2, 512, 8, 64, 128, 256), (1, 543, 4, 64, 128, 256),
                                              (2, 77, 3, 40, 100, 32), (1, 5, 2, 8, 16, 8),
                                              (2, 300, 2, 16, 16, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -615,3 +615,259 @@ def test_knn_partition_covers_the_training_rows(m, n, d):
     assert blocks <= max(wave, -(-m // 128))
     if (m, n) == (12_500, 125_000):
         assert blocks / wave > 0.95
+
+
+# ------------------------------------------ kmeans_assign on the tensor cores
+def _tf32_terms(v, terms):
+    """v (fp32) as ``terms`` TF32 values (cvt.rna), highest first, each the
+    rounding of what the ones before it miss."""
+    out, rest = [], v.numpy()
+    for _ in range(terms):
+        t = _tf32_rna(rest)
+        out.append(torch.from_numpy(t))
+        rest = rest - t
+    return out
+
+
+def _kmeans_tc_emulation(x, c, terms=2, sms=8):
+    """kmeans_assign as the kernel forms it: the assignment from 3xTF32
+    scores; per block (tiles b, b + blocks, ...) and per 8 points one
+    ``mma`` per TF32 term of x, lo first, each adding the exact sum of its
+    one-hot products to its fp32 accumulator chain with one rounding (per
+    term and 8-point half of a 16-point step where the kernel keeps four
+    chains), the chains added in order; then the per-block partials added
+    by 32 lanes striding over the blocks and a shuffle tree.  Returns
+    (sums, counts, sse)."""
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    (n, d), k = x.shape, c.shape[0]
+    # the scores in 3xTF32 (x_lo c_hi + x_hi c_lo + x_hi c_hi), fp32 |c|^2/2
+    xh, ch = _tf32_rna(x), _tf32_rna(c)
+    xl, cl = _tf32_rna(x - xh), _tf32_rna(c - ch)
+    cross = ((torch.from_numpy(xl) @ torch.from_numpy(ch).T
+              + torch.from_numpy(xh) @ torch.from_numpy(cl).T)
+             + torch.from_numpy(xh) @ torch.from_numpy(ch).T)
+    half = cross - 0.5 * (ct * ct).sum(1)
+    assign = torch.argmax(half, dim=1)        # the first index on ties
+    sse = ((xt * xt).sum(1) - 2.0 * half.amax(1)).sum()
+    T = tkm.tile_points(k, d)
+    n_tiles = -(-n // T)
+    blocks = min(n_tiles, 2 * sms)
+    its = -(-n_tiles // blocks)
+    xp = torch.zeros((its * blocks * T, d))
+    xp[:n] = xt
+    onehot = torch.zeros((its * blocks * T, k), dtype=torch.float64)
+    onehot[torch.arange(n), assign] = 1.0
+    xp = xp.reshape(its, blocks, T // 8, 8, d)
+    onehot = onehot.reshape(its, blocks, T // 8, 8, k)
+    chains = tkm.mma_chains(k, d)
+    acc = torch.zeros((4, blocks, k, d))      # chain term + 2 * half, term 0 = lo
+    for it in range(its):
+        for k8 in range(T // 8):
+            split = _tf32_terms(xp[it, :, k8], terms)
+            for t, part in enumerate(reversed(split)):
+                ch = {4: t + 2 * (k8 % 2), 2: t, 1: 0}[chains] if terms == 2 else 0
+                prod = torch.einsum("bpk,bpd->bkd", onehot[it, :, k8], part.double())
+                acc[ch] = (acc[ch].double() + prod).float()
+    total = acc[0]
+    for ch in range(1, 4):
+        total = total + acc[ch]
+    lanes = torch.zeros((32, k, d))
+    for b in range(blocks):
+        lanes[b % 32] = lanes[b % 32] + total[b]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[torch.arange(32) ^ off]
+    return lanes[0], torch.bincount(assign, minlength=k).to(torch.int32), sse
+
+
+def test_tf32_hi_lo_split_keeps_22_bits():
+    """hi + lo (each TF32 by round to nearest) lie within 2^-22 of x over
+    normal values of every scale the sums meet, and are x itself for the
+    integers of the exact checks; hi alone keeps only ~11 bits."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(100_000) *
+                          10.0 ** rng.uniform(-6, 6, 100_000)).astype(np.float32))
+    hi, lo = _tf32_terms(x, 2)
+    err = ((hi.double() + lo.double()) - x.double()).abs() / x.double().abs()
+    assert float(err.max()) <= 2.0 ** -22
+    assert float(((hi.double() - x.double()).abs() / x.double().abs()).max()) > 2.0 ** -13
+    ints = torch.arange(-2, 3, dtype=torch.float32)
+    assert torch.equal(_tf32_terms(ints, 2)[0], ints)
+
+
+@pytest.mark.parametrize("n,d,k", [(5000, 50, 16), (1001, 13, 5), (3000, 100, 64)])
+def test_kmeans_tc_emulation_is_exact_on_integer_inputs(n, d, k):
+    x, c = _km_inputs(n + d, n, d, k, integer=True)
+    sums, counts, sse = _kmeans_tc_emulation(x, c)
+    want = tkm.kmeans_assign_plain(torch.from_numpy(x), torch.from_numpy(c))
+    assert torch.equal(sums, want[0]) and torch.equal(counts, want[1])
+    assert torch.equal(sse, want[2])
+
+
+@pytest.mark.parametrize("n,d,k", [(20_000, 50, 16), (1007, 13, 5)])
+def test_kmeans_tc_emulation_meets_the_card_tolerance(n, d, k):
+    x, c = _km_inputs(n, n, d, k, integer=False)
+    # drop the points whose two best centroids score within 1e-4, as the card checks do
+    half = x.astype(np.float64) @ c.T.astype(np.float64) - 0.5 * (c.astype(np.float64) ** 2).sum(1)
+    top2 = np.sort(half, axis=1)[:, -2:]
+    x = np.ascontiguousarray(x[(top2[:, 1] - top2[:, 0]) >= 1e-4])
+    want, counts, want_sse = tkm.kmeans_assign_plain(torch.from_numpy(x), torch.from_numpy(c))
+    got, got_counts, got_sse = _kmeans_tc_emulation(x, c)
+    assert torch.equal(got_counts, counts)
+    torch.testing.assert_close(got_sse, want_sse, rtol=1e-5, atol=0.0)
+    # the card's check of the sums: rtol 1e-5 against the largest sum
+    atol = 1e-5 * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    # control: one TF32 term keeps 11 bits of each point
+    single = _kmeans_tc_emulation(x, c, terms=1)[0]
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(single, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_kmeans_tc_emulation_matches_pallas(integer):
+    x, c = _km_inputs(21, 300, 16, 8, integer=integer)
+    if not integer:
+        half = x.astype(np.float64) @ c.T.astype(np.float64) \
+            - 0.5 * (c.astype(np.float64) ** 2).sum(1)
+        top2 = np.sort(half, axis=1)[:, -2:]
+        x = np.ascontiguousarray(x[(top2[:, 1] - top2[:, 0]) >= 1e-4])
+    sums, counts, _ = _kmeans_tc_emulation(x, c, sms=2)
+    pal = _pallas_km(x, c)
+    np.testing.assert_array_equal(counts.numpy(), pal[1])
+    if integer:
+        np.testing.assert_array_equal(sums.numpy(), pal[0])
+    else:
+        # fp32 sums of ~40 points: rtol 1e-5 against the largest sum
+        np.testing.assert_allclose(sums.numpy(), pal[0], rtol=1e-5,
+                                   atol=1e-5 * np.abs(pal[0]).max())
+
+
+@pytest.mark.parametrize("k,d", [(16, 50), (5, 13), (64, 100), (1, 1), (64, 256), (16, 74),
+                                 (32, 200)])
+def test_kmeans_blocks_fit_in_shared_memory(k, d):
+    """Every k <= 64 and d <= 256 fits a block; tiles hold 256 points while
+    two blocks fit an SM (the path's d 50 among them), else fewer, down to
+    32 (where one block may fill the SM)."""
+    T = tkm.tile_points(k, d)
+    assert 32 <= T <= 256 and T % 32 == 0
+    two_blocks = 233472   # one SM's shared memory, 1 KB of it reserved per block
+    assert tkm.smem_bytes(k, d) <= SMEM_LIMIT
+    assert T == 32 or 2 * (tkm.smem_bytes(k, d) + 1024) <= two_blocks
+    assert T == 256 or 2 * (tkm.smem_bytes(k, d, 2 * T) + 1024) > two_blocks
+    if (k, d) == (16, 50):
+        assert T == 256 and tkm.mma_chains(k, d) == 4
+
+
+# ------------------------------------------------ ssd_scan on the tensor cores
+def _ssd_tc_emulation(x, dt, A, Bm, Cm, split=True):
+    """ssd_scan's bf16 route as the kernel computes it, in fp32: chunks of
+    CHUNK steps; cs added in step order; y = exp(cs) o (C . state^T)
+    + M . X with M = (C . B^T) o exp(cs_i - cs_j) o dt below the diagonal;
+    state = exp(cs_last) state + (X o exp(cs_last - cs) dt)^T . B.  Each
+    fp32 operand (the state, M, the scaled x) enters as bf16 hi + lo (or
+    hi alone where not ``split``), one product per term, lo first."""
+    b, s, h, p = x.shape
+    q = tssd.CHUNK
+    pad = (-s) % q
+
+    def terms(v):
+        hi = v.to(torch.bfloat16).float()
+        return [(v - hi).to(torch.bfloat16).float(), hi] if split else [hi]
+
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    state = torch.zeros((b, h, p, Bm.shape[-1]))
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    ys = []
+    for t0 in range(0, s + pad, q):
+        X = xf[:, t0:t0 + q].permute(0, 2, 1, 3)                # (b, h, q, p)
+        Bc, Cc = Bf[:, t0:t0 + q], Cf[:, t0:t0 + q]             # (b, q, n)
+        dtc = dtf[:, t0:t0 + q].permute(0, 2, 1)                # (b, h, q)
+        da = dtc * A.float()[None, :, None]
+        cs = torch.zeros_like(da)
+        run = torch.zeros_like(da[..., 0])
+        for t in range(q):                                      # in step order, fp32
+            run = run + da[..., t]
+            cs[..., t] = run
+        y = sum(torch.einsum("bqn,bhpn->bhqp", Cc, t) for t in terms(state))
+        y = y * torch.exp(cs)[..., None]
+        G = torch.einsum("bin,bjn->bij", Cc, Bc)[:, None]       # (b, 1, q, q)
+        L = torch.exp(cs[..., :, None] - cs[..., None, :])
+        M = torch.where(tril, G * L * dtc[..., None, :], torch.zeros(()))
+        y = y + sum(t @ X for t in terms(M))
+        ys.append(y)
+        w = torch.exp(cs[..., -1:] - cs) * dtc
+        state = state * torch.exp(cs[..., -1])[..., None, None] + sum(
+            torch.einsum("bhqp,bqn->bhpn", t, Bc) for t in terms(X * w[..., None]))
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)[:, :s]
+    return y, state
+
+
+def _ssd_card_inputs(B, S, H, P, N, seed, dt=None):
+    """The card checks' inputs: x, B and C as bf16 views into one packed
+    tensor, dt = softplus(normal) unless given, A = -linspace(1, 16, H)."""
+    rng = np.random.default_rng(seed)
+    packed = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * N)).astype(np.float32))
+    packed = packed.to(torch.bfloat16)
+    if dt is None:
+        dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    return (packed[..., :H * P].reshape(B, S, H, P), torch.from_numpy(dt.astype(np.float32)),
+            -torch.linspace(1.0, 16.0, H), packed[..., H * P:H * P + N], packed[..., H * P + N:])
+
+
+def _close_ssd(got, want):
+    """The card's check of the SSD kernel: rtol 1e-4, atol 1e-4 of the
+    largest value."""
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def _extreme_dt(H):
+    rng = np.random.default_rng(5)
+    near = np.where(np.arange(H) % 2 == 0, 1e-3, 20.0)
+    dt = rng.uniform(0.0, 1.0, (2, 300, H)) * near
+    return np.where(np.arange(H) % 2 == 0, dt, np.maximum(dt, 5.0))
+
+
+# the card checks' cases: S 543, the extreme decays (dt < 1e-3 and
+# 5..20 in alternate heads), P 40 / N 100 (padded to the tiles)
+SSD_TC_CASES = {"S 543": (2, 543, 8, 64, 128, None), "extreme decays": (2, 300, 8, 64, 128, "x"),
+                "P 40, N 100": (2, 77, 3, 40, 100, None)}
+
+
+@pytest.mark.parametrize("case", list(SSD_TC_CASES))
+def test_ssd_chunked_bf16_emulation_meets_the_card_tolerance(case):
+    B, S, H, P, N, dt = SSD_TC_CASES[case]
+    args = _ssd_card_inputs(B, S, H, P, N, seed=S + P, dt=_extreme_dt(H) if dt else None)
+    want_y, want_st = tssd.ssd_scan_plain(*args, chunk=256 if S > 256 else 32)
+    y, st = _ssd_tc_emulation(*args)
+    _close_ssd(y, want_y)
+    _close_ssd(st, want_st)
+    # control: one bf16 term for the state, M and the scaled x
+    y1, st1 = _ssd_tc_emulation(*args, split=False)
+    with pytest.raises(AssertionError):
+        _close_ssd(y1, want_y)
+        _close_ssd(st1, want_st)
+
+
+def test_ssd_chunked_bf16_emulation_matches_pallas():
+    """Against the Pallas kernel in interpret mode on the same bf16-exact
+    values (fp32 arrays there), at a small size with a ragged last chunk."""
+    x, dt, A, Bm, Cm = _ssd_card_inputs(1, 70, 2, 16, 32, seed=3)
+    y, _ = _ssd_tc_emulation(x, dt, A, Bm, Cm)
+    pal = pallas_ssd(*(jnp.asarray(t.float().contiguous().numpy()) for t in (x, dt, A, Bm, Cm)),
+                     chunk=35, interpret=True)
+    _close_ssd(y, torch.from_numpy(np.array(pal, dtype=np.float32)))
+
+
+@pytest.mark.parametrize("P,N", [(64, 128), (128, 128), (40, 100), (8, 16), (16, 16), (1, 1),
+                                 (128, 17)])
+def test_ssd_blocks_fit_in_shared_memory(P, N):
+    """Every P, N <= 128 fits, at least three blocks per SM at the serve
+    path's P 64, N 128; tile rows are 16-byte multiples (cp.async, ldmatrix)."""
+    assert tssd.smem_bytes(P, N) <= SMEM_LIMIT
+    if (P, N) == (64, 128):
+        assert 3 * (tssd.smem_bytes(P, N) + 1024) <= 233472
+    pp = 16 * -(-P // 16)
+    assert (pp + 8) * 2 % 16 == 0 and (tssd.CHUNK + 8) * 2 % 16 == 0
