@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 ``--parent DIR`` also times the kernels of another checkout of the
 repository (for example ``git archive`` of the parent commit unpacked
 into ``build/parent``) beside this one's, in the same process on the same
-inputs, for ``kmeans_assign`` and bf16 ``ssd_scan``: their rows then carry
-``parent_ms``, read before and after this checkout's kernel.
+inputs, for ``kmeans_assign``, bf16 ``ssd_scan`` and ``rmsnorm`` (every
+timed shape): their rows then carry ``parent_ms``, read before and after
+this checkout's kernel.
 
 Phases, in order; each prints one JSON line with its wall time, and any
 failure raises (the script then exits non-zero without a result):
@@ -22,14 +23,18 @@ failure raises (the script then exits non-zero without a result):
              flash at every head dim, the knn tile kernel, the kmeans
              partials kernel and the bf16 SSD chunk kernel at every
              template), which must be non-zero, and ptxas must report 0
-             spill bytes for them;
+             spill bytes for them; every one-pass ``rmsnorm`` instance
+             must keep its packs in registers (no spill, no stack frame);
 3. kernels — each hand-written kernel against its plain PyTorch version
              on the card: exactly on integer-valued inputs (ties
              included), within stated tolerances on random normal inputs
              at the main paths' shapes and at ragged shapes, and bitwise
              equal across two launches; then timed beside its bound, its
              plain version and (where one exists) the one PyTorch call
-             that computes the same function;
+             that computes the same function.  ``kmeans_assign`` and
+             ``knn_topk`` are also checked and timed at shapes past their
+             tensor-core routes (their rows' ``wide_shapes``: the wide
+             CUDA routes), and each row names the route it took;
 4. knn     — run_knn on 2M x 50 training rows, 50k test rows;
 5. kmeans  — run_kmeans on 8M x 50 points, k=16, 10 iterations, twice;
 6. linreg  — run_linreg on 2M x 100 rows;
@@ -134,6 +139,9 @@ def device_kernels(fn):
     return out, table
 
 
+SPIN = "spin_kernel"   # torch.cuda._sleep's kernel: the edges of a timed window
+
+
 def device_ms(fn, reps: int, warmup: int = 2, tries: int = 3) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed,
     averaged over ``reps`` calls after ``warmup`` calls.  Every call
@@ -141,16 +149,26 @@ def device_ms(fn, reps: int, warmup: int = 2, tries: int = 3) -> float:
     multiple of ``reps``; where it is not, or the window holds no device
     activity at all, the profiler lost events (both seen on the H100: a
     5 us kernel read 0.9 us, SDPA above the card's peak, an SDPA window
-    empty), and the window is profiled again, up to ``tries`` times."""
+    empty), and the window is profiled again, up to ``tries`` times.  A
+    short spin kernel opens and closes each window and is not counted:
+    in windows of ~40 us of `F.rms_norm` the profiler lost one of 20
+    events three times running."""
+    def window():
+        torch.cuda._sleep(1000)
+        out = [fn() for _ in range(reps)]
+        torch.cuda._sleep(1000)
+        return out
+
     for _ in range(warmup):
         fn()
     table = {}
     for _ in range(tries):
         try:
-            _, table = device_kernels(lambda: [fn() for _ in range(reps)])
+            _, table = device_kernels(window)
         except NoDeviceActivity:
             continue
-        if all(n % reps == 0 for _, n in table.values()):
+        table = {key: v for key, v in table.items() if SPIN not in key}
+        if table and all(n % reps == 0 for _, n in table.values()):
             return sum(ms for ms, _ in table.values()) / reps
     raise RuntimeError(f"torch.profiler lost events in {tries} windows of {reps} calls: "
                        f"{ {key[:60]: n for key, (_, n) in table.items()} }")
@@ -191,7 +209,7 @@ def load_parent(root: str) -> dict:
     sys.modules["parent_repro_torch"] = mod
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"parent_repro_torch.kernels.{name}")
-            for name in ("kmeans_assign", "ssd_scan")}
+            for name in ("kmeans_assign", "ssd_scan", "rmsnorm")}
 
 
 def with_parent(name: str, call, t_new) -> dict:
@@ -220,8 +238,8 @@ def task_seconds(rt) -> dict:
 
 
 def ptxas_report(log: str) -> dict:
-    """{function: {"registers", "spill_stores", "spill_loads"}} from the
-    ``-Xptxas -v`` lines of the build log."""
+    """{function: {"registers", "spill_stores", "spill_loads", "stack"}}
+    from the ``-Xptxas -v`` lines of the build log."""
     report, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
@@ -232,6 +250,9 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and fn:
             report[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and fn:
+            report[fn]["stack"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             report[fn]["registers"] = int(m.group(1))
@@ -284,6 +305,28 @@ def check_tensor_core_build(log: str, lib_path: str) -> dict:
     return out
 
 
+def check_rmsnorm_build(log: str) -> dict:
+    """Per one-pass ``rmsnorm`` instance (``rmsnorm_rows<TX, TS, lanes per
+    row, packs per lane>``): registers, spill bytes and stack frame; raises
+    where one spills or keeps a stack frame: its packs must stay in
+    registers."""
+    out = {}
+    for fn, info in ptxas_report(log).items():
+        m = re.search(r"rmsnorm_rowsI(\w+?)Li(\d+)ELi(\d+)E", fn)
+        if not m:
+            continue
+        # x's and scale's types: f is float; any other (named, or a
+        # substitution S.._ of it) is __nv_bfloat16
+        types = ["fp32" if t == "f" else "bf16"
+                 for t in re.findall(r"13__nv_bfloat16|S\d*_|f", m.group(1))]
+        out[f"rmsnorm_rows<{','.join(types)},{m.group(2)},{m.group(3)}>"] = info
+    assert len(out) == 40, f"{len(out)} one-pass rmsnorm instances in the build log"
+    leaks = {name: info for name, info in out.items()
+             if (info.get("spill_stores"), info.get("spill_loads"), info.get("stack")) != (0, 0, 0)}
+    assert not leaks, f"rmsnorm instances leave their registers: {leaks}"
+    return out
+
+
 def bitwise_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -303,10 +346,21 @@ def check_knn(knn_k, gen, cuda):
     test = ints((m, d))
     test[:50] = train[100:150]
     labels = torch.from_numpy(gen.integers(0, 4, size=n).astype(np.int32)).to(cuda)
-    for k in (1, 5, 16, 32):
+    # k past the register lists: the wide route, ties and all
+    for k in (1, 5, 16, 32, 33, 100, 257):
         got = knn_k.knn_topk_cuda(test, train, labels, k)
         want = knn_k.knn_topk_plain(test, train, labels, k)
         assert bitwise_equal(got, want), f"knn_topk integer case k={k} differs"
+    # d past the tile's shared memory: the wide route
+    for d, k in ((273, 5), (1024, 40)):
+        tr = ints((700, d))
+        tr[400:600] = tr[0:200]
+        te = ints((150, d))
+        te[:50] = tr[100:150]
+        lab = labels[:700].contiguous()
+        got = knn_k.knn_topk_cuda(te, tr, lab, k)
+        assert bitwise_equal(got, knn_k.knn_topk_plain(te, tr, lab, k)), \
+            f"knn_topk integer case d={d} differs"
 
     def normal_case(m, n, d, k):
         test = torch.from_numpy(gen.standard_normal((m, d)).astype(np.float32)).to(cuda)
@@ -330,20 +384,33 @@ def check_knn(knn_k, gen, cuda):
     normal_case(1037, 10013, 50, 5)             # ragged m and n
     normal_case(129, 3, 50, 3)                  # k > fragment rows: the caller passes n
     normal_case(77, 5000, 13, 20)               # d not a multiple of 4, K=32 list
-    # the path shape: one KNN_frag task of phase 4
-    m, n, d, k = 12_500, 125_000, 50, 5
-    test, train, labels, err = normal_case(m, n, d, k)
-    t = times(lambda: knn_k.knn_topk_cuda(test, train, labels, k),
-              lambda: knn_k.knn_topk_plain(test, train, labels, k), reps=10, plain_reps=3)
-    # the kernel's route: three TF32 products per pair on the tensor cores
-    nbytes = 4.0 * (m * d + n * d + n) + 8.0 * m * k
-    bound_ms, bound_by = bound(3 * 2.0 * m * n * d, nbytes, PEAK_TF32_FLOPS)
+    normal_case(300, 9000, 20, 100)             # the wide route: k past the lists,
+    normal_case(200, 3000, 300, 5)              # d past the tile,
+    normal_case(70, 9000, 7, 1000)              # k past a training chunk
+
+    def timed(m, n, d, k):
+        test, train, labels, err = normal_case(m, n, d, k)
+        t = times(lambda: knn_k.knn_topk_cuda(test, train, labels, k),
+                  lambda: knn_k.knn_topk_plain(test, train, labels, k), reps=10, plain_reps=3)
+        nbytes = 4.0 * (m * d + n * d + n) + 8.0 * m * k
+        fp32_cores = bound(2.0 * m * n * d, nbytes)
+        cuda_route = knn_k.route(k, d)
+        if cuda_route == "tensor_cores":    # three TF32 products per pair
+            bound_ms, bound_by = bound(3 * 2.0 * m * n * d, nbytes, PEAK_TF32_FLOPS)
+        else:                               # fp32 FMAs on the CUDA cores
+            bound_ms, bound_by = fp32_cores
+        return {"shape": {"m": m, "n": n, "d": d, "k": k}, "cuda_route": cuda_route,
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms_fp32_cores": fp32_cores[0]}
+
+    # the path shape: one KNN_frag task of phase 4, on the tensor cores
+    row = timed(12_500, 125_000, 50, 5)
+    assert row["cuda_route"] == "tensor_cores", row["cuda_route"]
+    row["wide_shapes"] = [timed(12_500, 125_000, 50, 33), timed(12_500, 125_000, 300, 5)]
+    assert all(w["cuda_route"] == "wide" for w in row["wide_shapes"])
     return {"name": "knn_topk", "route": "cuda",
             "source": "src/repro_torch/csrc/knn_topk.cu",
-            "replaces": "src/repro/kernels/knn_topk.py:86",
-            "shape": {"m": m, "n": n, "d": d, "k": k},
-            "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_ms_fp32_cores": bound(2.0 * m * n * d, nbytes)[0]}
+            "replaces": "src/repro/kernels/knn_topk.py:86", **row}
 
 
 def check_kmeans(km_k, gen, cuda):
@@ -353,7 +420,9 @@ def check_kmeans(km_k, gen, cuda):
 
     # integer-valued inputs: dot products, |c|^2/2, sums and sse are exact;
     # half-integer scores make argmax ties common
-    for n, d, k in ((5000, 50, 16), (1001, 13, 5)):
+    # the last three past the tensor-core route: the wide route
+    for n, d, k in ((5000, 50, 16), (1001, 13, 5), (5000, 50, 65), (3001, 257, 16),
+                    (20_000, 300, 1000)):
         x, c = ints((n, d)), ints((k, d))
         got = km_k.kmeans_assign_cuda(x, c)
         want = km_k.kmeans_assign_plain(x, c)
@@ -379,20 +448,30 @@ def check_kmeans(km_k, gen, cuda):
 
     normal_case(1007, 13, 5)                    # ragged tile, k not a multiple of 4
     normal_case(100_003, 50, 16)
-    # the path shape: one partial_sum task of phase 5
-    n, d, k = 500_000, 50, 16
-    x, c, err = normal_case(n, d, k)
-    n = x.shape[0]
-    t = with_parent("kmeans_assign", lambda m: m.kmeans_assign_cuda(x, c),
-                    lambda: times(lambda: km_k.kmeans_assign_cuda(x, c),
-                                  lambda: km_k.kmeans_assign_plain(x, c)))
-    bound_ms, bound_by = bound(2.0 * n * k * d + 3.0 * n * d,
-                               4.0 * (n * d + 2 * k * d + k + 1))
+    normal_case(20_011, 300, 1000)              # the wide route, both past
+
+    def timed(n, d, k, parent=False):
+        x, c, err = normal_case(n, d, k)
+        n = x.shape[0]
+        def run():
+            return times(lambda: km_k.kmeans_assign_cuda(x, c),
+                         lambda: km_k.kmeans_assign_plain(x, c))
+
+        t = with_parent("kmeans_assign", lambda m: m.kmeans_assign_cuda(x, c), run) \
+            if parent else run()
+        bound_ms, bound_by = bound(2.0 * n * k * d + 3.0 * n * d,
+                                   4.0 * (n * d + 2 * k * d + k + 1))
+        return {"shape": {"n": n, "d": d, "k": k}, "cuda_route": km_k.route(k, d),
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # the path shape: one partial_sum task of phase 5, on the tensor cores
+    row = timed(500_000, 50, 16, parent=True)
+    assert row["cuda_route"] == "tensor_cores", row["cuda_route"]
+    row["wide_shapes"] = [timed(500_000, 50, 65), timed(100_000, 257, 16)]
+    assert all(w["cuda_route"] == "wide" for w in row["wide_shapes"])
     return {"name": "kmeans_assign", "route": "cuda",
             "source": "src/repro_torch/csrc/kmeans_assign.cu",
-            "replaces": "src/repro/kernels/kmeans_assign.py:65",
-            "shape": {"n": n, "d": d, "k": k},
-            "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+            "replaces": "src/repro/kernels/kmeans_assign.py:65", **row}
 
 
 def close_in_dtype(got, want, what: str) -> float:
@@ -415,13 +494,19 @@ def check_rmsnorm(rms_k, gen, cuda):
             .to(cuda).to(dtype)
 
     # the serve path's shapes (ln1/ln2 rows of d_model, q/k-norm rows of
-    # head_dim), ragged row counts, d from 64 to 6144, d off the 16-byte
-    # packs, fp32 x with a bf16 scale
+    # head_dim, mamba2's 1536 and 3072, recurrentgemma's 4096), ragged row
+    # counts, d from 64 to 6144 (every packs-per-lane template and the two-
+    # pass rows past them), d off the 16-byte packs, mixed dtypes
     cases = [((8 * 512, 1024), torch.bfloat16, torch.bfloat16),
              ((8 * 512 * 16, 64), torch.bfloat16, torch.bfloat16),
              ((8 * 512, 1024), torch.float32, torch.float32),
              ((1001, 1024), torch.bfloat16, torch.bfloat16),
              ((77, 6144), torch.bfloat16, torch.float32),
+             ((8, 4096), torch.bfloat16, torch.bfloat16),
+             ((300, 1536), torch.bfloat16, torch.bfloat16),
+             ((70, 3072), torch.bfloat16, torch.float32),
+             ((33, 2048), torch.float32, torch.float32),
+             ((9, 4096), torch.float32, torch.bfloat16),
              ((13, 3, 64), torch.float32, torch.bfloat16),
              ((129, 100), torch.bfloat16, torch.bfloat16),
              ((5, 37), torch.float32, torch.float32)]
@@ -436,13 +521,22 @@ def check_rmsnorm(rms_k, gen, cuda):
         err = close_in_dtype(rms_k.rmsnorm_cuda(x, scale), rms_k.rmsnorm_plain(x, scale),
                              "rmsnorm timed")
         bound_ms, bound_by = bound(4.0 * rows * d, 2.0 * (2 * rows * d + d))
-        t = times(lambda: rms_k.rmsnorm_cuda(x, scale), lambda: rms_k.rmsnorm_plain(x, scale),
-                  time_library("rmsnorm", x, scale, 1e-6), reps=50, plain_reps=20)
-        return {"shape": {"rows": rows, "d": d, "dtype": "bf16"}, "max_abs_err": err, **t,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+        t = with_parent("rmsnorm", lambda m: m.rmsnorm_cuda(x, scale),
+                        lambda: times(lambda: rms_k.rmsnorm_cuda(x, scale),
+                                      lambda: rms_k.rmsnorm_plain(x, scale),
+                                      time_library("rmsnorm", x, scale, 1e-6), reps=50,
+                                      plain_reps=20))
+        return {"shape": {"rows": rows, "d": d, "dtype": "bf16"},
+                "layout": dict(zip(("lanes_per_row", "packs_per_lane", "one_pass"),
+                                   rms_k.layout(d, 2))),
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
 
     row = at_shape(8 * 512, 1024)          # ln1 / ln2 / final norm of the prefill
-    row["qk_norm_shape"] = at_shape(8 * 512 * 16, 64)
+    row["qk_norm_shape"] = at_shape(8 * 512 * 16, 64)     # qwen's q norm of the prefill
+    row["k_norm_shape"] = at_shape(8 * 512 * 8, 64)       # and its k norm
+    # one decode step: ln1 / ln2 of qwen (8 x 1024) and of recurrentgemma
+    # (8 x 4096), qwen's q norm (8 x 16 heads x 64)
+    row["decode_shapes"] = [at_shape(8, 1024), at_shape(8 * 16, 64), at_shape(8, 4096)]
     return {"name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:30", **row}
 
@@ -734,8 +828,8 @@ def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout whose kmeans_assign and ssd_scan kernels are timed "
-                         "beside this one's")
+                    help="a checkout whose kmeans_assign, ssd_scan and rmsnorm kernels are "
+                         "timed beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; one CUDA card is needed",
@@ -780,6 +874,7 @@ def main(argv) -> int:
             line.strip() for line in _build.build_log.splitlines()
             if "Compiling entry" in line or "Used" in line or "spill" in line])
         ph.info["tensor_cores"] = check_tensor_core_build(_build.build_log, lib._name)
+        ph.info["rmsnorm_registers"] = check_rmsnorm_build(_build.build_log)
         if args.parent:
             PARENT.update(load_parent(args.parent))
             PARENT["kmeans_assign"]._build.library()

@@ -104,4 +104,78 @@ __device__ inline void zero_shared(float* buf, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) buf[i] = 0.f;
 }
 
+// ------------------------------------------ fp32 dot-product tiles, any d
+
+constexpr int kDotRows = 64;      // rows of A and of B in one tile
+constexpr int kDotDepth = 16;     // depth of one shared slice
+constexpr int kDotThreads = 256;  // threads of a block that calls dot_tile
+
+// One depth slice of each operand, transposed (stride 65: the stores of
+// a slice meet at most two lanes per bank), and the rows' squared norms.
+struct DotTileSmem {
+  float a[kDotDepth][kDotRows + 1];
+  float b[kDotDepth][kDotRows + 1];
+  float asq[kDotRows];
+  float bsq[kDotRows];
+};
+
+// The 64 x 64 dot products a_r . b_c of rows A[0..a_rows) and B[0..b_rows)
+// (row-major, d floats each) over any depth d, by fp32 FMAs in depth
+// order; shared memory holds one 16-deep slice of each, whatever d is.
+// Thread t of the 256 owns rows t / 16 + 16 i and columns t % 16 + 16 j
+// (i, j < 4) in acc; rows past a_rows / b_rows read as zero.  On return
+// s.asq[r] = |a_r|^2 and s.bsq[c] = |b_c|^2 (fmaf in depth order), visible
+// to every thread.  Every thread of the block must call it.
+__device__ inline void dot_tile(const float* __restrict__ A, int a_rows,
+                                const float* __restrict__ B, int b_rows, int d,
+                                DotTileSmem& s, float (&acc)[4][4]) {
+  const int t = threadIdx.x;
+  const int tr = t >> 4, tc = t & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float sq = 0.f;  // |a_t|^2 (t < 64) or |b_{t-64}|^2 (t < 128)
+  for (int j0 = 0; j0 < d; j0 += kDotDepth) {
+    __syncthreads();  // the previous slice (or the caller's reads of asq/bsq) is done
+#pragma unroll
+    for (int q = 0; q < kDotRows * kDotDepth / kDotThreads; ++q) {
+      const int e = t + kDotThreads * q;
+      const int r = e >> 4, jj = e & 15;
+      const bool in_d = j0 + jj < d;
+      s.a[jj][r] = r < a_rows && in_d ? A[static_cast<long>(r) * d + j0 + jj] : 0.f;
+      s.b[jj][r] = r < b_rows && in_d ? B[static_cast<long>(r) * d + j0 + jj] : 0.f;
+    }
+    __syncthreads();
+    if (t < 2 * kDotRows) {
+      const float* col = t < kDotRows ? &s.a[0][t] : &s.b[0][t - kDotRows];
+#pragma unroll
+      for (int jj = 0; jj < kDotDepth; ++jj) {
+        const float v = col[jj * (kDotRows + 1)];
+        sq = fmaf(v, v, sq);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kDotDepth; ++jj) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = s.a[jj][tr + 16 * i];
+        b[i] = s.b[jj][tc + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  __syncthreads();  // every read of the last slice and of the old norms is done
+  if (t < kDotRows) {
+    s.asq[t] = sq;
+  } else if (t < 2 * kDotRows) {
+    s.bsq[t - kDotRows] = sq;
+  }
+  __syncthreads();
+}
+
 }  // namespace repro

@@ -56,8 +56,29 @@
 //    warp order.
 //  * kernel 2 sums the per-block partials: one warp per output, lanes
 //    striding over the blocks, then a fixed shuffle tree.
-// Limits: k <= 64 and d <= 256 (the accumulators of a warp stay in
-// registers).
+// The tensor-core route takes k <= 64 and d <= 256 (the accumulators of a
+// warp stay in registers).
+//
+// The wide route (kmeans_wide_launch) takes every other k and d; the
+// wrapper picks the route by shape before launch (kmeans_assign.route)
+// and neither hands work to the other.  Both give the same function:
+//  * kernel 1 (kmeans_wide_assign): a block owns 64 points and walks the
+//    centroids in tiles of 64, each tile's scores x.c formed by fp32 FMAs
+//    in depth order over 16-deep slices of points and centroids staged
+//    in shared memory (repro::dot_tile: 8.8 KB whatever k and d are).  A
+//    thread keeps the first strict maximum of x.c - |c|^2/2 over its 4
+//    clusters in order, its 16 lanes merge by shuffles (lower index on
+//    ties), and a later tile replaces the running best only when strictly
+//    greater.  It writes each point's cluster and |x|^2 - 2 best.
+//  * kernel 2 (kmeans_wide_sums): the points are cut into S contiguous
+//    splits; thread (split, dim) adds its split's points in order into
+//    its own (cluster, dim) partials, and one thread per split counts (in
+//    integers) and adds the sse terms in order.  No atomics.
+//  * kmeans_reduce_blocks merges the S partials as above (split order per
+//    lane, then a fixed shuffle tree), so two launches are bitwise equal.
+// Scratch: 8 bytes per point, and S x (k*d + k + 1) partials with S chosen
+// from k*d so that they stay within 2^22 floats (16 MiB); where k*d + k + 1
+// alone exceeds that, S = 1, one partial the size of the outputs.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -419,6 +440,100 @@ __global__ void kmeans_reduce_blocks(const float* __restrict__ part_sums,
   }
 }
 
+// ----------------------------------------------------------- wide route
+
+// Kernel 1: 64 points per block against every centroid, 64 at a time.
+__global__ void __launch_bounds__(repro::kDotThreads)
+kmeans_wide_assign(const float* __restrict__ x, const float* __restrict__ c, int n, int k,
+                   int d, int* __restrict__ asg, float* __restrict__ err) {
+  __shared__ repro::DotTileSmem s;
+  __shared__ float xsq[repro::kDotRows];
+  const int t = threadIdx.x;
+  const int tr = t >> 4, tc = t & 15;
+  const long p0 = static_cast<long>(blockIdx.x) * repro::kDotRows;
+  const int rows = static_cast<int>(min(static_cast<long>(repro::kDotRows), n - p0));
+  float best[4];
+  int arg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    best[i] = -CUDART_INF_F;
+    arg[i] = 0;
+  }
+  for (int c0 = 0; c0 < k; c0 += repro::kDotRows) {
+    float acc[4][4];
+    repro::dot_tile(x + p0 * d, rows, c + static_cast<long>(c0) * d,
+                    min(repro::kDotRows, k - c0), d, s, acc);
+    if (c0 == 0 && t < repro::kDotRows) xsq[t] = s.asq[t];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // the thread's clusters in order, then its 16 lanes, lower index on ties
+      float lb = -CUDART_INF_F;
+      int la = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = c0 + tc + 16 * j;
+        const float v = acc[i][j] - 0.5f * s.bsq[tc + 16 * j];
+        if (cl < k && v > lb) {
+          lb = v;
+          la = cl;
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, lb, off);
+        const int oa = __shfl_xor_sync(0xffffffffu, la, off);
+        if (ob > lb || (ob == lb && oa < la)) {
+          lb = ob;
+          la = oa;
+        }
+      }
+      if (lb > best[i]) {  // strict: the earlier tile keeps a tie
+        best[i] = lb;
+        arg[i] = la;
+      }
+    }
+  }
+  __syncthreads();  // xsq is complete
+  if (tc == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tr + 16 * i;
+      if (r < rows) {
+        asg[p0 + r] = arg[i];
+        err[p0 + r] = xsq[r] - 2.f * best[i];
+      }
+    }
+  }
+}
+
+// Kernel 2: thread (split, dim j) adds the split's points in order into
+// the split's (cluster, j) partials; thread 0 of column block 0 counts and
+// adds the split's sse terms in order.
+__global__ void kmeans_wide_sums(const float* __restrict__ x, const int* __restrict__ asg,
+                                 const float* __restrict__ err, int n, int k, int d, int chunk,
+                                 float* __restrict__ part_sums, int* __restrict__ part_counts,
+                                 float* __restrict__ part_sse) {
+  const int split = blockIdx.x;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  const long p_begin = static_cast<long>(split) * chunk;
+  const long p_end = min(static_cast<long>(n), p_begin + chunk);
+  if (j < d) {
+    float* ps = part_sums + static_cast<long>(split) * k * d + j;
+    for (int cl = 0; cl < k; ++cl) ps[static_cast<long>(cl) * d] = 0.f;
+    for (long p = p_begin; p < p_end; ++p) ps[static_cast<long>(asg[p]) * d] += x[p * d + j];
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0) {
+    int* pc = part_counts + static_cast<long>(split) * k;
+    for (int cl = 0; cl < k; ++cl) pc[cl] = 0;
+    float e = 0.f;
+    for (long p = p_begin; p < p_end; ++p) {
+      pc[asg[p]] += 1;
+      e += err[p];
+    }
+    part_sse[split] = e;
+  }
+}
+
 template <int MT, int NTW>
 cudaError_t launch_partials(const float* x, const float* c, int n, int k, int d, int T,
                             int blocks, float* part_sums, int* part_counts, float* part_sse,
@@ -472,5 +587,32 @@ extern "C" int kmeans_assign_launch(const float* x, const float* c, int n, int k
   const int outputs = k * d + k + 1;
   kmeans_reduce_blocks<<<(outputs + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       part_sums, part_counts, part_sse, blocks, k, d, sums, counts, sse);
+  return cudaGetLastError();
+}
+
+// The wide route: any k >= 1 and d >= 1.  asg / err hold n ints / floats
+// of scratch, part_* splits x (k*d, k, 1); each split is `chunk`
+// contiguous points (the last may be short).  Returns a cudaError_t.
+extern "C" int kmeans_wide_launch(const float* x, const float* c, int n, int k, int d,
+                                  int splits, int chunk, int* asg, float* err, float* part_sums,
+                                  int* part_counts, float* part_sse, float* sums, int* counts,
+                                  float* sse, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || k < 1 || d < 1 || splits < 1 || chunk < 1 ||
+      static_cast<long>(splits) * chunk < n) {
+    return cudaErrorInvalidValue;
+  }
+  kmeans_wide_assign<<<(n + repro::kDotRows - 1) / repro::kDotRows, repro::kDotThreads, 0, s>>>(
+      x, c, n, k, d, asg, err);
+  cudaError_t err_ = cudaGetLastError();
+  if (err_ != cudaSuccess) return err_;
+  const int cols = d < 128 ? (d + 31) / 32 * 32 : 128;  // dims per block of kernel 2
+  kmeans_wide_sums<<<dim3(splits, (d + cols - 1) / cols), cols, 0, s>>>(
+      x, asg, err, n, k, d, chunk, part_sums, part_counts, part_sse);
+  err_ = cudaGetLastError();
+  if (err_ != cudaSuccess) return err_;
+  const long outputs = static_cast<long>(k) * d + k + 1;
+  kmeans_reduce_blocks<<<static_cast<unsigned>((outputs + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+      part_sums, part_counts, part_sse, splits, k, d, sums, counts, sse);
   return cudaGetLastError();
 }

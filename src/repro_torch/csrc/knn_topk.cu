@@ -62,6 +62,33 @@
 //   resident blocks; each chunk leaves a top-K per test row in scratch, and a second
 //   small kernel merges the chunks in chunk order with the same strict
 //   insertion.  No atomics: the result is bitwise reproducible.
+// Limits of this route: k <= 32 (the register lists) and d <= 272 (the
+// block's shared memory grows with d).
+//
+// The wide route (knn_wide_launch) takes every other k <= n and d; the
+// wrapper picks the route by shape before launch (knn_topk.route) and
+// neither hands work to the other.  Speed is not its goal: it exists so
+// that no k or d is refused.  Test rows go in groups of at most 8192 and
+// training rows in chunks of at most 4096, and per group and chunk:
+//  * knn_wide_dists writes the chunk's fp32 distances to global scratch,
+//    each 64 x 64 block of them from repro::dot_tile (fp32 FMAs in depth
+//    order over 16-deep shared slices: shared memory does not grow with
+//    d), dist = (|x|^2 - 2 x.y) + |y|^2 as above.
+//  * knn_wide_select, one block per test row, keeps the row's k best as
+//    64-bit keys, (order-preserving bits of the distance) << 32 | training
+//    index, sorted ascending in global memory.  Keys are unique and their
+//    order is the tie rule (equal distances: lower index first), so the k
+//    smallest keys are the answer whatever order they are found in.  The
+//    block gathers the chunk's keys below the row's k-th key into shared
+//    memory (32 KB), sorts them (bitonic), and merges them with the row's
+//    list: an element's place is its index in its own list plus the count
+//    of smaller keys in the other, found by binary search; places below k
+//    are written to the other of two lists.
+//  * knn_wide_finish decodes the final keys into distances and labels.
+// Scratch: groups x 4096 floats of distances (at most 128 MiB) and two
+// lists of m x k keys.  Integer-valued inputs give exact distances, so
+// the result equals the plain version's bit for bit; two launches are
+// bitwise equal (no float atomics; the gather's order is undone by the sort).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -324,6 +351,127 @@ __global__ void knn_merge_chunks(const float* __restrict__ part_d,
   }
 }
 
+// ----------------------------------------------------------- wide route
+
+constexpr int kSelCap = 4096;  // keys a select block holds: the largest chunk
+
+// Float bits that order as the floats do (negative values reversed).
+__device__ __forceinline__ uint32_t ordered_bits(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float from_ordered_bits(uint32_t u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// Distances of test rows [0, rows) to training rows [0, cols), row-major
+// with stride ld, 64 x 64 per block.
+__global__ void __launch_bounds__(repro::kDotThreads)
+knn_wide_dists(const float* __restrict__ test, int rows, const float* __restrict__ train,
+               int cols, int d, float* __restrict__ dist, int ld) {
+  __shared__ repro::DotTileSmem s;
+  const int r0 = blockIdx.x * repro::kDotRows, c0 = blockIdx.y * repro::kDotRows;
+  float acc[4][4];
+  repro::dot_tile(test + static_cast<long>(r0) * d, min(repro::kDotRows, rows - r0),
+                  train + static_cast<long>(c0) * d, min(repro::kDotRows, cols - c0), d, s, acc);
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + tr + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tc + 16 * j;
+      if (r < rows && c < cols) {
+        dist[static_cast<long>(r) * ld + c] =
+            fmaf(-2.f, acc[i][j], s.asq[tr + 16 * i]) + s.bsq[tc + 16 * j];
+      }
+    }
+  }
+}
+
+// How many of a[0..len) (ascending) are smaller than key.
+__device__ __forceinline__ int count_below(const unsigned long long* a, int len,
+                                           unsigned long long key) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// One block per test row: merge the chunk's distances (training rows n0 +
+// [0, cols)) into the row's k best keys, best_in -> best_out.  On the
+// first chunk best_in is not read (every entry counts as ~0).
+__global__ void __launch_bounds__(256)
+knn_wide_select(const float* __restrict__ dist, int ld, int cols, int n0, int k, int first,
+                const unsigned long long* __restrict__ best_in,
+                unsigned long long* __restrict__ best_out) {
+  __shared__ unsigned long long buf[kSelCap];
+  __shared__ int count;
+  const int t = threadIdx.x;
+  const float* dr = dist + static_cast<long>(blockIdx.x) * ld;
+  const unsigned long long* in = best_in + static_cast<long>(blockIdx.x) * k;
+  unsigned long long* out = best_out + static_cast<long>(blockIdx.x) * k;
+  const unsigned long long none = ~0ull;
+  const unsigned long long kth = first ? none : in[k - 1];
+  if (t == 0) count = 0;
+  __syncthreads();
+  for (int i = t; i < cols; i += blockDim.x) {
+    const unsigned long long key =
+        static_cast<unsigned long long>(ordered_bits(dr[i])) << 32 | static_cast<uint32_t>(n0 + i);
+    if (key < kth) buf[atomicAdd(&count, 1)] = key;
+  }
+  __syncthreads();
+  const int c = count;
+  if (c == 0) {  // nothing enters: the list carries over
+    for (int i = t; i < k; i += blockDim.x) out[i] = in[i];
+    return;
+  }
+  int len = 1;
+  while (len < c) len <<= 1;
+  for (int i = c + t; i < len; i += blockDim.x) buf[i] = none;
+  __syncthreads();
+  for (int size = 2; size <= len; size <<= 1) {      // bitonic sort, ascending
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < len / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = buf[lo], b = buf[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = t; i < k; i += blockDim.x) {
+    const unsigned long long a = first ? none : in[i];
+    const int at = i + count_below(buf, c, a);
+    if (at < k) out[at] = a;
+  }
+  for (int j = t; j < c; j += blockDim.x) {
+    const unsigned long long b = buf[j];
+    const int at = j + (first ? 0 : count_below(in, k, b));
+    if (at < k) out[at] = b;
+  }
+}
+
+__global__ void knn_wide_finish(const unsigned long long* __restrict__ best, long total,
+                                const int* __restrict__ labels, float* __restrict__ out_d,
+                                int* __restrict__ out_l) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const unsigned long long key = best[i];
+  out_d[i] = from_ordered_bits(static_cast<uint32_t>(key >> 32));
+  out_l[i] = labels[static_cast<uint32_t>(key)];
+}
+
 template <int K>
 cudaError_t launch(const float* test, const float* train, const int* labels,
                    int m, int n, int d, int k, int chunk, int splits,
@@ -374,4 +522,42 @@ extern "C" int knn_topk_launch(const float* test, const float* train,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The wide route: any 1 <= k <= n and d >= 1.  Test rows go in groups of
+// `group` rows and training rows in chunks of `chunk` (<= 4096) rows;
+// dist holds group x chunk floats of scratch, best_a / best_b m x k keys
+// each.  Returns a cudaError_t.
+extern "C" int knn_wide_launch(const float* test, const float* train, const int* labels,
+                               int m, int n, int d, int k, int group, int chunk, float* dist,
+                               unsigned long long* best_a, unsigned long long* best_b,
+                               float* out_d, int* out_l, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || n < 1 || d < 1 || k < 1 || k > n || group < 1 || chunk < 1 ||
+      chunk > kSelCap) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int R = repro::kDotRows;
+  int lists = 0;  // chunks merged so far in the group: chunk q writes best_a when q is even
+  for (int g0 = 0; g0 < m; g0 += group) {
+    const int rows = m - g0 < group ? m - g0 : group;
+    lists = 0;
+    for (int n0 = 0; n0 < n; n0 += chunk, ++lists) {
+      const int cols = n - n0 < chunk ? n - n0 : chunk;
+      knn_wide_dists<<<dim3((rows + R - 1) / R, (cols + R - 1) / R), repro::kDotThreads, 0, s>>>(
+          test + static_cast<long>(g0) * d, rows, train + static_cast<long>(n0) * d, cols, d,
+          dist, chunk);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      unsigned long long* in = (lists % 2 == 0 ? best_b : best_a) + static_cast<long>(g0) * k;
+      unsigned long long* out = (lists % 2 == 0 ? best_a : best_b) + static_cast<long>(g0) * k;
+      knn_wide_select<<<rows, 256, 0, s>>>(dist, chunk, cols, n0, k, n0 == 0, in, out);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  const long total = static_cast<long>(m) * k;
+  knn_wide_finish<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      lists % 2 == 1 ? best_a : best_b, total, labels, out_d, out_l);
+  return cudaGetLastError();
 }

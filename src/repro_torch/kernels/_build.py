@@ -41,7 +41,11 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P], _I),
     "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P], _I),
-    "rmsnorm_launch": ([_P, _P, _P, _L, _I, _I, _I, _I, _F, _P], _I),
+    "kmeans_wide_launch": ([_P, _P, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "knn_wide_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P], _I),
+    "rmsnorm_launch": ([_P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P], _I),
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(_L), _I, _I, _I, _P], _I),
     "rglru_scan_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),

@@ -15,9 +15,12 @@ ties); the outputs are the per-cluster sums ``(k, d)``, the counts
   ``cp.async`` rings and run both products on the tensor cores: the scores
   ``x·c`` in 3xTF32 (fp32-grade), the per-cluster sums as a one-hot
   contraction (each point split into TF32 hi + lo, within ~2⁻²² of
-  fp32).  It is
-  deterministic (no float atomics), takes contiguous fp32 CUDA tensors
-  with k <= 64 and d <= 256, and raises on anything else.
+  fp32) — for k <= 64 and d <= 256; every other k and d take the wide
+  route (fp32 FMAs over centroid tiles, then per-split partials merged in
+  split order).  :func:`route` picks one by shape before launch, and a
+  route that fails raises: neither hands work to the other or to the
+  plain version.  Both are deterministic (no float atomics) and take
+  contiguous fp32 CUDA tensors; the wrapper raises on anything else.
 
 :func:`repro_torch.kernels.ops.kmeans_assign` picks one by device.
 """
@@ -34,9 +37,12 @@ _THREADS = 256        # threads per block (kThreads in csrc/kmeans_assign.cu)
 _WARPS = _THREADS // 32
 _STAGES = 2           # tiles in the shared ring (kStages)
 _BLOCKS_PER_SM = 2    # persistent blocks per SM
-MAX_K = 64            # the sums of one warp stay in registers:
-MAX_D = 256           # at most 4 x 16 clusters by 4 x 8 dims
+MAX_K = 64            # the tensor-core route's sums of one warp stay in
+MAX_D = 256           # registers: at most 4 x 16 clusters by 4 x 8 dims
 _SMEM_PER_SM = 233472  # shared memory of one Hopper SM
+WIDE_SMEM_BYTES = 2 * 16 * 65 * 4 + 2 * 64 * 4 + 64 * 4   # the wide route's
+#                     assign block (repro::DotTileSmem and |x|^2), any k, d
+WIDE_SCRATCH_FLOATS = 1 << 22   # the wide route's partials, unless one is larger
 
 launches = 0          # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()
@@ -103,10 +109,28 @@ def mma_chains(k: int, d: int) -> int:
     return 1 if tiles >= 4 else (2 if tiles >= 2 else 4)
 
 
+def route(k: int, d: int) -> str:
+    """The CUDA route for k centroids of d dims: ``"tensor_cores"`` within
+    the tensor-core kernel's registers, else ``"wide"``."""
+    return "tensor_cores" if k <= MAX_K and d <= MAX_D else "wide"
+
+
+def wide_splits(n: int, k: int, d: int, sms: int) -> tuple:
+    """(splits, chunk) of the wide route: the points cut into ``splits``
+    contiguous runs of ``chunk`` (the last may be short), at least 128
+    points each, at most 8 per SM, and so that the partials (k*d + k + 1
+    floats per split) stay within ``WIDE_SCRATCH_FLOATS`` (one split where
+    a single partial is larger)."""
+    per_split = k * d + k + 1
+    splits = max(1, min(n // 128, 8 * sms, WIDE_SCRATCH_FLOATS // per_split))
+    chunk = math.ceil(n / splits)
+    return math.ceil(n / chunk), chunk
+
+
 def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
-    """Launch the CUDA kernel.  x (n, d) and centroids (k, d) fp32,
-    contiguous, on one CUDA device.  Returns (sums (k, d) fp32, counts
-    (k,) int32, sse 0-d fp32)."""
+    """Launch the CUDA kernels of :func:`route`'s choice.  x (n, d) and
+    centroids (k, d) fp32, contiguous, on one CUDA device.  Returns (sums
+    (k, d) fp32, counts (k,) int32, sse 0-d fp32)."""
     global launches
     _check_shapes(x, centroids)
     dev = x.device
@@ -119,25 +143,35 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
         if not t.is_contiguous():
             raise ValueError(f"kmeans_assign_cuda: {name} must be contiguous")
     (n, d), k = x.shape, centroids.shape[0]
-    if k > MAX_K or d > MAX_D:
-        raise ValueError(f"kmeans_assign_cuda: k={k}, d={d}; the kernel takes k <= {MAX_K} "
-                         f"and d <= {MAX_D}")
-    T = tile_points(k, d)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.int32, device=dev)
     sse = torch.empty((), dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(math.ceil(n / T), _BLOCKS_PER_SM * sms)
-    part_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
-    part_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
-    part_sse = torch.empty((blocks,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = (sums.data_ptr(), counts.data_ptr(), sse.data_ptr(), stream)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.kmeans_assign_launch(
-            x.data_ptr(), centroids.data_ptr(), n, k, d, T, blocks,
-            part_sums.data_ptr(), part_counts.data_ptr(), part_sse.data_ptr(),
-            sums.data_ptr(), counts.data_ptr(), sse.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    if route(k, d) == "tensor_cores":
+        T = tile_points(k, d)
+        blocks = min(math.ceil(n / T), _BLOCKS_PER_SM * sms)
+        part_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
+        part_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
+        part_sse = torch.empty((blocks,), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.kmeans_assign_launch(
+                x.data_ptr(), centroids.data_ptr(), n, k, d, T, blocks,
+                part_sums.data_ptr(), part_counts.data_ptr(), part_sse.data_ptr(), *outs)
+    else:
+        splits, chunk = wide_splits(n, k, d, sms)
+        asg = torch.empty((n,), dtype=torch.int32, device=dev)
+        terms = torch.empty((n,), dtype=torch.float32, device=dev)
+        part_sums = torch.empty((splits, k, d), dtype=torch.float32, device=dev)
+        part_counts = torch.empty((splits, k), dtype=torch.int32, device=dev)
+        part_sse = torch.empty((splits,), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.kmeans_wide_launch(
+                x.data_ptr(), centroids.data_ptr(), n, k, d, splits, chunk, asg.data_ptr(),
+                terms.data_ptr(), part_sums.data_ptr(), part_counts.data_ptr(),
+                part_sse.data_ptr(), *outs)
     _build.check(err, "kmeans_assign")
     with _count_lock:
         launches += 1

@@ -14,8 +14,13 @@ training index (lower first).
 * :func:`knn_topk_cuda` — the hand-written CUDA kernel
   (``csrc/knn_topk.cu``, which documents its design and bound): the cross
   term on the tensor cores in 3xTF32 (fp32-grade), the top-k walked per
-  test row in training-index order.  It takes only contiguous fp32 CUDA
-  tensors and raises on anything else.
+  test row in training-index order — for k <= 32 and d <= 272.  Every
+  other k and d take the wide route: fp32 distances of a training chunk
+  through global scratch, and per test row a selection of 64-bit keys
+  (distance, index), which keeps the tie rule.  :func:`route` picks one
+  by shape before launch, and a route that fails raises: neither hands
+  work to the other or to the plain version.  It takes only contiguous
+  fp32 CUDA tensors and raises on anything else.
 
 :func:`repro_torch.kernels.ops.knn_topk` picks one by device.
 """
@@ -35,6 +40,11 @@ _TILE = 32             # training rows per shared tile (kTile there)
 _CROSS_FLOATS = 4 * _TILE * 36   # the four warps' cross-term tiles (kLDC = 36)
 _SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
 _SMEM_PER_SM = 233472  # shared memory of one SM
+WIDE_GROUP = 8192      # the wide route's test rows per pass
+WIDE_CHUNK = 4096      # its training rows per pass (kSelCap in csrc/knn_topk.cu)
+# the wide route's static shared memory per block, any k and d: the
+# distance block (repro::DotTileSmem) and the select block (keys + count)
+WIDE_SMEM_BYTES = (2 * 16 * 65 * 4 + 2 * 64 * 4, WIDE_CHUNK * 8 + 4)
 
 launches = 0         # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()
@@ -109,11 +119,27 @@ def list_length(k: int) -> int:
     raise ValueError(f"knn_topk kernel supports k <= {MAX_K}, got {k}")
 
 
+def route(k: int, d: int) -> str:
+    """The CUDA route for k neighbours in d dims: ``"tensor_cores"`` where
+    the register lists hold k and a block's shared memory holds d, else
+    ``"wide"``."""
+    return "tensor_cores" if k <= MAX_K and smem_bytes(d) <= _SMEM_LIMIT else "wide"
+
+
+def wide_dist_floats(m: int) -> int:
+    """The wide route's distance scratch, in floats: one pass of at most
+    WIDE_GROUP test rows by WIDE_CHUNK training rows, whatever n, d and k
+    are.  (Its other scratch, two lists of m x k keys, is the size of the
+    output.)"""
+    return min(m, WIDE_GROUP) * WIDE_CHUNK
+
+
 def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
                   train_y: torch.Tensor, k: int):
-    """Launch the CUDA kernel.  test_x (m, d) and train_x (n, d) fp32,
-    train_y (n,) int32, all contiguous on one CUDA device.  Returns
-    (dists (m, k) fp32 ascending, labels (m, k) int32)."""
+    """Launch the CUDA kernels of :func:`route`'s choice.  test_x (m, d)
+    and train_x (n, d) fp32, train_y (n,) int32, all contiguous on one
+    CUDA device.  Returns (dists (m, k) fp32 ascending, labels (m, k)
+    int32)."""
     global launches
     _check_shapes(test_x, train_x, train_y, k)
     dev = test_x.device
@@ -127,24 +153,30 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"knn_topk_cuda: {name} must be contiguous")
     (m, d), n = test_x.shape, train_x.shape[0]
-    smem = smem_bytes(d)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"knn_topk_cuda: d={d} needs {smem} B of shared memory "
-                         f"per block, more than {_SMEM_LIMIT}")
-    kb = list_length(k)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_l = torch.empty((m, k), dtype=torch.int32, device=dev)
-    splits, chunk = partition(m, n, d, torch.cuda.get_device_properties(dev).multi_processor_count)
-    train_sq = torch.empty((n,), dtype=torch.float32, device=dev)
-    part_d = torch.empty((splits, m, kb), dtype=torch.float32, device=dev)
-    part_l = torch.empty((splits, m, kb), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.knn_topk_launch(
-            test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(),
-            m, n, d, k, kb, chunk, splits, train_sq.data_ptr(),
-            part_d.data_ptr(), part_l.data_ptr(), out_d.data_ptr(), out_l.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    if route(k, d) == "tensor_cores":
+        kb = list_length(k)
+        splits, chunk = partition(m, n, d,
+                                  torch.cuda.get_device_properties(dev).multi_processor_count)
+        train_sq = torch.empty((n,), dtype=torch.float32, device=dev)
+        part_d = torch.empty((splits, m, kb), dtype=torch.float32, device=dev)
+        part_l = torch.empty((splits, m, kb), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.knn_topk_launch(
+                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(),
+                m, n, d, k, kb, chunk, splits, train_sq.data_ptr(),
+                part_d.data_ptr(), part_l.data_ptr(), out_d.data_ptr(), out_l.data_ptr(), stream)
+    else:
+        dists = torch.empty((wide_dist_floats(m),), dtype=torch.float32, device=dev)
+        keys = torch.empty((2, m * k), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.knn_wide_launch(
+                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k,
+                WIDE_GROUP, WIDE_CHUNK, dists.data_ptr(), keys[0].data_ptr(),
+                keys[1].data_ptr(), out_d.data_ptr(), out_l.data_ptr(), stream)
     _build.check(err, "knn_topk")
     with _count_lock:
         launches += 1

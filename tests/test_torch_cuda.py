@@ -122,12 +122,51 @@ def test_kmeans_assign_at_the_path_shape(cuda):
     torch.testing.assert_close(got[2], psse, rtol=1e-5, atol=0.0)
 
 
-def test_kmeans_assign_refuses_k_and_d_beyond_its_registers(cuda):
-    x = torch.zeros((100, 257), device=cuda)
-    with pytest.raises(ValueError, match="d <= 256"):
-        tkm.kmeans_assign_cuda(x, x[:2])
-    with pytest.raises(ValueError, match="k <= 64"):
-        tkm.kmeans_assign_cuda(x[:, :8].contiguous(), x[:65, :8].contiguous())
+@pytest.mark.parametrize("n,d,k", [(5000, 50, 65), (3001, 257, 16), (20_000, 300, 1000)])
+def test_kmeans_assign_wide_route_matches_plain(cuda, n, d, k):
+    """Past the tensor-core route (k > 64 or d > 256) the wide route
+    answers at the main route's tolerances: integer inputs bitwise,
+    filtered random inputs with equal counts, sums and sse at rtol 1e-5;
+    two launches bitwise equal."""
+    assert tkm.route(k, d) == "wide"
+    rng = np.random.default_rng(n + k)
+    x, c = _to(cuda, rng.integers(-2, 3, size=(n, d)).astype(np.float32),
+               rng.integers(-2, 3, size=(k, d)).astype(np.float32))
+    assert _same(tkm.kmeans_assign_cuda(x, c), tkm.kmeans_assign_plain(x, c))
+    x, c = _to(cuda, rng.standard_normal((n, d)).astype(np.float32),
+               rng.standard_normal((k, d)).astype(np.float32))
+    top2 = (x @ c.T - 0.5 * (c * c).sum(1)).topk(2, dim=1).values
+    x = x[(top2[:, 0] - top2[:, 1]) >= 1e-4].contiguous()
+    got = tkm.kmeans_assign_cuda(x, c)
+    assert _same(got, tkm.kmeans_assign_cuda(x, c))
+    psums, pcounts, psse = tkm.kmeans_assign_plain(x, c)
+    assert torch.equal(got[1], pcounts)
+    torch.testing.assert_close(got[0], psums, rtol=1e-5, atol=1e-5 * psums.abs().max().item())
+    torch.testing.assert_close(got[2], psse, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("m,n,d,k", [(300, 1000, 50, 33), (300, 1000, 50, 100),
+                                     (200, 5000, 20, 257), (300, 1000, 273, 5),
+                                     (100, 700, 1024, 40), (70, 9000, 7, 1000)])
+def test_knn_topk_wide_route_exact_on_integer_inputs(cuda, m, n, d, k):
+    """Past the tensor-core route (k > 32 or d > 272): the plain version's
+    distances and labels bit for bit on tied integer inputs (the tie
+    rule), and two launches bitwise equal."""
+    assert tknn.route(k, d) == "wide"
+    test, train, labels = _to(cuda, *_knn_inputs(m + k, m, n, d, integer=True))
+    got = tknn.knn_topk_cuda(test, train, labels, k)
+    assert _same(got, tknn.knn_topk_plain(test, train, labels, k))
+    assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
+
+
+@pytest.mark.parametrize("m,n,d,k", [(300, 9000, 20, 100), (200, 3000, 300, 5),
+                                     (100, 5000, 1024, 33), (1000, 20_000, 50, 257)])
+def test_knn_topk_wide_route_close_on_random_inputs(cuda, m, n, d, k):
+    test, train, labels = _to(cuda, *_knn_inputs(m + n, m, n, d, integer=False))
+    got_d, _ = tknn.knn_topk_cuda(test, train, labels, k)
+    want_d, _ = tknn.knn_topk_plain(test, train, labels, k)
+    # fp32 distances from two summation orders: rtol 1e-5, atol 1e-3
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-3)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -156,6 +195,25 @@ def test_pipelines_on_the_card_match_the_cpu(cuda):
     np.testing.assert_allclose(km_card.centroids, km_cpu.centroids, atol=1e-4)
 
 
+def test_wide_pipelines_on_the_card_match_the_cpu(cuda):
+    """run_kmeans at k 65 and run_knn at d 300 (both past the tensor-core
+    routes) on the card give the CPU path's results."""
+    kcfg = dict(n_points=20_000, d=8, k=65, fragments=4, max_iters=5, tol=0.0)
+    cfg = dict(n_train=4000, n_test=1000, d=300, k=5, n_classes=4, train_fragments=4,
+               test_blocks=2)
+    assert tkm.route(65, 8) == "wide" and tknn.route(5, 300) == "wide"
+    with api.runtime_start(n_workers=4):
+        ops.reset_launch_counts()
+        km_card = kmeans.run_kmeans(**kcfg, device=cuda)
+        km_cpu = kmeans.run_kmeans(**kcfg, device="cpu")
+        on_card = knn.run_knn(**cfg, device=cuda)
+        on_cpu = knn.run_knn(**cfg, device="cpu")
+        counts = ops.launch_counts()
+    assert counts["kmeans_assign"] == 4 * 5 and counts["knn_topk"] == 4 * 2
+    np.testing.assert_allclose(km_card.centroids, km_cpu.centroids, atol=1e-4)
+    assert (on_card.predictions == on_cpu.predictions).mean() >= 0.999
+
+
 BF16_STEP = 2.0 ** -7
 
 
@@ -168,7 +226,9 @@ def _close(got, want):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("shape", [(4096, 1024), (1001, 64), (77, 6144), (3, 5, 100), (9, 37)])
+@pytest.mark.parametrize("shape", [(4096, 1024), (1001, 64), (77, 6144), (3, 5, 100), (9, 37),
+                                   (65_536, 64), (32_768, 64), (8, 4096), (300, 1536),
+                                   (70, 3072), (33, 2048)])
 @pytest.mark.parametrize("xdt,sdt", [(torch.bfloat16, torch.bfloat16),
                                      (torch.float32, torch.float32),
                                      (torch.bfloat16, torch.float32)])

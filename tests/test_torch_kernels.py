@@ -871,3 +871,255 @@ def test_ssd_blocks_fit_in_shared_memory(P, N):
         assert 3 * (tssd.smem_bytes(P, N) + 1024) <= 233472
     pp = 16 * -(-P // 16)
     assert (pp + 8) * 2 % 16 == 0 and (tssd.CHUNK + 8) * 2 % 16 == 0
+
+
+# ------------------------------------------- the wide routes (any k and d)
+@pytest.mark.parametrize("k,d,want", [(64, 256, "tensor_cores"), (65, 256, "wide"),
+                                      (64, 257, "wide"), (65, 50, "wide"), (16, 257, "wide"),
+                                      (16, 50, "tensor_cores"), (1, 1, "tensor_cores"),
+                                      (1000, 300, "wide")])
+def test_kmeans_route_by_shape(k, d, want):
+    """The tensor-core route holds k <= 64 and d <= 256; every other shape
+    takes the wide route, chosen before launch."""
+    assert tkm.route(k, d) == want
+
+
+@pytest.mark.parametrize("k,d,want", [(32, 272, "tensor_cores"), (33, 272, "wide"),
+                                      (32, 273, "wide"), (33, 50, "wide"), (5, 273, "wide"),
+                                      (5, 50, "tensor_cores"), (1, 1, "tensor_cores"),
+                                      (257, 1024, "wide")])
+def test_knn_route_by_shape(k, d, want):
+    """The tensor-core route holds k <= 32 (its register lists) and d up
+    to 272 (its shared memory); every other shape takes the wide route."""
+    assert tknn.route(k, d) == want
+    assert (tknn.smem_bytes(d) <= SMEM_LIMIT) == (d <= 272)
+
+
+STATIC_SMEM = 48 * 1024   # static shared memory a block may declare
+
+
+@pytest.mark.parametrize("n", [1, 1000, 100_003, 500_000])
+@pytest.mark.parametrize("k,d", [(65, 50), (16, 257), (1000, 300), (65, 1), (1, 5000),
+                                 (4096, 1024), (100_000, 64)])
+def test_kmeans_wide_route_has_bounded_scratch(n, k, d):
+    """The wide route's shared memory does not depend on k or d; its
+    partials stay within 2^22 floats unless one partial alone is larger
+    (then there is one); the splits cover the points once, none empty."""
+    assert tkm.WIDE_SMEM_BYTES <= STATIC_SMEM
+    splits, chunk = tkm.wide_splits(n, k, d, sms=132)
+    per_split = k * d + k + 1
+    assert splits >= 1 and (splits - 1) * chunk < n <= splits * chunk
+    assert splits * per_split <= max(tkm.WIDE_SCRATCH_FLOATS, per_split)
+    assert splits <= 8 * 132 and (splits == 1 or chunk >= 128)
+
+
+@pytest.mark.parametrize("m", [1, 300, 12_500, 100_000])
+@pytest.mark.parametrize("k,d", [(33, 50), (257, 50), (5, 273), (40, 1024), (5000, 3)])
+def test_knn_wide_route_has_bounded_scratch(m, k, d):
+    """The wide route's shared memory and its distance scratch do not
+    depend on k, d or n (at most 8192 x 4096 floats)."""
+    assert all(b <= STATIC_SMEM for b in tknn.WIDE_SMEM_BYTES)
+    assert tknn.wide_dist_floats(m) == min(m, tknn.WIDE_GROUP) * tknn.WIDE_CHUNK
+    assert tknn.wide_dist_floats(m) <= tknn.WIDE_GROUP * tknn.WIDE_CHUNK
+    assert tknn.WIDE_CHUNK <= 4096      # the select block's keys fit its 32 KB
+
+
+def _ordered_bits(f):
+    """csrc/knn_topk.cu :: ordered_bits: fp32 bits that order as the values."""
+    u = np.ascontiguousarray(f, dtype=np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _from_ordered_bits(u):
+    u = np.asarray(u, dtype=np.uint32)
+    return np.where(u & np.uint32(0x80000000), u & np.uint32(0x7FFFFFFF), ~u) \
+        .astype(np.uint32).view(np.float32)
+
+
+def test_ordered_bits_order_as_the_floats_and_invert():
+    rng = np.random.default_rng(0)
+    f = np.concatenate([(rng.standard_normal(10_000) * 10.0 ** rng.uniform(-30, 30, 10_000)),
+                        [0.0, 1e-45, -1e-45, 3e38, -3e38, 1.0, -1.0]]).astype(np.float32)
+    u = _ordered_bits(f)
+    order = np.argsort(f, kind="stable")
+    assert np.all(np.diff(u[order].astype(np.int64)) >= 0)
+    np.testing.assert_array_equal(_from_ordered_bits(u).view(np.uint32), f.view(np.uint32))
+
+
+def _knn_wide_emulation(test, train, labels, k, chunk, group):
+    """knn_topk's wide route as csrc/knn_topk.cu forms it (the distances
+    here from the plain version's formula): per group of test rows and
+    chunk of training rows, each row's keys below its k-th best are
+    gathered in an arbitrary order, sorted, and merged with the row's list
+    by place = index in its own list + count of smaller keys in the other."""
+    none = np.uint64(2 ** 64 - 1)
+    x, y = torch.from_numpy(test), torch.from_numpy(train)
+    d2 = (((x * x).sum(1)[:, None] - 2.0 * (x @ y.T)) + (y * y).sum(1)[None, :]).numpy()
+    m, n = d2.shape
+    keys = (_ordered_bits(d2).astype(np.uint64) << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    rng = np.random.default_rng(1)
+    best = np.empty((m, k), dtype=np.uint64)
+    for g0 in range(0, m, group):
+        for r in range(g0, min(m, g0 + group)):
+            lst = None
+            for n0 in range(0, n, chunk):
+                row = keys[r, n0:n0 + chunk]
+                kth = none if lst is None else lst[k - 1]
+                cand = row[row < kth]
+                cand = np.sort(rng.permutation(cand))   # the gather's order is undone
+                if cand.size == 0:
+                    continue
+                a = np.full(k, none) if lst is None else lst
+                out = np.full(k, none)
+                at_a = np.arange(k) + np.searchsorted(cand, a, side="left")
+                at_b = np.arange(cand.size) + (0 if lst is None
+                                               else np.searchsorted(lst, cand, side="left"))
+                out[at_a[at_a < k]] = a[at_a < k]
+                out[at_b[at_b < k]] = cand[at_b < k]
+                lst = out
+            best[r] = lst
+    dist = _from_ordered_bits((best >> np.uint64(32)).astype(np.uint32))
+    return dist, labels[(best & np.uint64(0xFFFFFFFF)).astype(np.int64)]
+
+
+@pytest.mark.parametrize("m,n,d,k,chunk,group", [(40, 300, 16, 33, 64, 16),
+                                                 (30, 500, 9, 100, 64, 30),
+                                                 (20, 257, 5, 257, 32, 7),
+                                                 (25, 400, 12, 5, 4096, 8192)])
+def test_knn_wide_selection_emulation_is_exact_on_integer_inputs(m, n, d, k, chunk, group):
+    """Integer inputs with duplicated rows (ties everywhere): the keyed
+    selection over chunks gives the plain version's distances and labels
+    bit for bit, k beyond a chunk and k = n_train included."""
+    test, train, labels = _knn_inputs(m + k, m, n, d, integer=True)
+    got_d, got_l = _knn_wide_emulation(test, train, labels, k, chunk, group)
+    want_d, want_l = tknn.knn_topk_plain(torch.from_numpy(test), torch.from_numpy(train),
+                                         torch.from_numpy(labels), k)
+    np.testing.assert_array_equal(got_d, want_d.numpy())
+    np.testing.assert_array_equal(got_l, want_l.numpy())
+
+
+def test_knn_wide_selection_emulation_matches_pallas_on_random_inputs():
+    test, train, labels = _knn_inputs(17, 40, 300, 16, integer=False)
+    got_d, got_l = _knn_wide_emulation(test, train, labels, 33, 64, 16)
+    pal_d, pal_l = _pallas_knn(test, train, labels, 33)
+    # fp32 distances from two summation orders: rtol 1e-5, atol 1e-3
+    np.testing.assert_allclose(got_d, pal_d, rtol=1e-5, atol=1e-3)
+    assert (got_l == pal_l).mean() > 0.98
+
+
+# the oracle of the wide routes, anchored to the Pallas kernels in
+# interpret mode at the shapes that select them
+@pytest.mark.parametrize("n,d,k", [(300, 50, 65), (200, 257, 16)])
+def test_kmeans_assign_plain_matches_pallas_at_wide_shapes(n, d, k):
+    assert tkm.route(k, d) == "wide"
+    x, c = _km_inputs(n + k, n, d, k, integer=True)
+    got, pal = _port_km(x, c), _pallas_km(x, c)
+    np.testing.assert_array_equal(got[0], pal[0])
+    np.testing.assert_array_equal(got[1], pal[1])
+    assert got[2] == pal[2]
+    x, c = _km_inputs(n + d, n, d, k, integer=False)
+    got, pal = _port_km(x, c), _pallas_km(x, c)
+    half = x.astype(np.float64) @ c.T.astype(np.float64) - 0.5 * (c.astype(np.float64) ** 2).sum(1)
+    top2 = np.sort(half, axis=1)[:, -2:]
+    if np.all(top2[:, 1] - top2[:, 0] >= 1e-4):
+        np.testing.assert_array_equal(got[1], pal[1])
+    np.testing.assert_allclose(got[0], pal[0], rtol=1e-5, atol=1e-5 * np.abs(pal[0]).max())
+    assert got[2] == pytest.approx(pal[2], rel=1e-5)
+
+
+@pytest.mark.parametrize("m,n,d,k", [(40, 300, 273, 33), (30, 200, 50, 65), (20, 300, 300, 5)])
+def test_knn_topk_plain_matches_pallas_at_wide_shapes(m, n, d, k):
+    assert tknn.route(k, d) == "wide"
+    test, train, labels = _knn_inputs(m + d, m, n, d, integer=True)
+    got_d, got_l = _port_knn(test, train, labels, k)
+    pal_d, pal_l = _pallas_knn(test, train, labels, k)
+    np.testing.assert_array_equal(got_d, pal_d)
+    np.testing.assert_array_equal(got_l, pal_l)
+
+
+# --------------------------------------- rmsnorm: short rows packed per warp
+def _fma32(a, b, c):
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _rmsnorm_layout_emulation(x, scale, itemsize, vec, eps=1e-6, segmented=True):
+    """csrc/rmsnorm.cu's arithmetic, lane by lane, in float32: warp w's lane
+    l serves row w * (32 / LPR) + l / LPR and its units (16-byte packs,
+    or elements off the packs) q = l % LPR + i * LPR, i < PPL; it sums the
+    squares of its units in order (fmaf), then a butterfly adds lanes at
+    offsets below LPR (all offsets from 16 where not ``segmented``).
+    Checks that every lane of a row ends with one sum and that every
+    element is written once; returns y in float32."""
+    rows, d = x.shape
+    lpr, ppl, _ = trms.layout(d, itemsize, vec)
+    unit = 16 // itemsize if vec else 1
+    units = d // unit
+    lane = np.arange(32)
+    row = np.arange(-(-rows // (32 // lpr)))[:, None] * (32 // lpr) + lane // lpr   # (warps, 32)
+    ok = row < rows
+    xr = x[np.minimum(row, rows - 1)]                                         # (warps, 32, d)
+    ss = np.zeros(row.shape, np.float32)
+    for i in range(ppl):
+        q = lane % lpr + i * lpr
+        has = ok & (q < units)
+        for e in range(unit):
+            col = np.minimum(q * unit + e, d - 1)
+            f = xr[:, lane, col]
+            ss = np.where(has, _fma32(f, f, ss), ss)
+    o = (lpr if segmented else 32) // 2
+    while o > 0:
+        ss = ss + ss[:, lane ^ o]
+        o //= 2
+    for r in range(rows):
+        assert np.unique(ss[row == r]).size == 1, "the lanes of a row disagree"
+    inv = np.float32(1.0) / np.sqrt(ss / np.float32(d) + np.float32(eps))
+    y = np.zeros((rows, d), np.float32)
+    written = np.zeros((rows, d), np.int64)
+    for i in range(ppl):
+        q = lane % lpr + i * lpr
+        has = ok & (q < units)
+        for e in range(unit):
+            col = np.broadcast_to(np.minimum(q * unit + e, d - 1), row.shape)
+            vals = (xr[:, lane, col[0]] * inv) * scale[col]
+            y[row[has], col[has]] = vals[has]
+            written[row[has], col[has]] += 1
+    assert np.all(written == 1), "an element is written other than once"
+    return y
+
+
+def _close_in_dtype(got, want):
+    """The card's check of a kernel against its plain version
+    (chip_smoke.py :: close_in_dtype)."""
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 37, 100, 1024, 6144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_packed_layout_emulation(d, dtype):
+    """At 64 (4 bf16 or 2 fp32 rows per warp), 37 (off the packs), 100
+    (fp32: 25 packs; bf16: off the packs), 1024 (packs in registers) and
+    6144 (past them: two passes), against the plain version and the
+    Pallas kernel in interpret mode."""
+    rows = 13 if d <= 1024 else 3
+    rng = np.random.default_rng(d)
+    xt = torch.from_numpy((rng.standard_normal((rows, d)) * 2).astype(np.float32)).to(dtype)
+    st = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    x, scale = xt.float().numpy(), st.float().numpy()
+    itemsize = xt.element_size()
+    vec = d * itemsize % 16 == 0
+    got = torch.from_numpy(_rmsnorm_layout_emulation(x, scale, itemsize, vec)).to(dtype)
+    _close_in_dtype(got, trms.rmsnorm_plain(xt, st))
+    pal = pallas_rmsnorm(jnp.asarray(x).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                else jnp.float32),
+                         jnp.asarray(scale).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                   else jnp.float32),
+                         block_rows=8, interpret=True)
+    _close_in_dtype(got, torch.from_numpy(np.array(pal, dtype=np.float32)).to(dtype))
+    if vec and trms.layout(d, itemsize)[0] < 32:
+        # control: a butterfly over the whole warp adds the rows that share it
+        mixed = _rmsnorm_layout_emulation(x, scale, itemsize, vec, segmented=False)
+        with pytest.raises(AssertionError):
+            _close_in_dtype(torch.from_numpy(mixed).to(dtype), trms.rmsnorm_plain(xt, st))
