@@ -47,12 +47,27 @@ failure raises (the script then exits non-zero without a result):
              d 1536, 48 heads x 64, state 128, bf16), one control;
 9. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
              12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, MQA with
-             head dim 256, window 2048, bf16, 9.6B parameters), one control.
+             head dim 256, window 2048, bf16, 9.6B parameters), one control;
+10. train_parity — ``train_loop`` on the reduced qwen3, mamba2 and
+             recurrentgemma configs (fp32), 4 steps on the card and on the
+             CPU from the same ``init_params`` weights and batches: the
+             losses agree within 1e-4; a checkpoint saved at step 2 by the
+             runtime's ``checkpoint_save`` task restores into a fresh model
+             on the card, which continues as the uninterrupted run did;
+11. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
+             "full"), batch 8 x 512 tokens, 10 steps: finite losses, the
+             first within 1.0 of ln(vocab), exact launch counts, the loss
+             on the first batch lower after the ten steps; one more step
+             must lower the loss on its batch, and one under the profiler
+             gives the device's idle share;
+12. train_ssd — the same on mamba2-780m at full width.
 
-Each serve phase frees its model before the next.  Then a
-``{"kernels": [...]}`` line (launches counted during phases 4, 5 and
-7-9, times measured in phase 3) and, last, ``{"ok": true, "device":
-{...}}``.
+Phase 3 also holds the gradients through each model kernel's autograd
+Function (the kernel's forward, the plain version's backward) against
+autograd through the plain version.  Each serve and train phase frees its
+model before the next.  Then a ``{"kernels": [...]}`` line (launches
+counted during phases 4, 5 and 7-12, by phase; times measured in phase 3)
+and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
 and the repository's ``src/repro_torch`` beside it.
 """
@@ -65,6 +80,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,7 +104,11 @@ SEED = 0
 # lagged readings on one H100: qwen3-0.6b 0.056 and 2.5, mamba2-780m 0.18
 # and 6.1, recurrentgemma-9b 0.29 and 9.8.
 LOGIT_TOL = {"qwen3-0.6b": 0.08, "mamba2-780m": 0.25, "recurrentgemma-9b": 0.4}
-BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32    # every serve phase
+BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32    # every serve phase; train: BATCH x PROMPT_LEN
+TRAIN_STEPS = 10                            # phases train and train_ssd
+# phase train_parity: the reduced fp32 configs, card against CPU
+PARITY = dict(steps=4, batch=4, seq=32, lr=1e-3, warmup=2, seed=SEED, workers=2, log_every=0)
+PARITY_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -714,6 +734,92 @@ def check_ssd(ssd_k, gen, cuda):
             "library_note": "no single PyTorch call computes the SSD scan"}
 
 
+# ---------------------------------------------------------------- gradients
+def grad_case(ops, name, op, plain, leaves, views, cuda) -> float:
+    """Gradients of ``Σ g·out`` (fixed random cotangents ``g`` on every
+    output, fp32) with respect to ``leaves``, through ``op`` (the kernel
+    in its autograd Function: it must launch once) and through ``plain``
+    on the card; ``views(leaves)`` gives the kernel's inputs (the layers'
+    strided views).  Each gradient must exist and agree within the
+    forward's tolerance: the Function's backward recomputes the plain
+    version on the same inputs.  Returns the largest difference."""
+    def grads(fn):
+        xs = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fn(*views(xs))
+        out = out if isinstance(out, tuple) else (out,)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        loss = sum((o.float() * torch.randn(o.shape, generator=gen, device=cuda)).sum()
+                   for o in out)
+        return torch.autograd.grad(loss, xs)
+
+    before = ops.launch_counts()[name]
+    got = grads(op)
+    assert ops.launch_counts()[name] == before + 1, f"{name}: the Function did not launch"
+    want = grads(plain)
+    errs = [close_in_dtype(a, b, f"{name} gradient of input {i}")
+            for i, (a, b) in enumerate(zip(got, want))]
+    return max(errs)
+
+
+def check_grads(ops, gen, cuda) -> dict:
+    """``grad_case`` for each model kernel at its training paths' shapes;
+    returns {kernel: [largest difference per shape]}."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import rglru_scan as rg_k
+    from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd_scan as ssd_k
+
+    def normal(shape, dtype):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(cuda).to(dtype)
+
+    def same(xs):
+        return xs
+
+    out = {"rmsnorm": [], "flash_attention": [], "ssd_scan": [], "rglru_scan": []}
+    # ln1 / ln2 of qwen, its q-norm, mamba2's gated norm (bf16); the
+    # reduced configs' norms (fp32)
+    for shape, dt in (((8 * 512, 1024), torch.bfloat16), ((8, 512, 16, 64), torch.bfloat16),
+                      ((8 * 512, 3072), torch.bfloat16), ((4 * 32, 128), torch.float32)):
+        x, scale = normal(shape, dt), normal(shape[-1:], dt)
+        out["rmsnorm"].append(grad_case(ops, "rmsnorm", lambda x, s: ops.rmsnorm(x, s),
+                                        rms_k.rmsnorm_plain, [x, scale], same, cuda))
+    # qwen's prefill (d 64) and recurrentgemma's (d 256, window 2048) in
+    # bf16, the reduced recurrentgemma's local attention (fp32, d 32,
+    # window 16): (B, S, heads, d) leaves seen as (B, heads, S, d) views
+    for B, H, K, S, d, window, dt in ((8, 16, 8, 512, 64, None, torch.bfloat16),
+                                      (8, 16, 1, 512, 256, 2048, torch.bfloat16),
+                                      (4, 4, 1, 32, 32, 16, torch.float32)):
+        leaves = [normal((B, S, H, d), dt), normal((B, S, K, d), dt), normal((B, S, K, d), dt)]
+        out["flash_attention"].append(grad_case(
+            ops, "flash_attention", lambda q, k, v, w=window: ops.flash_attention(q, k, v, window=w),
+            lambda q, k, v, w=window: fa_k.flash_attention_plain(q, k, v, window=w), leaves,
+            lambda xs: [t.transpose(1, 2) for t in xs], cuda))
+    # mamba2's prefill (bf16) and the reduced mamba2's (fp32): x, B and C
+    # as views into one packed leaf (the layer's conv output), dt and A
+    for B, S, H, P, N, dt in ((8, 512, 48, 64, 128, torch.bfloat16),
+                              (4, 32, 8, 16, 16, torch.float32)):
+        packed = normal((B, S, H * P + 2 * N), dt)
+        dts = torch.nn.functional.softplus(normal((B, S, H), torch.float32))
+        A = -torch.linspace(1.0, 16.0, H, device=cuda)
+
+        def views(xs, H=H, P=P, N=N):
+            p, d, a = xs
+            return (p[..., :H * P].reshape(*p.shape[:2], H, P), d, a, p[..., H * P:H * P + N],
+                    p[..., H * P + N:])
+        out["ssd_scan"].append(grad_case(
+            ops, "ssd_scan", lambda *a: ops.ssd_scan(*a, chunk=min(256, S)),
+            lambda *a, S=S: ssd_k.ssd_scan_plain(*a, chunk=min(256, S)), [packed, dts, A],
+            views, cuda))
+    # the reduced recurrentgemma's scan (fp32 gates), from zeros and from an h0
+    for B, S, R, with_h0 in ((4, 32, 128, False), (2, 77, 1000, True)):
+        la = -torch.nn.functional.softplus(normal((B, S, R), torch.float32))
+        leaves = [la, normal((B, S, R), torch.float32)] + \
+            ([normal((B, R), torch.float32)] if with_h0 else [])
+        out["rglru_scan"].append(grad_case(ops, "rglru_scan", lambda *a: ops.rglru_scan(*a),
+                                           rg_k.rglru_scan_plain, leaves, same, cuda))
+    return out
+
+
 # ----------------------------------------------------------------- pipelines
 def knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, *, n_train, n_test,
                          d, k, n_classes, train_fragments, test_blocks, rows=1000):
@@ -824,6 +930,140 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
     return prompts, toks, full
 
 
+def train_launches(ops, cfg) -> dict:
+    """Kernel launches of one training step of ``cfg``: each norm (ln1,
+    ln2 or the SSD's gated norm, the q/k norms), cache-free attention and
+    scan once in the forward, and once more where remat "full" runs each
+    block's forward again in the backward; the final norm, outside the
+    blocks, once."""
+    norms = sum(2 + (2 if t in ("dense", "local_attn") and cfg.qk_norm else 0)
+                for t in cfg.layer_types)
+    again = 2 if cfg.remat == "full" else 1
+    kinds = cfg.layer_types
+    return only(ops, rmsnorm=again * norms + 1,
+                flash_attention=again * (kinds.count("dense") + kinds.count("local_attn")),
+                ssd_scan=again * kinds.count("ssd"), rglru_scan=again * kinds.count("rglru"))
+
+
+def train_parity(ph, ops, lm, train, get_config, cuda) -> dict:
+    """Phase train_parity: the summed launch counts of the three card runs."""
+    total = only(ops)
+    for arch in ("qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"):
+        cfg = get_config(arch, reduced=True)
+        on_cpu = train.train_loop(cfg, device="cpu",
+                                  model=lm.init_params(cfg, seed=SEED, device="cpu"), **PARITY)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        ckpt = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="chip_smoke_ckpt_")
+        try:
+            ops.reset_launch_counts()
+            on_card = train.train_loop(cfg, device=cuda,
+                                       model=lm.init_params(cfg, seed=SEED, device="cpu").to(cuda),
+                                       ckpt_dir=ckpt, ckpt_every=2, **PARITY)
+            counts = ops.launch_counts()
+            want = {k: PARITY["steps"] * n for k, n in train_launches(ops, cfg).items()}
+            assert counts == want, (arch, counts, want)
+            total = {k: total[k] + n for k, n in counts.items()}
+            card, host = np.array(on_card["losses"]), np.array(on_cpu["losses"])
+            assert card.shape == (PARITY["steps"],) and np.isfinite(card).all()
+            np.testing.assert_allclose(card, host, rtol=PARITY_RTOL,
+                                       err_msg=f"{arch}: card vs CPU losses")
+            # the checkpoint of step 2, written by the checkpoint_save task,
+            # restored into a fresh model (other weights) that continues
+            shutil.rmtree(os.path.join(ckpt, f"step_{PARITY['steps']:08d}"))
+            fresh = lm.init_params(cfg, seed=SEED + 1, device="cpu").to(cuda)
+            resumed = train.train_loop(cfg, device=cuda, model=fresh, ckpt_dir=ckpt,
+                                       restore=True, **PARITY)
+            assert resumed["restored_from"] == 2, resumed["restored_from"]
+            np.testing.assert_allclose(resumed["losses"], card[2:], rtol=1e-5,
+                                       err_msg=f"{arch}: resumed vs uninterrupted losses")
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        ph.info[arch] = {"card_losses": card.tolist(), "cpu_losses": host.tolist(),
+                         "max_rel_diff": float(np.abs(card / host - 1).max()),
+                         "resumed_losses": resumed["losses"], "launches": counts}
+    return total
+
+
+def train_and_check(ph, ops, lm, train, cfg, cuda) -> dict:
+    """Phases train and train_ssd: ``train_loop`` on ``cfg`` at full width
+    for TRAIN_STEPS steps of BATCH x PROMPT_LEN tokens, checked (finite
+    losses, the first near ln(vocab), exact launch counts, the first
+    batch's loss lower after training); then, from a fresh optimizer
+    state, one step on a new batch, which must lower its loss, timed, and
+    one under the profiler for the device's idle share.  Fills
+    ``ph.info`` and returns the launch counts."""
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.optim.adamw import adamw, cosine_schedule
+    kw = dict(steps=TRAIN_STEPS, batch=BATCH, seq=PROMPT_LEN, lr=1e-3, warmup=2, seed=SEED)
+    model = lm.init_params(cfg, seed=SEED, device=cuda)
+
+    def on_card(step):
+        return {k: torch.from_numpy(v).to(cuda)
+                for k, v in synth_batch(cfg, BATCH, PROMPT_LEN, step, SEED).items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.train_loop(cfg, device=cuda, model=model, log_every=0, **kw)
+    counts = ops.launch_counts()
+    per_step = train_launches(ops, cfg)
+    assert counts == {k: TRAIN_STEPS * n for k, n in per_step.items()}, (counts, per_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = np.array(out["losses"])
+    assert losses.shape == (TRAIN_STEPS,) and np.isfinite(losses).all(), losses
+    assert abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0, (losses[0], np.log(cfg.vocab_size))
+    # the model learned what it was taught: its loss on the first batch,
+    # after the ten steps, lies below the untrained model's (step 0's).
+    # Each batch is another random walk of tokens: the losses of later
+    # steps, on other batches, move by less than the batches differ
+    # (PERF.md, section 6), so they are recorded, not held
+    with torch.no_grad():
+        first_after = float(lm.loss_fn(model, on_card(0))[1]["loss"])
+    assert first_after < losses[0], (first_after, losses[0])
+    # one more step on a fresh optimizer state: its wall time (ending in a
+    # sync), then the same step under the profiler
+    opt = adamw(cosine_schedule(kw["lr"], kw["warmup"], TRAIN_STEPS), weight_decay=0.01)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(opt)
+    batch = on_card(TRAIN_STEPS)
+    with torch.no_grad():
+        before = float(lm.loss_fn(model, batch)[1]["loss"])
+    step(model, state, batch)
+    with torch.no_grad():
+        after = float(lm.loss_fn(model, batch)[1]["loss"])
+    assert after < before, ("one step did not lower the loss on its batch", before, after)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(model, state, batch)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    _, table = device_kernels(lambda: step(model, state, batch))
+    busy_s = sum(ms for ms, _ in table.values()) / 1e3
+    ours = {name: sum(ms for key, (ms, _) in table.items() if tag in key) / 1e3
+            for name, tag in (("rmsnorm", "rmsnorm_rows"), ("flash_attention", "flash_fwd"),
+                              ("rglru_scan", "rglru_scan_kernel"), ("ssd_scan", "ssd_"))}
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])[:12]
+    steady = float(np.median(out["step_seconds"][1:]))
+    ph.info.update(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, remat=cfg.remat,
+                   params=sum(p.numel() for p in model.parameters()), batch=BATCH,
+                   seq=PROMPT_LEN, steps=TRAIN_STEPS, losses=losses.tolist(),
+                   first_batch_after=first_after, one_step_descent=[before, after],
+                   last3_vs_first=float(losses[-3:].mean() - losses[0]),
+                   ln_vocab=float(np.log(cfg.vocab_size)), step_seconds=out["step_seconds"],
+                   steady_step_s=steady, steady_tokens_per_s=BATCH * PROMPT_LEN / steady,
+                   tokens_per_s=out["tokens_per_s"], peak_mem_gb=peak_gb,
+                   launches=counts, launches_per_step=per_step,
+                   device={"busy_s": busy_s, "wall_s": wall_s, "idle_share": 1.0 - busy_s / wall_s,
+                           "kernel_s": ours, "top": [[key[:80], ms, n] for key, (ms, n) in top]})
+    emit({ph.name: {k: ph.info[k] for k in ("steady_step_s", "steady_tokens_per_s",
+                                            "tokens_per_s", "peak_mem_gb",
+                                            "first_batch_after", "last3_vs_first")},
+          "idle_share": ph.info["device"]["idle_share"]})
+    del model, state, opt, step, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
@@ -847,7 +1087,7 @@ def main(argv) -> int:
     from repro_torch.kernels import rmsnorm as rms_k
     from repro_torch.kernels import ssd_scan as ssd_k
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import lm
 
     # full fp32 products in every plain version and reference
@@ -886,6 +1126,11 @@ def main(argv) -> int:
                 check_rglru(rg_k, gen, cuda), check_ssd(ssd_k, gen, cuda)]
         ph.info["kernels"] = [{k: r[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
                                                  "bound_ms")} for r in rows]
+        grad_errs = check_grads(ops, gen, cuda)
+        for row in rows:
+            if row["name"] in grad_errs:
+                row["grad_max_abs_err"] = grad_errs[row["name"]]
+        ph.info["grad_max_abs_err"] = grad_errs
 
     launches = {}
     knn_cfg = dict(n_train=2_000_000, n_test=50_000, d=50, k=5, n_classes=4,
@@ -1002,10 +1247,21 @@ def main(argv) -> int:
         del model
         torch.cuda.empty_cache()
 
+    with Phase("train_parity") as ph:
+        by_phase["train_parity"] = train_parity(ph, ops, lm, train, get_config, cuda)
+        ph.info["launches"] = by_phase["train_parity"]
+
+    with Phase("train") as ph:
+        by_phase["train"] = train_and_check(ph, ops, lm, train, get_config("qwen3-0.6b"), cuda)
+
+    with Phase("train_ssd") as ph:
+        by_phase["train_ssd"] = train_and_check(ph, ops, lm, train, get_config("mamba2-780m"),
+                                                cuda)
+
     for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
         launches[name] = sum(counts[name] for counts in by_phase.values())
     for row in rows:
-        if row["name"] in ("rmsnorm", "flash_attention"):
+        if row["name"] in launches and row["name"] not in ("knn_topk", "kmeans_assign"):
             row["launches_by_phase"] = {phase: counts[row["name"]]
                                         for phase, counts in by_phase.items()
                                         if counts[row["name"]]}

@@ -149,3 +149,14 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where autograd would need the gradient of a kernel that has
+    none (``knn_topk``, ``kmeans_assign``): an input requires grad and
+    grad mode is on.  Their Pallas calls have no gradient under
+    ``jax.grad`` either."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no gradient: pass tensors that do not require "
+                           f"grad, or call it under torch.no_grad()")

@@ -132,6 +132,7 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
     centroids (k, d) fp32, contiguous, on one CUDA device.  Returns (sums
     (k, d) fp32, counts (k,) int32, sse 0-d fp32)."""
     global launches
+    _build.refuse_grad("kmeans_assign_cuda", x, centroids)
     _check_shapes(x, centroids)
     dev = x.device
     for name, t in (("x", x), ("centroids", centroids)):

@@ -141,6 +141,7 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
     CUDA device.  Returns (dists (m, k) fp32 ascending, labels (m, k)
     int32)."""
     global launches
+    _build.refuse_grad("knn_topk_cuda", test_x, train_x)
     _check_shapes(test_x, train_x, train_y, k)
     dev = test_x.device
     for name, t, dt in (("test_x", test_x, torch.float32),

@@ -1,1 +1,2 @@
-"""Entry points of the port's LM stack (``repro/launch``): serving."""
+"""Entry points of the port's LM stack (``repro/launch``): serving and
+training."""

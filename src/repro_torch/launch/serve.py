@@ -104,7 +104,8 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
         _sync(dev)
         t0 = time.perf_counter()
         dev_prompts = {k: torch.from_numpy(v).to(dev) for k, v in prompts.items()}
-        logits, caches = model(dev_prompts, make_cache_len=cache_len, last_only=True)
+        logits, caches = model(dev_prompts, make_cache_len=cache_len, last_only=True,
+                               remat="none")
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
@@ -114,7 +115,7 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
         pos = prompt_len
         for i in range(gen_len - 1):
             logits, caches = model(_step_input(cfg, next_tok, i, seed), caches=caches,
-                                   pos_offset=pos)
+                                   pos_offset=pos, remat="none")
             next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             generated.append(next_tok)
             pos += 1
@@ -149,11 +150,11 @@ def replay_logits(model: LM, prompts: Dict, tokens: np.ndarray, *, seed: int = 0
     prompt_len = sum(v.shape[1] for v in prompts.values())
     toks = torch.from_numpy(tokens).to(dev)
     logits, caches = model({k: torch.from_numpy(v).to(dev) for k, v in prompts.items()},
-                           make_cache_len=prompt_len + gen_len, last_only=True)
+                           make_cache_len=prompt_len + gen_len, last_only=True, remat="none")
     out = [logits[:, -1]]
     for i in range(gen_len - 1):
         logits, caches = model(_step_input(model.cfg, toks[:, i], i, seed), caches=caches,
-                               pos_offset=prompt_len + i)
+                               pos_offset=prompt_len + i, remat="none")
         out.append(logits[:, -1])
     return torch.stack(out, dim=1)
 

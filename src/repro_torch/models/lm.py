@@ -26,6 +26,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..algorithms.common import resolve_device
 from ..layers.attention import Attention, init_kv_cache
@@ -37,6 +39,18 @@ from ..layers.ssd import SSD, init_ssd_cache
 ATTENTION_BLOCKS = ("dense", "local_attn")
 BLOCK_TYPES = ATTENTION_BLOCKS + ("ssd", "rglru")
 _LATER = {"moe": "ROADMAP item A9 (MoE)"}
+REMAT = ("none", "full", "dots")
+# the matmuls whose outputs ``remat="dots"`` keeps (jax's checkpoint_dots)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 @dataclass(frozen=True)
@@ -240,17 +254,38 @@ class LM(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], caches: Optional[List[dict]] = None,
                 pos_offset: int = 0, make_cache_len: Optional[int] = None,
-                last_only: bool = False) -> Tuple[torch.Tensor, Optional[List[dict]]]:
+                last_only: bool = False, remat: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """Returns (logits fp32 (B, S, V), new caches or None).  With
         ``caches`` (decode) each attention layer's new K/V is written into
         its cache in place; the recurrent layers return new states.
         ``last_only=True`` computes logits for the final position only
-        (prefill: no (B, S, V) tensor)."""
+        (prefill: no (B, S, V) tensor).
+
+        ``remat`` (``None``: ``cfg.remat``) is the reference's
+        rematerialisation of its scan body, here per block, in a
+        cache-free forward under grad mode: ``"full"`` checkpoints each
+        block (its forward, kernels included, runs again in the
+        backward), ``"dots"`` keeps the matmul outputs and recomputes the
+        rest (``checkpoint_dots``), ``"none"`` keeps everything.  It
+        changes memory, not the numbers.  Serving passes ``"none"``, as
+        the reference's prefill and decode steps do."""
+        remat = self.cfg.remat if remat is None else remat
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+        if caches is not None or make_cache_len is not None or not torch.is_grad_enabled():
+            remat = "none"
         x = self.embed_inputs(batch)
         new_caches = []
         for i, blk in enumerate(self.blocks):
-            x, nc = blk(x, cache=caches[i] if caches is not None else None,
-                        pos_offset=pos_offset, make_cache_len=make_cache_len)
+            cache = caches[i] if caches is not None else None
+            if remat == "none":
+                x, nc = blk(x, cache=cache, pos_offset=pos_offset,
+                            make_cache_len=make_cache_len)
+            else:
+                x, nc = checkpoint(blk, x, cache=None, pos_offset=pos_offset,
+                                   make_cache_len=None, use_reentrant=False,
+                                   **({"context_fn": _save_dots} if remat == "dots" else {}))
             new_caches.append(nc)
         if last_only:
             x = x[:, -1:]
@@ -279,3 +314,21 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
     if model.lm_head is not None:
         init_normal_(model.lm_head, 0.02, gen)
     return model
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *, aux_weight: float = 0.01,
+            remat: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked next-token cross entropy, as ``repro.models.lm.loss_fn``:
+    ``batch`` carries ``targets`` (B, S) and ``loss_mask`` (B, S) aligned
+    with the model's output positions.  Returns ``(total, {"loss", "aux",
+    "tokens"})``; ``aux`` is the MoE balance loss, a 0-d zero until the
+    ``moe`` block is ported (ROADMAP item A9)."""
+    logits, _ = model(batch, remat=remat)
+    mask = batch["loss_mask"].to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}

@@ -1,8 +1,8 @@
 """Import and knob hygiene of the PyTorch port.
 
-An AST walk over ``src/repro_torch`` and ``chip_smoke.py`` pins three
+An AST walk over ``src/repro_torch`` and ``chip_smoke.py`` pins four
 rules: the port imports neither ``jax`` nor anything of the JAX package
-``repro``; no library kernel (``scaled_dot_product_attention``,
+``repro``, nor ``ml_dtypes``; no library kernel (``scaled_dot_product_attention``,
 ``rms_norm``, ``torch.compile``, ``triton``) stands in for a hand-written
 one — ``chip_smoke.py`` may name the first two only inside
 ``time_library``, which times them as yardsticks; and every
@@ -59,7 +59,9 @@ def test_port_files_exist():
                  "models/convert.py", "configs/__init__.py", "configs/qwen3_0_6b.py",
                  "launch/serve.py", "kernels/rglru_scan.py", "kernels/ssd_scan.py",
                  "layers/rglru.py", "layers/ssd.py", "configs/mamba2_780m.py",
-                 "configs/recurrentgemma_9b.py"):
+                 "configs/recurrentgemma_9b.py", "optim/adamw.py", "optim/compress.py",
+                 "data/pipeline.py", "checkpoint/manager.py", "distributed/steps.py",
+                 "launch/train.py"):
         assert want in names
     for src in ("knn_topk.cu", "kmeans_assign.cu", "rmsnorm.cu", "flash_attention.cu",
                 "rglru_scan.cu", "ssd_scan.cu"):
@@ -74,6 +76,14 @@ def test_no_jax_and_nothing_of_the_jax_package():
             if top in ("jax", "jaxlib", "repro"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, f"the port imports the reference stack: {bad}"
+
+
+def test_no_ml_dtypes():
+    """The card's machine has no ``ml_dtypes``: bf16 crosses NumPy as
+    uint16 bits (``convert.BF16Bits``, the checkpoint manager)."""
+    bad = [(os.path.relpath(path, ROOT), mod) for path, tree in _trees()
+           for mod in _imported_modules(tree) if mod.split(".")[0] == "ml_dtypes"]
+    assert not bad, f"the port imports ml_dtypes: {bad}"
 
 
 def _yardstick_nodes(tree):
@@ -132,9 +142,11 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "import repro_torch.algorithms, repro_torch.kernels.ops\n"
         "import repro_torch.configs, repro_torch.layers, repro_torch.models\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
+        "import repro_torch.launch.train, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.distributed\n"
         "from repro_torch.kernels import _build\n"
         "assert _build._lib is None\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=SRC)
