@@ -48,31 +48,46 @@ failure raises (the script then exits non-zero without a result):
 9. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
              12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, MQA with
              head dim 256, window 2048, bf16, 9.6B parameters), one control;
-10. train_parity — ``train_loop`` on the reduced qwen3, mamba2 and
-             recurrentgemma configs (fp32), 4 steps on the card and on the
-             CPU from the same ``init_params`` weights and batches: the
-             losses agree within 1e-4; a checkpoint saved at step 2 by the
-             runtime's ``checkpoint_save`` task restores into a fresh model
-             on the card, which continues as the uninterrupted run did;
-11. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
+10. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
+             d 2048, MHA 16 x 128, 64 routed experts of width 1408, top-6,
+             2 shared, vocab 102,400, bf16, 16.9B parameters), one
+             control; the full-forward comparison and its control run at
+             the no-drop capacity factor E / k, on the same weights (the
+             served path's capacity comes from each call's token count,
+             so prefill, decode and one full forward drop differently);
+             the share of assignments dropped in the served prefill and
+             decode is recorded;
+11. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
+             recurrentgemma, deepseek-moe and qwen3-moe configs (fp32), 4
+             steps on the card and on the CPU from the same
+             ``init_params`` weights and batches: the losses agree within
+             1e-4, the MoE balance loss is finite and nonzero; a
+             checkpoint saved at step 2 by the runtime's
+             ``checkpoint_save`` task restores into a fresh model on the
+             card, which continues as the uninterrupted run did;
+12. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
              "full"), batch 8 x 512 tokens, 10 steps: finite losses, the
              first within 1.0 of ln(vocab), exact launch counts, the loss
              on the first batch lower after the ten steps; one more step
              must lower the loss on its batch, and one under the profiler
              gives the device's idle share;
-12. train_ssd — the same on mamba2-780m at full width.
+13. train_ssd — the same on mamba2-780m at full width;
+14. train_moe — the same on deepseek-moe-16b at full width, its depth cut
+             to 4 of 28 layers (at full depth, bf16 weights and gradients
+             and fp32 moments need ~200 GB).
 
 Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5 and 7-12, by phase; times measured in phase 3)
+counted during phases 4, 5 and 7-14, by phase; times measured in phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
 and the repository's ``src/repro_torch`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -102,8 +117,14 @@ SEED = 0
 # sound reading and a decode fed the wrong tokens (the lagged control,
 # which each phase reads too); the readings are in PERF.md.  Sound and
 # lagged readings on one H100: qwen3-0.6b 0.056 and 2.5, mamba2-780m 0.18
-# and 6.1, recurrentgemma-9b 0.29 and 9.8.
-LOGIT_TOL = {"qwen3-0.6b": 0.08, "mamba2-780m": 0.25, "recurrentgemma-9b": 0.4}
+# and 6.1, recurrentgemma-9b 0.29 and 9.8, deepseek-moe-16b (both sides at
+# the no-drop capacity) 1.04 and 4.60.  deepseek's sound reading is set by
+# routing: a bf16 rounding apart between the two paths flips a near-tie
+# among an MoE layer's top-6, and that token then mixes other experts; its
+# limit sits at the geometric middle of the two readings.
+LOGIT_TOL = {"qwen3-0.6b": 0.08, "mamba2-780m": 0.25, "recurrentgemma-9b": 0.4,
+             "deepseek-moe-16b": 2.0}
+MOE_TRAIN_LAYERS = 4                        # phase train_moe: deepseek's depth cut
 BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32    # every serve phase; train: BATCH x PROMPT_LEN
 TRAIN_STEPS = 10                            # phases train and train_ssd
 # phase train_parity: the reduced fp32 configs, card against CPU
@@ -162,14 +183,15 @@ def device_kernels(fn):
 SPIN = "spin_kernel"   # torch.cuda._sleep's kernel: the edges of a timed window
 
 
-def device_ms(fn, reps: int, warmup: int = 2, tries: int = 3) -> float:
+def device_ms(fn, reps: int, warmup: int = 2, tries: int = 5) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed,
     averaged over ``reps`` calls after ``warmup`` calls.  Every call
     launches the same kernels, so each kernel's event count must be a
     multiple of ``reps``; where it is not, or the window holds no device
     activity at all, the profiler lost events (both seen on the H100: a
     5 us kernel read 0.9 us, SDPA above the card's peak, an SDPA window
-    empty), and the window is profiled again, up to ``tries`` times.  A
+    empty, an ``ssd_scan`` window short of 8 of 20 events three times
+    running), and the window is profiled again, up to ``tries`` times.  A
     short spin kernel opens and closes each window and is not counted:
     in windows of ~40 us of `F.rms_norm` the profiler lost one of 20
     events three times running."""
@@ -190,6 +212,8 @@ def device_ms(fn, reps: int, warmup: int = 2, tries: int = 3) -> float:
         table = {key: v for key, v in table.items() if SPIN not in key}
         if table and all(n % reps == 0 for _, n in table.values()):
             return sum(ms for ms, _ in table.values()) / reps
+        print(f"chip_smoke: the profiler lost events, profiling again: "
+              f"{ {key[:60]: n for key, (_, n) in table.items()} }", file=sys.stderr)
     raise RuntimeError(f"torch.profiler lost events in {tries} windows of {reps} calls: "
                        f"{ {key[:60]: n for key, (_, n) in table.items()} }")
 
@@ -554,9 +578,11 @@ def check_rmsnorm(rms_k, gen, cuda):
     row = at_shape(8 * 512, 1024)          # ln1 / ln2 / final norm of the prefill
     row["qk_norm_shape"] = at_shape(8 * 512 * 16, 64)     # qwen's q norm of the prefill
     row["k_norm_shape"] = at_shape(8 * 512 * 8, 64)       # and its k norm
-    # one decode step: ln1 / ln2 of qwen (8 x 1024) and of recurrentgemma
-    # (8 x 4096), qwen's q norm (8 x 16 heads x 64)
-    row["decode_shapes"] = [at_shape(8, 1024), at_shape(8 * 16, 64), at_shape(8, 4096)]
+    row["moe_shape"] = at_shape(8 * 512, 2048)            # deepseek's prefill and training
+    # one decode step: ln1 / ln2 of qwen (8 x 1024), of recurrentgemma
+    # (8 x 4096) and of deepseek (8 x 2048), qwen's q norm (8 x 16 heads x 64)
+    row["decode_shapes"] = [at_shape(8, 1024), at_shape(8 * 16, 64), at_shape(8, 4096),
+                            at_shape(8, 2048)]
     return {"name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:30", **row}
 
@@ -624,6 +650,9 @@ def check_flash(fa_k, gen, cuda):
     row = at_shape(8, 16, 8, 512, 64, None)      # every layer's prefill in phase 7
     # every local_attn layer's prefill in phase 9 (recurrentgemma-9b)
     row["hybrid_shape"] = at_shape(8, 16, 1, 512, 256, 2048)
+    # every layer's prefill in phase 10 and forward in phase 14
+    # (deepseek-moe-16b: MHA, 16 heads of 128)
+    row["moe_shape"] = at_shape(8, 16, 16, 512, 128, None)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:92", **row}
@@ -776,18 +805,21 @@ def check_grads(ops, gen, cuda) -> dict:
         return xs
 
     out = {"rmsnorm": [], "flash_attention": [], "ssd_scan": [], "rglru_scan": []}
-    # ln1 / ln2 of qwen, its q-norm, mamba2's gated norm (bf16); the
-    # reduced configs' norms (fp32)
+    # ln1 / ln2 of qwen, its q-norm, mamba2's gated norm, ln1 / ln2 of
+    # deepseek (bf16); the reduced configs' norms (fp32)
     for shape, dt in (((8 * 512, 1024), torch.bfloat16), ((8, 512, 16, 64), torch.bfloat16),
-                      ((8 * 512, 3072), torch.bfloat16), ((4 * 32, 128), torch.float32)):
+                      ((8 * 512, 3072), torch.bfloat16), ((8 * 512, 2048), torch.bfloat16),
+                      ((4 * 32, 128), torch.float32)):
         x, scale = normal(shape, dt), normal(shape[-1:], dt)
         out["rmsnorm"].append(grad_case(ops, "rmsnorm", lambda x, s: ops.rmsnorm(x, s),
                                         rms_k.rmsnorm_plain, [x, scale], same, cuda))
-    # qwen's prefill (d 64) and recurrentgemma's (d 256, window 2048) in
-    # bf16, the reduced recurrentgemma's local attention (fp32, d 32,
-    # window 16): (B, S, heads, d) leaves seen as (B, heads, S, d) views
+    # qwen's prefill (d 64), recurrentgemma's (d 256, window 2048) and
+    # deepseek's (d 128, 16 kv heads) in bf16, the reduced recurrentgemma's
+    # local attention (fp32, d 32, window 16): (B, S, heads, d) leaves seen
+    # as (B, heads, S, d) views
     for B, H, K, S, d, window, dt in ((8, 16, 8, 512, 64, None, torch.bfloat16),
                                       (8, 16, 1, 512, 256, 2048, torch.bfloat16),
+                                      (8, 16, 16, 512, 128, None, torch.bfloat16),
                                       (4, 4, 1, 32, 32, 16, torch.float32)):
         leaves = [normal((B, S, H, d), dt), normal((B, S, K, d), dt), normal((B, S, K, d), dt)]
         out["flash_attention"].append(grad_case(
@@ -846,16 +878,58 @@ def only(ops, **nonzero) -> dict:
     return {**dict.fromkeys(ops.KERNELS, 0), **nonzero}
 
 
-def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
+@contextlib.contextmanager
+def configured(model, cfg):
+    """``model`` and each of its blocks run with ``cfg`` (on the same
+    weights) inside the ``with`` statement."""
+    old = model.cfg
+    for m in (model, *model.blocks):
+        m.cfg = cfg
+    try:
+        yield
+    finally:
+        for m in (model, *model.blocks):
+            m.cfg = old
+
+
+def moe_drop_shares(model, fn) -> tuple:
+    """(``fn()``, {"prefill", "decode": the share of token-expert
+    assignments that the MoE layers dropped}) of one call of ``fn``, read
+    by hooks that route each MoE layer's input again."""
+    from repro_torch.layers import moe
+    tally = {"prefill": [], "decode": []}
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        kw = {k: kwargs[k] for k in ("top_k", "capacity_factor", "renormalize")}
+        tally["prefill" if x.shape[1] > 1 else "decode"].append(
+            moe.dropped_assignments(mod.params(), x, **kw))
+
+    handles = [blk.moe.register_forward_pre_hook(hook, with_kwargs=True)
+               for blk in model.blocks if hasattr(blk, "moe")]
+    try:
+        out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, {k: sum(int(d) for d, _ in v) / max(1, sum(n for _, n in v))
+                 for k, v in tally.items()}
+
+
+def serve_and_check(ph, cfg, model, want_counts, cuda, compare_cfg=None) -> tuple:
     """Serve ``model`` (BATCH prompts of PROMPT_LEN tokens, GEN_LEN
     generated tokens each) twice and check it: the launch counts are
     ``want_counts``; the two runs give the same tokens; the replayed
     logits choose the served tokens; one cache-free forward over prompt +
-    generated tokens is within ``LOGIT_TOL`` of them and chooses the served
-    token wherever its top-2 margin is clear; a replay fed the token
-    before each served one (the lagged control) is not.  Then one more
-    serve under the profiler for the device's idle share.  Fills
-    ``ph.info`` and returns (prompts, tokens, full-forward logits)."""
+    generated tokens is within ``LOGIT_TOL`` of them and chooses their
+    argmax wherever its top-2 margin is clear; a replay fed the token
+    before each served one (the lagged control) is not.  With
+    ``compare_cfg`` (the same model at another capacity factor) the
+    full forward, the replay it is held against and the control run
+    with that config; a MoE model's drop shares are read in the served
+    config's replay.  Then one more serve under the profiler for the
+    device's idle share.  Fills ``ph.info`` and returns (prompts, tokens,
+    full-forward logits)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     tol = LOGIT_TOL[cfg.name]
@@ -874,7 +948,8 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
     # the logits each token was chosen from, replayed: the same prefill
     # and decode steps fed the served tokens, which they must choose again
     prompts = serve.make_prompts(cfg, BATCH, PROMPT_LEN, SEED)
-    logits = serve.replay_logits(model, prompts, toks, seed=SEED)
+    logits, drops = moe_drop_shares(
+        model, lambda: serve.replay_logits(model, prompts, toks, seed=SEED))
     assert logits.shape == (BATCH, GEN_LEN, cfg.vocab_size) and bool(logits.isfinite().all())
     assert np.array_equal(logits.argmax(-1).cpu().numpy(), toks), \
         "the replayed steps choose other tokens than the served ones"
@@ -882,23 +957,30 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
     # kernel over all positions) against the served logits (prefill, then
     # the decode path over the caches)
     seq = torch.from_numpy(np.concatenate([prompts["tokens"], toks[:, :-1]], axis=1)).to(cuda)
-    with torch.no_grad():
+    with configured(model, compare_cfg or cfg), torch.no_grad():
+        ref = logits if compare_cfg is None else \
+            serve.replay_logits(model, prompts, toks, seed=SEED)
         full = model({"tokens": seq})[0][:, PROMPT_LEN - 1:]
-    diff = (full - logits).abs()
-    # control: every decode step fed the token before the one served, as a
-    # cache or position off by one would; the check must fail on it
-    lagged = np.concatenate([toks[:, :1], toks[:, :-1]], axis=1)
-    control_lagged = float((full - serve.replay_logits(model, prompts, lagged, seed=SEED))
-                           .abs().max())
+        # control: every decode step fed the token before the one served, as
+        # a cache or position off by one would; the check must fail on it
+        lagged = np.concatenate([toks[:, :1], toks[:, :-1]], axis=1)
+        control_lagged = float((full - serve.replay_logits(model, prompts, lagged, seed=SEED))
+                               .abs().max())
+    diff = (full - ref).abs()
+    per_position = diff.amax(dim=-1).flatten()
     emit({"readings": ph.name, "logits_max_abs_diff": float(diff.max()),
-          "control_lagged_tokens": control_lagged, "logits_tol": tol})
+          "logits_rms_diff": float(diff.pow(2).mean().sqrt()),
+          "per_position_max_diff_quantiles": {
+              q: float(per_position.quantile(q)) for q in (0.5, 0.9, 0.99)},
+          "control_lagged_tokens": control_lagged, "logits_tol": tol,
+          **({"dropped_share": drops} if compare_cfg is not None else {})})
     assert float(diff.max()) <= tol, f"full forward vs served logits: {float(diff.max())}"
     assert control_lagged > tol, \
         f"the check does not see decode fed the wrong tokens: {control_lagged}"
     top2 = full.topk(2, dim=-1)
     clear = (top2.values[..., 0] - top2.values[..., 1]) > 2 * tol
-    agree = top2.indices[..., 0].cpu().numpy() == toks
-    assert agree[clear.cpu().numpy()].all(), "full-forward argmax differs from a served token"
+    agree = top2.indices[..., 0].cpu().numpy() == ref.argmax(-1).cpu().numpy()
+    assert agree[clear.cpu().numpy()].all(), "full-forward argmax differs from a decoded token"
     ph.info.update(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                    params=sum(p.numel() for p in model.parameters()),
                    batch=BATCH, prompt_len=PROMPT_LEN, gen_len=GEN_LEN,
@@ -911,6 +993,10 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
                    logits_tol=tol, control_lagged_tokens=control_lagged,
                    clear_positions=int(clear.sum()), argmax_agree=int(agree.sum()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if compare_cfg is not None:
+        ph.info.update(dropped_share=drops, compared_at={
+            "moe_capacity_factor": compare_cfg.moe_capacity_factor,
+            "served_argmax_agree": int((ref.argmax(-1).cpu().numpy() == toks).sum())})
     # where the device time goes: one more run under the profiler (CUDA
     # activity only), its kernels' device time against the unprofiled
     # second run's wall time
@@ -926,7 +1012,8 @@ def serve_and_check(ph, cfg, model, want_counts, cuda) -> tuple:
                          "idle_share": 1.0 - busy_s / wall_s, "kernel_s": ours,
                          "top": [[key[:80], ms, n] for key, (ms, n) in top]}
     emit({ph.name: {k: ph.info[k] for k in ("prefill_s", "decode_s", "decode_tokens_per_s",
-                                            "peak_mem_gb")}})
+                                            "peak_mem_gb")},
+          "idle_share": ph.info["device"]["idle_share"]})
     return prompts, toks, full
 
 
@@ -935,20 +1022,21 @@ def train_launches(ops, cfg) -> dict:
     ln2 or the SSD's gated norm, the q/k norms), cache-free attention and
     scan once in the forward, and once more where remat "full" runs each
     block's forward again in the backward; the final norm, outside the
-    blocks, once."""
-    norms = sum(2 + (2 if t in ("dense", "local_attn") and cfg.qk_norm else 0)
-                for t in cfg.layer_types)
-    again = 2 if cfg.remat == "full" else 1
+    blocks, once.  The MoE experts launch no kernel of the port."""
+    from repro_torch.models.lm import ATTENTION_BLOCKS
     kinds = cfg.layer_types
+    norms = sum(2 + (2 if t in ATTENTION_BLOCKS and cfg.qk_norm else 0) for t in kinds)
+    again = 2 if cfg.remat == "full" else 1
     return only(ops, rmsnorm=again * norms + 1,
-                flash_attention=again * (kinds.count("dense") + kinds.count("local_attn")),
+                flash_attention=again * sum(t in ATTENTION_BLOCKS for t in kinds),
                 ssd_scan=again * kinds.count("ssd"), rglru_scan=again * kinds.count("rglru"))
 
 
 def train_parity(ph, ops, lm, train, get_config, cuda) -> dict:
-    """Phase train_parity: the summed launch counts of the three card runs."""
+    """Phase train_parity: the summed launch counts of the five card runs."""
     total = only(ops)
-    for arch in ("qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"):
+    for arch in ("qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b", "deepseek-moe-16b",
+                 "qwen3-moe-235b-a22b"):
         cfg = get_config(arch, reduced=True)
         on_cpu = train.train_loop(cfg, device="cpu",
                                   model=lm.init_params(cfg, seed=SEED, device="cpu"), **PARITY)
@@ -967,6 +1055,9 @@ def train_parity(ph, ops, lm, train, get_config, cuda) -> dict:
             assert card.shape == (PARITY["steps"],) and np.isfinite(card).all()
             np.testing.assert_allclose(card, host, rtol=PARITY_RTOL,
                                        err_msg=f"{arch}: card vs CPU losses")
+            aux = np.array(on_card["aux"])
+            if "moe" in cfg.block_pattern:      # the balance loss reached the step
+                assert np.isfinite(aux).all() and (aux > 0).all(), (arch, aux)
             # the checkpoint of step 2, written by the checkpoint_save task,
             # restored into a fresh model (other weights) that continues
             shutil.rmtree(os.path.join(ckpt, f"step_{PARITY['steps']:08d}"))
@@ -981,12 +1072,14 @@ def train_parity(ph, ops, lm, train, get_config, cuda) -> dict:
         ph.info[arch] = {"card_losses": card.tolist(), "cpu_losses": host.tolist(),
                          "max_rel_diff": float(np.abs(card / host - 1).max()),
                          "resumed_losses": resumed["losses"], "launches": counts}
+        if "moe" in cfg.block_pattern:
+            ph.info[arch].update(card_aux=aux.tolist(), cpu_aux=on_cpu["aux"])
     return total
 
 
 def train_and_check(ph, ops, lm, train, cfg, cuda) -> dict:
-    """Phases train and train_ssd: ``train_loop`` on ``cfg`` at full width
-    for TRAIN_STEPS steps of BATCH x PROMPT_LEN tokens, checked (finite
+    """Phases train, train_ssd and train_moe: ``train_loop`` on ``cfg`` at
+    full width for TRAIN_STEPS steps of BATCH x PROMPT_LEN tokens, checked (finite
     losses, the first near ln(vocab), exact launch counts, the first
     batch's loss lower after training); then, from a fresh optimizer
     state, one step on a new batch, which must lower its loss, timed, and
@@ -1052,7 +1145,7 @@ def train_and_check(ph, ops, lm, train, cfg, cuda) -> dict:
                    ln_vocab=float(np.log(cfg.vocab_size)), step_seconds=out["step_seconds"],
                    steady_step_s=steady, steady_tokens_per_s=BATCH * PROMPT_LEN / steady,
                    tokens_per_s=out["tokens_per_s"], peak_mem_gb=peak_gb,
-                   launches=counts, launches_per_step=per_step,
+                   launches=counts, launches_per_step=per_step, aux=out["aux"],
                    device={"busy_s": busy_s, "wall_s": wall_s, "idle_share": 1.0 - busy_s / wall_s,
                            "kernel_s": ours, "top": [[key[:80], ms, n] for key, (ms, n) in top]})
     emit({ph.name: {k: ph.info[k] for k in ("steady_step_s", "steady_tokens_per_s",
@@ -1247,6 +1340,20 @@ def main(argv) -> int:
         del model
         torch.cuda.empty_cache()
 
+    with Phase("serve_moe") as ph:
+        cfg = get_config("deepseek-moe-16b")
+        model = lm.init_params(cfg, seed=SEED, device=cuda)
+        # per forward: ln1 and ln2 in each of 28 layers, and the final norm;
+        # the flash kernel serves the prefill, once per layer.  The
+        # full-forward comparison runs at capacity factor E / k: no drops
+        serve_and_check(ph, cfg, model, only(ops, rmsnorm=GEN_LEN * (cfg.n_layers * 2 + 1),
+                                             flash_attention=cfg.n_layers), cuda,
+                        compare_cfg=dataclasses.replace(
+                            cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k))
+        by_phase["serve_moe"] = ph.info["launches"]
+        del model
+        torch.cuda.empty_cache()
+
     with Phase("train_parity") as ph:
         by_phase["train_parity"] = train_parity(ph, ops, lm, train, get_config, cuda)
         ph.info["launches"] = by_phase["train_parity"]
@@ -1257,6 +1364,12 @@ def main(argv) -> int:
     with Phase("train_ssd") as ph:
         by_phase["train_ssd"] = train_and_check(ph, ops, lm, train, get_config("mamba2-780m"),
                                                 cuda)
+
+    with Phase("train_moe") as ph:
+        cfg = get_config("deepseek-moe-16b")
+        ph.info["full_depth"] = cfg.n_layers
+        by_phase["train_moe"] = train_and_check(
+            ph, ops, lm, train, dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS), cuda)
 
     for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
         launches[name] = sum(counts[name] for counts in by_phase.values())

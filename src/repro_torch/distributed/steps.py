@@ -50,9 +50,11 @@ def make_train_step(optimizer: Optimizer, *, microbatches: int = 1,
     """``train_step(model, opt_state, batch) -> metrics``: one optimizer
     step on ``batch`` (tensors on the model's device), updating the
     model's parameters and ``opt_state`` in place.  ``metrics`` holds
-    ``loss``, ``aux`` and ``grad_norm`` (0-d tensors; ``tokens`` too on
-    the single-batch path).  The reference's ``cfg`` and ``mesh``
-    arguments are not taken: the model carries its config."""
+    ``loss``, ``aux`` (the ``moe`` blocks' balance loss, weighed into the
+    gradients by ``loss_fn``; zero without one) and ``grad_norm`` (0-d
+    tensors; ``tokens`` too on the single-batch path).  The reference's
+    ``cfg`` and ``mesh`` arguments are not taken: the model carries its
+    config."""
 
     def train_step(model: LM, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
         if microbatches == 1:

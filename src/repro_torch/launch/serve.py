@@ -1,9 +1,12 @@
 """Batched serving driver: prefill, then greedy decode with KV caches or
 recurrent states — the port of ``repro/launch/serve.py``.  It serves
-the block types :mod:`repro_torch.models.lm` has so far: the
-dense-attention families, mamba2 (SSD blocks: the prefill builds each layer's final state
-and conv history, decode steps them) and recurrentgemma (RG-LRU blocks
-and local attention with ring caches).
+every block type of :mod:`repro_torch.models.lm`: the dense-attention
+families, the MoE families (deepseek-moe-16b, qwen3-moe-235b-a22b:
+attention with KV caches, routed experts whose capacity comes from each
+step's own token count, as in the reference), mamba2 (SSD blocks: the
+prefill builds each layer's final state and conv history, decode steps
+them) and recurrentgemma (RG-LRU blocks and local attention with ring
+caches).
 
 Request pre-processing (prompt synthesis, the tokenizer's stand-in) and
 response post-processing run as tasks on the port's runtime; prefill and
@@ -30,7 +33,9 @@ which runs the same steps again, fed the served tokens.
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --requests 8 --prompt-len 512 --gen-len 32
-    (also ``--arch mamba2-780m`` and ``--arch recurrentgemma-9b``)
+    (also ``--arch mamba2-780m``, ``--arch recurrentgemma-9b`` and
+    ``--arch deepseek-moe-16b``; ``qwen3-moe-235b-a22b`` does not fit one
+    card: ``--reduced`` runs its reduced config)
 """
 from __future__ import annotations
 

@@ -19,13 +19,17 @@ What differs from the JAX driver: the model starts from
 start from other weights, e.g. the JAX tree through
 ``convert.load_jax_params``); the parameters and the optimizer state are
 updated in place; the result also carries ``step_seconds``, each step's
-wall time ending in a device sync.
+wall time ending in a device sync, and ``aux``, each step's MoE balance
+loss (the step's metric; zeros without a ``moe`` block), which the log
+line shows for a model with one.
 
 Usage (on the card; ``--device cpu`` runs the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 10 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --reduced \\
         --device cpu --steps 20 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --reduced \\
+        --device cpu --steps 5 --batch 4 --seq 32
 """
 from __future__ import annotations
 
@@ -94,9 +98,9 @@ def train_loop(
     model: Optional[LM] = None,
 ) -> Dict[str, Any]:
     """Returns {"losses": [...], "steps_done", "restored_from",
-    "tokens_per_s", "runtime_stats", "step_seconds"}.  ``device=None``
-    means CUDA (raises without a card); ``model`` (on that device) is
-    trained in place, else ``init_params(cfg, seed)``."""
+    "tokens_per_s", "runtime_stats", "step_seconds", "aux": [...]}.
+    ``device=None`` means CUDA (raises without a card); ``model`` (on that
+    device) is trained in place, else ``init_params(cfg, seed)``."""
     dev = resolve_device(device)
     if model is not None and model.device.type != dev.type:
         raise ValueError(f"the model is on {model.device}, training on {dev}")
@@ -122,7 +126,9 @@ def train_loop(
                                      grad_compress=grad_compress)
 
         losses: List[float] = []
+        auxes: List[float] = []
         step_seconds: List[float] = []
+        has_moe = "moe" in cfg.block_pattern
         _sync(dev)
         t0 = time.perf_counter()
         batch_np = sample
@@ -136,10 +142,12 @@ def train_loop(
             _sync(dev)
             step_seconds.append(time.perf_counter() - t_step)
             losses.append(loss)
+            auxes.append(float(metrics["aux"]))
             if math.isnan(loss):
                 raise FloatingPointError(f"loss NaN at step {step}")
             if log_every and (step % log_every == 0 or step == steps - 1):
-                print(f"step {step:5d} loss {loss:.4f} "
+                aux = f"aux {auxes[-1]:.4f} " if has_moe else ""
+                print(f"step {step:5d} loss {loss:.4f} {aux}"
                       f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
             if manager and ckpt_every and (step + 1) % ckpt_every == 0:
                 manager.save(state_tree(model, opt_state), step + 1, blocking=False)
@@ -153,7 +161,7 @@ def train_loop(
                 "restored_from": restored_from,
                 "tokens_per_s": tokens / max(wall, 1e-9),
                 "runtime_stats": api.current_runtime().stats(),
-                "step_seconds": step_seconds}
+                "step_seconds": step_seconds, "aux": auxes}
     finally:
         if manage_runtime:
             api.runtime_stop()
@@ -185,7 +193,7 @@ def main() -> None:
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      restore=args.restore, grad_compress=args.grad_compress,
                      device=args.device)
-    print(json.dumps({k: v for k, v in out.items() if k != "losses"}, indent=1,
+    print(json.dumps({k: v for k, v in out.items() if k not in ("losses", "aux")}, indent=1,
                      default=str))
     print(f"loss: {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")
 

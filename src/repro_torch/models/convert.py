@@ -14,7 +14,8 @@ recurrent layers keep some parameters in fp32 inside a bf16 model
 (``A_log``, ``D``, ``dt_bias``; ``lam``, ``w_r``, ``b_r``, ``w_i``,
 ``b_i``), and a leaf that would be rounded or widened on the way in
 means the two models disagree about a parameter.  Leaves may also be
-torch tensors (a restored checkpoint's, bf16 included).
+torch tensors (a restored checkpoint's, bf16 included) or the
+:class:`BF16Bits` of :func:`to_jax_tree`.
 
 :func:`to_jax_tree` builds the JAX tree from the port's model (or from
 per-parameter tensors such as AdamW moments), for checkpoints that
@@ -45,7 +46,7 @@ def flat_jax_params(model: LM, tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     flat = dict(_flatten({k: v for k, v in tree.items() if k not in ("scan", "tail")}))
     for i in range(period if "scan" in tree else 0):
         for name, leaf in _flatten(tree["scan"][f"b{i}"]):
-            arr = leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+            arr = leaf if isinstance(leaf, torch.Tensor) else np.asanyarray(leaf)
             for s in range(arr.shape[0]):
                 flat[f"blocks.{s * period + i}.{name}"] = arr[s]
     first_tail = model.cfg.n_super * period
@@ -68,6 +69,8 @@ def load_jax_params(model: LM, tree: Dict[str, Any]) -> LM:
         raise KeyError(f"JAX tree does not fit the model: missing {missing}, extra {extra}")
     for name, p in params.items():
         leaf = flat[name]
+        if isinstance(leaf, BF16Bits):
+            leaf = torch.from_numpy(leaf.view(np.int16).copy()).view(torch.bfloat16)
         if tuple(leaf.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX leaf {tuple(leaf.shape)} vs parameter "
                              f"{tuple(p.shape)}")

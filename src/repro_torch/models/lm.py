@@ -2,9 +2,11 @@
 
 A model is a cycle of block types (``block_pattern``) over ``n_layers``:
 ``dense`` (GQA attention + MLP), ``local_attn`` (sliding-window GQA +
-MLP), ``ssd`` (a Mamba-2 SSD block, attention-free) and ``rglru`` (RG-LRU
-temporal mixing + MLP, RecurrentGemma's recurrent block).  ``moe`` raises
-``NotImplementedError`` until its slice lands (ROADMAP item A9).
+MLP), ``moe`` (GQA attention + routed experts, plus optional shared
+experts), ``ssd`` (a Mamba-2 SSD block, attention-free) and ``rglru``
+(RG-LRU temporal mixing + MLP, RecurrentGemma's recurrent block).  Each
+``moe`` block adds its balance loss to the forward's ``aux``, which
+:func:`loss_fn` weighs into the total.
 
 Where the JAX model stacks the layers of each pattern period and runs
 them with ``lax.scan`` (plus an unrolled tail), the port keeps one
@@ -17,7 +19,8 @@ keep the JAX layouts — ``(in, out)`` for every ``x @ W`` weight,
 transposing.  The norms, the cache-free attention and the recurrent
 prefill scans run the port's hand-written kernels on a CUDA card (see
 ``layers/norms.py``, ``layers/attention.py``, ``layers/ssd.py`` and
-``layers/rglru.py``).
+``layers/rglru.py``); the experts are plain PyTorch, as the reference's
+are jnp (``layers/moe.py``).
 """
 from __future__ import annotations
 
@@ -32,13 +35,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..algorithms.common import resolve_device
 from ..layers.attention import Attention, init_kv_cache
 from ..layers.mlp import MLP, init_normal_
+from ..layers.moe import MoE
 from ..layers.norms import RMSNorm
 from ..layers.rglru import RGLRU, init_rglru_cache
 from ..layers.ssd import SSD, init_ssd_cache
 
-ATTENTION_BLOCKS = ("dense", "local_attn")
+ATTENTION_BLOCKS = ("dense", "local_attn", "moe")
 BLOCK_TYPES = ATTENTION_BLOCKS + ("ssd", "rglru")
-_LATER = {"moe": "ROADMAP item A9 (MoE)"}
 REMAT = ("none", "full", "dots")
 # the matmuls whose outputs ``remat="dots"`` keeps (jax's checkpoint_dots)
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -131,8 +134,12 @@ class Block(nn.Module):
     """One layer, with the JAX block's key names.  ``dense`` /
     ``local_attn``: ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``
     (``local_attn`` adds the sliding window and a ring cache of at most
-    ``local_window`` slots).  ``ssd``: ``x + ssd(ln1(x))``.  ``rglru``:
-    ``x + rec(ln1(x))``, then ``+ mlp(ln2(x))``."""
+    ``local_window`` slots).  ``moe``: ``x + attn(ln1(x))``, then
+    ``+ moe(ln2(x))`` ``+ shared(ln2(x))`` where ``n_shared_experts > 0``
+    (one MLP of ``n_shared_experts · d_ff_expert``).  ``ssd``:
+    ``x + ssd(ln1(x))``.  ``rglru``: ``x + rec(ln1(x))``, then
+    ``+ mlp(ln2(x))``.  The routed experts read ``cfg``'s capacity factor
+    at each call."""
 
     def __init__(self, cfg: LMConfig, btype: str, device=None):
         super().__init__()
@@ -150,14 +157,21 @@ class Block(nn.Module):
         else:
             self.rec = RGLRU(cfg.d_model, cfg.rnn_width or cfg.d_model,
                              conv_width=cfg.conv_width, dtype=dt, device=device)
-        if btype != "ssd":
+        if btype == "moe":
+            self.ln2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
+            self.moe = MoE(cfg.d_model, cfg.d_ff_expert, cfg.n_experts, dtype=dt,
+                           device=device)
+            if cfg.n_shared_experts:
+                self.shared = MLP(cfg.d_model, cfg.n_shared_experts * cfg.d_ff_expert,
+                                  dtype=dt, device=device)
+        elif btype != "ssd":
             self.ln2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated, dtype=dt,
                            device=device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Each sub-layer's JAX shapes and scales (the norms keep their ones)."""
-        for name in ("attn", "ssd", "rec", "mlp"):
+        for name in ("attn", "ssd", "rec", "mlp", "moe", "shared"):
             if hasattr(self, name):
                 getattr(self, name).init_weights(generator)
 
@@ -178,11 +192,12 @@ class Block(nn.Module):
         return init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.hd, cfg.cache_dtype, device)
 
     def forward(self, x, *, cache, pos_offset, make_cache_len):
+        """(x, new cache, the balance loss of a ``moe`` block or ``None``)."""
         cfg = self.cfg
         if self.btype == "ssd":
             y, new_cache = self.ssd(self.ln1(x), chunk=cfg.ssm_chunk, cache=cache,
                                     make_cache=make_cache_len is not None)
-            return x + y, new_cache
+            return x + y, new_cache, None
         if self.btype == "rglru":
             y, new_cache = self.rec(self.ln1(x), cache=cache,
                                     make_cache=make_cache_len is not None)
@@ -197,7 +212,14 @@ class Block(nn.Module):
                 chunk=cfg.attn_chunk,
                 scores_dtype=torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32)
         x = x + y
-        return x + self.mlp(self.ln2(x)), new_cache
+        if self.btype != "moe":
+            return x + self.mlp(self.ln2(x)), new_cache, None
+        h = self.ln2(x)
+        y, aux = self.moe(h, top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor,
+                          renormalize=cfg.moe_renormalize)
+        if cfg.n_shared_experts:
+            y = y + self.shared(h)
+        return x + y, new_cache, aux
 
 
 class LM(nn.Module):
@@ -209,8 +231,6 @@ class LM(nn.Module):
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
         for t in set(cfg.block_pattern):
-            if t in _LATER:
-                raise NotImplementedError(f"block type {t!r} is not ported yet: {_LATER[t]}")
             if t not in BLOCK_TYPES:
                 raise ValueError(f"unknown block type {t}")
         device = resolve_device(device)
@@ -231,8 +251,8 @@ class LM(nn.Module):
 
     def init_caches(self, batch: int, cache_len: int) -> List[dict]:
         """Empty decode caches, one per layer in layer order: KV caches
-        (ring caches of ``local_window`` slots for ``local_attn``), SSD
-        and RG-LRU states with their conv histories."""
+        (``dense`` and ``moe``; ring caches of ``local_window`` slots for
+        ``local_attn``), SSD and RG-LRU states with their conv histories."""
         return [blk.init_cache(batch, cache_len, self.device) for blk in self.blocks]
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -254,11 +274,13 @@ class LM(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], caches: Optional[List[dict]] = None,
                 pos_offset: int = 0, make_cache_len: Optional[int] = None,
-                last_only: bool = False, remat: Optional[str] = None
-                ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
-        """Returns (logits fp32 (B, S, V), new caches or None).  With
-        ``caches`` (decode) each attention layer's new K/V is written into
-        its cache in place; the recurrent layers return new states.
+                last_only: bool = False, remat: Optional[str] = None,
+                return_aux: bool = False) -> Tuple:
+        """Returns (logits fp32 (B, S, V), new caches or None), and with
+        ``return_aux=True`` also the summed balance loss of the ``moe``
+        blocks (0-d fp32; zero without one), as the reference's triple.
+        With ``caches`` (decode) each attention layer's new K/V is written
+        into its cache in place; the recurrent layers return new states.
         ``last_only=True`` computes logits for the final position only
         (prefill: no (B, S, V) tensor).
 
@@ -277,22 +299,31 @@ class LM(nn.Module):
             remat = "none"
         x = self.embed_inputs(batch)
         new_caches = []
+        aux_total = None
         for i, blk in enumerate(self.blocks):
             cache = caches[i] if caches is not None else None
             if remat == "none":
-                x, nc = blk(x, cache=cache, pos_offset=pos_offset,
-                            make_cache_len=make_cache_len)
+                x, nc, aux = blk(x, cache=cache, pos_offset=pos_offset,
+                                 make_cache_len=make_cache_len)
             else:
-                x, nc = checkpoint(blk, x, cache=None, pos_offset=pos_offset,
-                                   make_cache_len=None, use_reentrant=False,
-                                   **({"context_fn": _save_dots} if remat == "dots" else {}))
+                x, nc, aux = checkpoint(
+                    blk, x, cache=None, pos_offset=pos_offset, make_cache_len=None,
+                    use_reentrant=False,
+                    **({"context_fn": _save_dots} if remat == "dots" else {}))
             new_caches.append(nc)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         if last_only:
             x = x[:, -1:]
         x = self.final_norm(x)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         logits = (x @ head.to(x.dtype)).to(torch.float32)
-        return logits, (new_caches if any(c is not None for c in new_caches) else None)
+        new_caches = new_caches if any(c is not None for c in new_caches) else None
+        if not return_aux:
+            return logits, new_caches
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, new_caches, aux_total
 
 
 @torch.no_grad()
@@ -321,14 +352,13 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *, aux_weight: float = 0.
     """Masked next-token cross entropy, as ``repro.models.lm.loss_fn``:
     ``batch`` carries ``targets`` (B, S) and ``loss_mask`` (B, S) aligned
     with the model's output positions.  Returns ``(total, {"loss", "aux",
-    "tokens"})``; ``aux`` is the MoE balance loss, a 0-d zero until the
-    ``moe`` block is ported (ROADMAP item A9)."""
-    logits, _ = model(batch, remat=remat)
+    "tokens"})`` with ``total = loss + aux_weight · aux``; ``aux`` is the
+    summed balance loss of the ``moe`` blocks (a 0-d zero without one)."""
+    logits, _, aux = model(batch, remat=remat, return_aux=True)
     mask = batch["loss_mask"].to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
     nll = (logz - gold) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}

@@ -509,7 +509,8 @@ def _model_grads(cfg, model, batch, remat):
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b",
+                                  "deepseek-moe-16b", "qwen3-moe-235b-a22b"])
 def test_model_gradients_on_the_card_match_the_cpu(cuda, arch, remat):
     """The C3 regression: on the card ``loss.backward()`` gives every
     parameter — norm scales, and everything before a norm, an attention
@@ -529,7 +530,8 @@ def test_model_gradients_on_the_card_match_the_cpu(cuda, arch, remat):
     kinds = cfg.layer_types
     again = 2 if remat == "full" else 1
     assert ops.launch_counts()["flash_attention"] == again * (kinds.count("dense")
-                                                              + kinds.count("local_attn"))
+                                                              + kinds.count("local_attn")
+                                                              + kinds.count("moe"))
     assert ops.launch_counts()["ssd_scan"] == again * kinds.count("ssd")
     assert ops.launch_counts()["rglru_scan"] == again * kinds.count("rglru")
     assert loss_card == pytest.approx(loss_cpu, rel=1e-5)
@@ -569,6 +571,79 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     diff = torch.cat([(p1[name] - p0[name]).abs().reshape(-1) for name in p0])
     assert float(diff.max()) <= 2.2e-3, float(diff.max())
     assert float((diff <= 1e-6).float().mean()) >= 0.99, float((diff <= 1e-6).float().mean())
+
+
+# ---------------------------------------------------------------------- MoE
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_moe_serve_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced MoE models (fp32) on the card and on the CPU from the
+    same weights: the forward's logits within 1e-4 and its balance loss
+    within 1e-5 relative; served tokens identical (through rmsnorm and
+    flash: one flash launch per layer in the prefill), and identical
+    again in a second serve."""
+    cfg = get_config(arch, reduced=True)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.init_params(cfg, seed=0, device="cpu").to(cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    with torch.no_grad():
+        l_cpu, _, a_cpu = cpu_model({"tokens": tokens}, return_aux=True)
+        l_card, _, a_card = card_model({"tokens": tokens.to(cuda)}, return_aux=True)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-4, atol=1e-4)
+    assert float(a_card) == pytest.approx(float(a_cpu), rel=1e-5)
+    kw = dict(batch=2, prompt_len=40, gen_len=6, seed=0)
+    on_cpu = serve.serve_batch(cfg, device="cpu", params=cpu_model, **kw)
+    ops.reset_launch_counts()
+    on_card = serve.serve_batch(cfg, device=cuda, params=card_model, **kw)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    norms = 4 if cfg.qk_norm else 2
+    assert ops.launch_counts()["rmsnorm"] == 6 * (cfg.n_layers * norms + 1)
+    np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])
+    again = serve.serve_batch(cfg, device=cuda, params=card_model, **kw)
+    np.testing.assert_array_equal(again["tokens"], on_card["tokens"])
+
+
+@pytest.mark.parametrize("N,cf", [(8, 1.25), (8 * 64, 1.25), (8 * 64, 64 / 6)],
+                         ids=["decode", "prefill", "prefill-no-drop"])
+def test_moe_layer_on_the_card_is_repeatable_and_matches_the_cpu(cuda, N, cf):
+    """deepseek's routing (64 experts, top-6) in bf16 at a decode step's
+    8 tokens (C = 4: assignments drop) and at a 512-token prefill, with
+    and without drops: two launches bitwise equal (the combine adds in a
+    fixed order, no atomics); the same assignments dropped as on the CPU;
+    the output within two bf16 steps of the CPU's scale.  The layer never
+    waits for the card: no op of it synchronises (so the host runs ahead
+    of the device, as a decode step needs)."""
+    from repro_torch.layers import moe
+    rng = np.random.default_rng(3)
+    D, F, E = 256, 128, 64
+    p = {"w_router": rng.standard_normal((D, E)) / D ** 0.5,
+         "w_gate": rng.standard_normal((E, D, F)) / D ** 0.5,
+         "w_up": rng.standard_normal((E, D, F)) / D ** 0.5,
+         "w_down": rng.standard_normal((E, F, D)) / F ** 0.5}
+    cpu = {k: torch.from_numpy(v.astype(np.float32)).to(
+        torch.float32 if k == "w_router" else torch.bfloat16) for k, v in p.items()}
+    card = {k: v.to(cuda) for k, v in cpu.items()}
+    # tokens that share a direction crowd the same experts
+    x = rng.standard_normal((1, N, D)) + 2.0 * rng.standard_normal(D)
+    x_cpu = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    x_card = x_cpu.to(cuda)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, aux = moe.moe_apply_local(card, x_card, top_k=6, capacity_factor=cf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        again, _ = moe.moe_apply_local(card, x_card, top_k=6, capacity_factor=cf)
+        want, want_aux = moe.moe_apply_local(cpu, x_cpu, top_k=6, capacity_factor=cf)
+        d_card, _ = moe.dropped_assignments(card, x_card, top_k=6, capacity_factor=cf)
+        d_cpu, _ = moe.dropped_assignments(cpu, x_cpu, top_k=6, capacity_factor=cf)
+    assert torch.equal(got, again)
+    assert int(d_card) == int(d_cpu)
+    assert (int(d_cpu) > 0) == (cf < 2)
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2 * 2.0 ** -7,
+                               atol=2 * 2.0 ** -7 * scale)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
 
 
 def test_knn_and_kmeans_refuse_inputs_that_require_grad(cuda):

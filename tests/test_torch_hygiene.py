@@ -1,7 +1,7 @@
 """Import and knob hygiene of the PyTorch port.
 
-An AST walk over ``src/repro_torch`` and ``chip_smoke.py`` pins four
-rules: the port imports neither ``jax`` nor anything of the JAX package
+An AST walk over ``src/repro_torch``, ``chip_smoke.py`` and the port's
+example programs (``examples/*_torch.py``) pins four rules: the port imports neither ``jax`` nor anything of the JAX package
 ``repro``, nor ``ml_dtypes``; no library kernel (``scaled_dot_product_attention``,
 ``rms_norm``, ``torch.compile``, ``triton``) stands in for a hand-written
 one — ``chip_smoke.py`` may name the first two only inside
@@ -25,6 +25,7 @@ ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 SRC = os.path.join(ROOT, "src")
 PORT = os.path.join(SRC, "repro_torch")
 CHIP_SMOKE = os.path.join(ROOT, "chip_smoke.py")
+EXAMPLES = os.path.join(ROOT, "examples")
 
 
 def _port_files():
@@ -32,7 +33,9 @@ def _port_files():
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
-    return sorted(out) + [CHIP_SMOKE]
+    examples = [os.path.join(EXAMPLES, f) for f in os.listdir(EXAMPLES)
+                if f.endswith("_torch.py")]
+    return sorted(out) + [CHIP_SMOKE] + sorted(examples)
 
 
 def _trees():
@@ -61,8 +64,11 @@ def test_port_files_exist():
                  "layers/rglru.py", "layers/ssd.py", "configs/mamba2_780m.py",
                  "configs/recurrentgemma_9b.py", "optim/adamw.py", "optim/compress.py",
                  "data/pipeline.py", "checkpoint/manager.py", "distributed/steps.py",
-                 "launch/train.py"):
+                 "launch/train.py", "layers/moe.py"):
         assert want in names
+    examples = {os.path.basename(p) for p in _port_files() if p.startswith(EXAMPLES)}
+    assert examples == {"quickstart_torch.py", "kmeans_pipeline_torch.py",
+                        "serve_lm_torch.py", "train_lm_torch.py"}
     for src in ("knn_topk.cu", "kmeans_assign.cu", "rmsnorm.cu", "flash_attention.cu",
                 "rglru_scan.cu", "ssd_scan.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src))

@@ -197,6 +197,11 @@ FAMILIES = {
     "ssd": dict(block_pattern=("ssd",), ssm_state=16, ssm_headdim=8, ssm_chunk=4),
     "hybrid": dict(n_layers=7, block_pattern=("rglru", "rglru", "local_attn"), rnn_width=32,
                    local_window=4),
+    # dense and MoE layers in turn (qk-norm, one shared expert); capacity
+    # factor E / k: no assignment drops, so a prefill, a decode step and
+    # one full forward route every token alike
+    "moe": dict(block_pattern=("dense", "moe"), qk_norm=True, n_experts=4, top_k=2,
+                d_ff_expert=32, n_shared_experts=1, moe_capacity_factor=2.0),
 }
 
 
@@ -227,12 +232,17 @@ def _t(batch):
 def test_forward_matches_jax(fam):
     jcfg, cfg, tree, model = _family(fam)
     batch = _batch(cfg)
-    got, caches = model(_t(batch))
+    got, caches, aux = model(_t(batch), return_aux=True)
+    aux = aux.detach()
     assert caches is None and got.dtype == torch.float32
-    want, _, _ = jlm.forward(jcfg, tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    want, _, jaux = jlm.forward(jcfg, tree, {k: jnp.asarray(v) for k, v in batch.items()})
     # fp32 through 4-5 layers; logits ~0.1: products and softmaxes summed in
     # other orders
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=2e-5)
+    # the summed balance loss of the moe blocks (fp32 routing), zero without one
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-5, abs=0)
+    assert (float(aux) > 0) == ("moe" in cfg.block_pattern)
 
 
 @pytest.mark.parametrize("fam", list(FAMILIES))
@@ -259,7 +269,7 @@ def test_prefill_decode_matches_full_forward(fam):
     assert torch.equal(last, logits_pre[:, -1:])
 
 
-@pytest.mark.parametrize("fam", ["local_tied", "ssd", "hybrid"])
+@pytest.mark.parametrize("fam", ["local_tied", "ssd", "hybrid", "moe"])
 def test_token_by_token_decode_from_empty_caches_matches_full_forward(fam):
     """``init_caches`` has the JAX caches' shapes and values (ring caches of
     ``local_window`` slots for ``local_attn``, zero SSD / RG-LRU states and
@@ -328,10 +338,98 @@ def test_model_needs_a_card_unless_asked_for_the_cpu():
     assert lm.LM(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-moe-16b", "A9")])
-def test_later_block_types_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        lm.LM(configs.get_config(arch, reduced=True))
+MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
+
+
+def _converted(arch, param_dtype=None):
+    """(JAX config, JAX tree, the port's model loaded from it): the reduced
+    config, optionally with bf16 parameters (the router stays fp32)."""
+    jcfg, cfg = jconfigs.get_config(arch, reduced=True), configs.get_config(arch, reduced=True)
+    if param_dtype is not None:
+        jcfg = dataclasses.replace(jcfg, param_dtype=param_dtype)
+        cfg = dataclasses.replace(cfg, param_dtype=DTYPES[param_dtype])
+    tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    return jcfg, tree, convert.load_jax_params(lm.LM(cfg, device="cpu"), tree)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_models_build_on_the_cpu(arch):
+    """Both MoE families build (reduced, on the CPU) with the JAX tree's
+    parameters: attention, ln2, the routed experts under ``moe`` and, for
+    deepseek, the shared experts under ``shared``; fp32 router."""
+    cfg = configs.get_config(arch, reduced=True)
+    model = lm.LM(cfg, device="cpu")
+    names = {n.split(".", 2)[2] for n, _ in model.named_parameters() if n.startswith("blocks.0.")}
+    want = {"ln1.scale", "ln2.scale", "attn.wq", "attn.wk", "attn.wv", "attn.wo",
+            "moe.w_router", "moe.w_gate", "moe.w_up", "moe.w_down"}
+    if cfg.qk_norm:
+        want |= {"attn.q_norm.scale", "attn.k_norm.scale"}
+    if cfg.n_shared_experts:
+        want |= {"shared.w_gate", "shared.w_up", "shared.w_down"}
+    assert names == want
+    assert model.blocks[0].shared.w_up.shape == (cfg.d_model, 2 * cfg.d_ff_expert) \
+        if cfg.n_shared_experts else not hasattr(model.blocks[0], "shared")
+    built = lm.init_params(cfg, seed=0, device="cpu")
+    assert all(bool(torch.isfinite(p).all()) for p in built.parameters())
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_models_forward_matches_jax(arch):
+    """The reduced MoE models from the JAX tree: logits as the dense
+    families' (fp32, 1e-4 relative, 2e-5 absolute) and the summed balance
+    loss within 1e-5 relative; their capacity (cf 2.0) is the config's."""
+    jcfg, tree, model = _converted(arch)
+    batch = _batch(model.cfg, 2, 16, seed=1)
+    with torch.no_grad():
+        got, _, aux = model(_t(batch), return_aux=True)
+    want, _, jaux = jlm.forward(jcfg, tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=2e-5)
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-5) and float(aux) > 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_to_jax_tree_round_trip(arch):
+    """A bf16 MoE model (fp32 router) to the JAX tree and back: the tree has
+    the JAX leaves' paths, shapes and dtypes and their values bit for
+    bit, and loads into a fresh model as the same parameters."""
+    _, tree, model = _converted(arch, jnp.bfloat16)
+    assert model.blocks[0].moe.w_router.dtype == torch.float32
+    assert model.blocks[0].moe.w_gate.dtype == torch.bfloat16
+    mine = convert.to_jax_tree(model)
+    want = jax.tree_util.tree_flatten_with_path(tree)[0]
+    got = jax.tree_util.tree_flatten_with_path(mine)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        if isinstance(a, convert.BF16Bits):
+            assert b.dtype.name == "bfloat16", jax.tree_util.keystr(path)
+            assert np.array_equal(a.view(np.uint16), b.view(np.uint16))
+        else:
+            assert a.dtype == b.dtype and np.array_equal(a, b), jax.tree_util.keystr(path)
+    back = convert.load_jax_params(lm.LM(model.cfg, device="cpu"), mine)
+    for (n, p), (_, q) in zip(model.named_parameters(), back.named_parameters()):
+        assert p.dtype == q.dtype and torch.equal(p, q), n
+
+
+@pytest.mark.parametrize("arch,n_params", [("deepseek-moe-16b", 16_879_568_896),
+                                           ("qwen3-moe-235b-a22b", 231_742_373_632)])
+def test_moe_models_at_full_width_have_the_jax_shapes_and_dtypes(arch, n_params):
+    """As for the recurrent models below (meta device, ``jax.eval_shape``):
+    every parameter has its JAX leaf's shape and dtype; only the routers
+    are fp32.  deepseek-moe-16b is 33.8 GB in bf16 and fits one 80 GB
+    card; qwen3-moe-235b-a22b, 463 GB, does not."""
+    shapes = jax.eval_shape(lambda: jlm.init_params(jconfigs.get_config(arch),
+                                                    jax.random.PRNGKey(0)))
+    tree = jax.tree.map(lambda a: np.broadcast_to(np.zeros((), a.dtype), a.shape), shapes)
+    model = lm.LM(configs.get_config(arch), device="meta")
+    flat = convert.flat_jax_params(model, tree)
+    params = dict(model.named_parameters())
+    assert flat.keys() == params.keys()
+    for name, p in params.items():
+        assert (tuple(p.shape), str(p.dtype).removeprefix("torch.")) == \
+            (flat[name].shape, flat[name].dtype.name), name
+    assert sum(p.numel() for p in params.values()) == n_params
+    assert {n.split(".")[-1] for n, p in params.items() if p.dtype == torch.float32} == \
+        {"w_router"}
 
 
 @pytest.mark.parametrize("arch,n_params", [("mamba2-780m", 857_379_072),

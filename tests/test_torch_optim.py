@@ -233,7 +233,8 @@ def _jax_leaf_list(tree):
             jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b",
+                                  "deepseek-moe-16b", "qwen3-moe-235b-a22b"])
 def test_checkpoint_names_and_manifest_equal_jaxs(tmp_path, arch):
     """The port's ``{"params", "opt"}`` tree saves under the JAX package's
     leaf names, in its order, with its shapes and dtypes: the manifests
@@ -255,17 +256,23 @@ def test_checkpoint_names_and_manifest_equal_jaxs(tmp_path, arch):
         assert shape["params_scan_b0_attn_wq"] == [3, 128, 128] and shape["opt_.count"] == []
 
 
-@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32, jnp.float32),
-                                    (torch.bfloat16, torch.bfloat16, jnp.bfloat16)],
-                         ids=["fp32", "bf16"])
-def test_checkpoints_restore_across_the_two_packages(tmp_path, dtypes):
+FP32 = (torch.float32, torch.float32, jnp.float32)
+BF16 = (torch.bfloat16, torch.bfloat16, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("arch,dtypes", [("qwen3-0.6b", FP32), ("qwen3-0.6b", BF16),
+                                         ("deepseek-moe-16b", BF16),
+                                         ("qwen3-moe-235b-a22b", BF16)],
+                         ids=["fp32", "bf16", "deepseek-moe-16b-bf16", "qwen3-moe-235b-bf16"])
+def test_checkpoints_restore_across_the_two_packages(tmp_path, arch, dtypes):
     """A port checkpoint restores in JAX and a JAX checkpoint in the port,
-    with identical leaves (bf16 parameters and moments bit for bit)."""
+    with identical leaves (bf16 parameters and moments bit for bit; a bf16
+    MoE model keeps its routers in fp32, so its leaves mix the two)."""
     param_dtype, moment_dtype, jmoment = dtypes
-    model, state, tree = _port_state("qwen3-0.6b", moment_dtype, param_dtype)
+    model, state, tree = _port_state(arch, moment_dtype, param_dtype)
     # port -> JAX
     ckpt.save_checkpoint(str(tmp_path / "a"), tree, step=3)
-    jcfg = jget_config("qwen3-0.6b", reduced=True)
+    jcfg = jget_config(arch, reduced=True)
     if param_dtype == torch.bfloat16:
         import dataclasses
         jcfg = dataclasses.replace(jcfg, param_dtype=jnp.bfloat16)
@@ -285,7 +292,7 @@ def test_checkpoints_restore_across_the_two_packages(tmp_path, dtypes):
     # JAX -> port: restore the JAX leaves into a fresh port model and state
     jckpt.save_checkpoint(str(tmp_path / "b"), restored, step=4)
     from repro_torch.launch.train import load_state, state_tree
-    fresh, fstate, _ = _port_state("qwen3-0.6b", moment_dtype, param_dtype)
+    fresh, fstate, _ = _port_state(arch, moment_dtype, param_dtype)
     with torch.no_grad():
         for p in fresh.parameters():
             p.zero_()
@@ -298,6 +305,9 @@ def test_checkpoints_restore_across_the_two_packages(tmp_path, dtypes):
         assert torch.equal(state.mu[name], fstate.mu[name])
         assert torch.equal(state.nu[name], fstate.nu[name])
     assert int(fstate.count) == 3
+    if arch != "qwen3-0.6b":    # the mixed dtypes crossed both ways
+        assert fresh.blocks[0].moe.w_router.dtype == torch.float32
+        assert fresh.blocks[0].moe.w_gate.dtype == param_dtype
 
 
 def test_checkpoint_manager_keeps_the_newest_and_saves_as_a_task(tmp_path):

@@ -1,8 +1,9 @@
 """The PyTorch port's serving driver against the JAX package's.
 
 ``repro_torch.launch.serve.serve_batch(device="cpu")`` and
-``repro.launch.serve.serve_batch`` serve qwen3-0.6b, mamba2-780m and
-recurrentgemma-9b (reduced) from the same parameters — the JAX
+``repro.launch.serve.serve_batch`` serve qwen3-0.6b, mamba2-780m,
+recurrentgemma-9b, deepseek-moe-16b and qwen3-moe-235b-a22b (reduced)
+from the same parameters — the JAX
 ``init_params`` tree for the seed, carried across by ``load_jax_params``
 — and the same prompts.  Greedy decoding must pick
 the same tokens; the test first checks that every step's top-2 logit
@@ -44,7 +45,8 @@ def _converted(arch, seed):
 # each seed's smallest top-2 margin over the served steps clears LOGIT_TOL
 # (mamba2's seed 0 has a near-tie of 4e-5)
 @pytest.mark.parametrize("arch,seed", [("qwen3-0.6b", 0), ("mamba2-780m", 1),
-                                       ("recurrentgemma-9b", 0)])
+                                       ("recurrentgemma-9b", 0), ("deepseek-moe-16b", 0),
+                                       ("qwen3-moe-235b-a22b", 0)])
 def test_serve_batch_matches_jax_tokens(arch, seed):
     kw = dict(batch=2, prompt_len=12, gen_len=5)
     cfg = get_config(arch, reduced=True)
@@ -99,7 +101,8 @@ def test_serve_batch_needs_a_card_unless_asked_for_the_cpu():
                           params=lm.init_params(cfg, device="cpu"))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b",
+                                  "deepseek-moe-16b"])
 def test_serve_cli_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(

@@ -2,7 +2,8 @@
 
 ``repro_torch.models.lm.loss_fn`` and its gradients are held against
 ``jax.value_and_grad(repro.models.lm.loss_fn)`` on the reduced qwen3,
-mamba2 and recurrentgemma configs from the JAX ``init_params`` tree
+mamba2, recurrentgemma, deepseek-moe and qwen3-moe configs (the MoE
+balance loss included) from the JAX ``init_params`` tree
 (carried across by ``load_jax_params``) and the same ``synth_batch``
 batch; the port's ``train_loop`` against the JAX ``train_loop`` from the
 same parameters and data.  On the CPU the port's ops run the kernels'
@@ -12,6 +13,7 @@ version standing in for the kernel.  All in fp32: tolerances are stated
 at each assertion.
 """
 import functools
+import math
 import os
 import subprocess
 import sys
@@ -38,7 +40,8 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import convert, lm  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
-ARCHS = ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"]
+MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
+ARCHS = ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"] + MOE_ARCHS
 
 
 def _converted(arch, seed=0):
@@ -77,9 +80,10 @@ def grad_tol(path: str) -> float:
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_gradients_match_jax(arch):
-    """Loss within 1e-5 relative; every gradient leaf within ``grad_tol``
-    of the JAX leaf's largest magnitude (fp32 sums in other orders through
-    3-5 layers and a 512-way softmax)."""
+    """Loss and the MoE balance loss (zero without a ``moe`` block) within
+    1e-5 relative; every gradient leaf within ``grad_tol`` of the JAX
+    leaf's largest magnitude (fp32 sums in other orders through 2-5
+    layers and a 512-way softmax)."""
     jcfg = jget_config(arch, reduced=True)
     tree, model = _converted(arch)
     batch = synth_batch(get_config(arch, reduced=True), 2, 24, step=1)
@@ -89,7 +93,8 @@ def test_loss_and_gradients_match_jax(arch):
             tree, {k: jnp.asarray(v) for k, v in batch.items()})
     assert float(total) == pytest.approx(float(jtotal), rel=1e-5)
     assert float(metrics["loss"]) == pytest.approx(float(jmetrics["loss"]), rel=1e-5)
-    assert float(metrics["aux"]) == float(jmetrics["aux"]) == 0.0
+    assert float(metrics["aux"]) == pytest.approx(float(jmetrics["aux"]), rel=1e-5, abs=0)
+    assert (float(metrics["aux"]) > 0) == (arch in MOE_ARCHS)
     assert float(metrics["tokens"]) == float(jmetrics["tokens"]) == 2 * 23
     mine = convert.to_jax_tree(model, grads)
     flat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
@@ -277,6 +282,23 @@ def test_train_loop_matches_jax(kw):
     assert len(mine["step_seconds"]) == 5 and mine["tokens_per_s"] > 0
     np.testing.assert_allclose(mine["losses"], want["losses"], rtol=1e-4)
     assert mine["losses"][-1] != mine["losses"][0]
+
+
+@pytest.mark.parametrize("kw", [{}, {"microbatches": 2}], ids=["plain", "microbatches2"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_loop_matches_jax(arch, kw):
+    """The reduced MoE models: four steps of the port's ``train_loop`` and
+    the JAX one from the same parameters and batches, losses within 1e-4
+    relative (fp32); the port's per-step balance loss is finite and
+    nonzero.  Microbatches route each half batch with its own capacity,
+    as the reference does."""
+    cfg, jcfg = get_config(arch, reduced=True), jget_config(arch, reduced=True)
+    _, model = _converted(arch, seed=0)
+    common = dict(steps=4, batch=4, seq=16, lr=1e-3, warmup=2, workers=2, seed=0, log_every=0)
+    mine = train.train_loop(cfg, device="cpu", model=model, **common, **kw)
+    want = jtrain.train_loop(jcfg, mesh=_jax_mesh(), **common, **kw)
+    np.testing.assert_allclose(mine["losses"], want["losses"], rtol=1e-4)
+    assert len(mine["aux"]) == 4 and all(math.isfinite(a) and a > 0 for a in mine["aux"])
 
 
 def test_train_loop_resumes_from_its_checkpoint(tmp_path):
