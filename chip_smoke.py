@@ -55,8 +55,11 @@ failure raises (the script then exits non-zero without a result):
              the no-drop capacity factor E / k, on the same weights (the
              served path's capacity comes from each call's token count,
              so prefill, decode and one full forward drop differently);
-             the share of assignments dropped in the served prefill and
-             decode is recorded;
+             the share of choices of experts the two paths make apart is
+             held, and the logits with the replay's routing forced on the
+             full forward; the share
+             of assignments dropped in the served prefill and decode is
+             recorded;
 11. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
              recurrentgemma, deepseek-moe and qwen3-moe configs (fp32), 4
              steps on the card and on the CPU from the same
@@ -111,19 +114,23 @@ PEAK_BYTES_PER_S = 3.35e12     # HBM3
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 
 SEED = 0
-# served vs full-forward logits, per served model (phases 7-9): logits are
-# rounded to bf16 and the two paths (prefill + decode, one cache-free
+# served vs full-forward logits, per served model (phases 7-10): logits
+# are rounded to bf16 and the two paths (prefill + decode, one cache-free
 # forward) round differently in every layer.  Each limit sits between the
 # sound reading and a decode fed the wrong tokens (the lagged control,
 # which each phase reads too); the readings are in PERF.md.  Sound and
 # lagged readings on one H100: qwen3-0.6b 0.056 and 2.5, mamba2-780m 0.18
-# and 6.1, recurrentgemma-9b 0.29 and 9.8, deepseek-moe-16b (both sides at
-# the no-drop capacity) 1.04 and 4.60.  deepseek's sound reading is set by
-# routing: a bf16 rounding apart between the two paths flips a near-tie
-# among an MoE layer's top-6, and that token then mixes other experts; its
-# limit sits at the geometric middle of the two readings.
+# and 6.1, recurrentgemma-9b 0.29 and 9.8, deepseek-moe-16b 0.117 and
+# 4.59.  In deepseek (both sides at the no-drop capacity) a rounding apart
+# flips near-ties among some of the MoE layers' top-6 choices, and a token
+# routed apart mixes other experts (the free forward's logits read 1.04):
+# the share of the generated positions' choices made apart is held to
+# MAX_ROUTED_APART, between its sound and lagged readings (0.203 and
+# 0.946), and the logits with the replay's routing forced on the full
+# forward.
 LOGIT_TOL = {"qwen3-0.6b": 0.08, "mamba2-780m": 0.25, "recurrentgemma-9b": 0.4,
-             "deepseek-moe-16b": 2.0}
+             "deepseek-moe-16b": 0.16}
+MAX_ROUTED_APART = 0.3
 MOE_TRAIN_LAYERS = 4                        # phase train_moe: deepseek's depth cut
 BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32    # every serve phase; train: BATCH x PROMPT_LEN
 TRAIN_STEPS = 10                            # phases train and train_ssd
@@ -181,9 +188,11 @@ def device_kernels(fn):
 
 
 SPIN = "spin_kernel"   # torch.cuda._sleep's kernel: the edges of a timed window
+L2_BYTES = 50 * 2 ** 20  # the H100 SXM's L2
+FLUSH = "bitwise_not"    # the kernel that evicts L2 before each call of a cold window
 
 
-def device_ms(fn, reps: int, warmup: int = 2, tries: int = 5) -> float:
+def device_ms(fn, reps: int, warmup: int = 2, tries: int = 5, cold: bool = False) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed,
     averaged over ``reps`` calls after ``warmup`` calls.  Every call
     launches the same kernels, so each kernel's event count must be a
@@ -194,10 +203,18 @@ def device_ms(fn, reps: int, warmup: int = 2, tries: int = 5) -> float:
     running), and the window is profiled again, up to ``tries`` times.  A
     short spin kernel opens and closes each window and is not counted:
     in windows of ~40 us of `F.rms_norm` the profiler lost one of 20
-    events three times running."""
+    events three times running.  ``cold``: each call follows a pass over
+    a buffer of 4 x L2 that evicts its inputs from L2 (not counted), so a
+    call reads them from DRAM, as its bytes bound assumes."""
+    flush = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda").bitwise_not_ \
+        if cold else (lambda: None)
+
     def window():
         torch.cuda._sleep(1000)
-        out = [fn() for _ in range(reps)]
+        out = []
+        for _ in range(reps):
+            flush()
+            out.append(fn())
         torch.cuda._sleep(1000)
         return out
 
@@ -209,7 +226,8 @@ def device_ms(fn, reps: int, warmup: int = 2, tries: int = 5) -> float:
             _, table = device_kernels(window)
         except NoDeviceActivity:
             continue
-        table = {key: v for key, v in table.items() if SPIN not in key}
+        table = {key: v for key, v in table.items()
+                 if SPIN not in key and not (cold and FLUSH in key)}
         if table and all(n % reps == 0 for _, n in table.values()):
             return sum(ms for ms, _ in table.values()) / reps
         print(f"chip_smoke: the profiler lost events, profiling again: "
@@ -224,13 +242,14 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_library(name: str, *args) -> float:
+def time_library(name: str, *args, cold: bool = False) -> float:
     """Device ms of the one PyTorch call that computes a kernel's function,
     as its yardstick (``library_ms``); the port never calls these."""
     F = torch.nn.functional
     if name == "rmsnorm":
         x, scale, eps = args
-        return device_ms(lambda: F.rms_norm(x, (x.shape[-1],), weight=scale, eps=eps), reps=20)
+        return device_ms(lambda: F.rms_norm(x, (x.shape[-1],), weight=scale, eps=eps),
+                         reps=50 if cold else 20, cold=cold)
     q, k, v = args
     return device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                             enable_gqa=True), reps=20)
@@ -570,6 +589,10 @@ def check_rmsnorm(rms_k, gen, cuda):
                                       lambda: rms_k.rmsnorm_plain(x, scale),
                                       time_library("rmsnorm", x, scale, 1e-6), reps=50,
                                       plain_reps=20))
+        # every shape here fits in L2, where the timing loop leaves it
+        # between calls: timed again with its inputs in DRAM
+        t["cold_ms"] = device_ms(lambda: rms_k.rmsnorm_cuda(x, scale), 50, cold=True)
+        t["library_cold_ms"] = time_library("rmsnorm", x, scale, 1e-6, cold=True)
         return {"shape": {"rows": rows, "d": d, "dtype": "bf16"},
                 "layout": dict(zip(("lanes_per_row", "packs_per_lane", "one_pass"),
                                    rms_k.layout(d, 2))),
@@ -892,28 +915,62 @@ def configured(model, cfg):
             m.cfg = old
 
 
-def moe_drop_shares(model, fn) -> tuple:
-    """(``fn()``, {"prefill", "decode": the share of token-expert
+def moe_readings(model, fn) -> tuple:
+    """(``fn()``, routes, {"prefill", "decode": the share of token-expert
     assignments that the MoE layers dropped}) of one call of ``fn``, read
-    by hooks that route each MoE layer's input again."""
+    by hooks that route each MoE layer's input again.  ``routes`` is each
+    MoE layer's top-k expert ids of every position, in ascending order,
+    over ``fn``'s forwards one after the other, (layers, B, S, k); None
+    for a model without MoE layers."""
     from repro_torch.layers import moe
     tally = {"prefill": [], "decode": []}
+    layers = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
+    ids = {id(mod): [] for mod in layers}
 
     def hook(mod, args, kwargs):
         x = args[0]
         kw = {k: kwargs[k] for k in ("top_k", "capacity_factor", "renormalize")}
         tally["prefill" if x.shape[1] > 1 else "decode"].append(
             moe.dropped_assignments(mod.params(), x, **kw))
+        _, topi, _ = moe._route(x.reshape(-1, x.shape[-1]), mod.w_router, kw["top_k"],
+                                kw["renormalize"])
+        ids[id(mod)].append(topi.sort(dim=-1).values.view(*x.shape[:2], -1))
 
-    handles = [blk.moe.register_forward_pre_hook(hook, with_kwargs=True)
-               for blk in model.blocks if hasattr(blk, "moe")]
+    handles = [mod.register_forward_pre_hook(hook, with_kwargs=True) for mod in layers]
     try:
         out = fn()
     finally:
         for h in handles:
             h.remove()
-    return out, {k: sum(int(d) for d, _ in v) / max(1, sum(n for _, n in v))
-                 for k, v in tally.items()}
+    routes = torch.stack([torch.cat(ids[id(mod)], dim=1) for mod in layers]) if layers else None
+    return out, routes, {k: sum(int(d) for d, _ in v) / max(1, sum(n for _, n in v))
+                         for k, v in tally.items()}
+
+
+@contextlib.contextmanager
+def routed_as(model, routes):
+    """Inside the ``with`` statement each MoE layer of ``model`` sends
+    every token to the experts ``routes`` (layers, B, S, k) names for its
+    position (another run's routing, as :func:`moe_readings` reads it),
+    weighted by its own router's probabilities of them."""
+    from repro_torch.layers import moe
+    route = moe._route
+    layers = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
+    given = {id(mod.w_router): ids.reshape(-1, ids.shape[-1]) for mod, ids in zip(layers, routes)}
+
+    def forced(xf, w_router, top_k, renormalize=True):
+        _, _, aux = route(xf, w_router, top_k, renormalize)
+        ids = given[id(w_router)]
+        w = torch.softmax(xf.to(torch.float32) @ w_router, dim=-1).gather(1, ids)
+        if renormalize:
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+        return w, ids, aux
+
+    moe._route = forced
+    try:
+        yield
+    finally:
+        moe._route = route
 
 
 def serve_and_check(ph, cfg, model, want_counts, cuda, compare_cfg=None) -> tuple:
@@ -924,12 +981,16 @@ def serve_and_check(ph, cfg, model, want_counts, cuda, compare_cfg=None) -> tupl
     generated tokens is within ``LOGIT_TOL`` of them and chooses their
     argmax wherever its top-2 margin is clear; a replay fed the token
     before each served one (the lagged control) is not.  With
-    ``compare_cfg`` (the same model at another capacity factor) the
-    full forward, the replay it is held against and the control run
-    with that config; a MoE model's drop shares are read in the served
-    config's replay.  Then one more serve under the profiler for the
-    device's idle share.  Fills ``ph.info`` and returns (prompts, tokens,
-    full-forward logits)."""
+    ``compare_cfg`` (the same model at another capacity factor) the full
+    forward, the replay it is held against and the control run with that
+    config; a MoE model's drop shares are read in the served config's
+    replay.  In a MoE model the share of the generated positions' choices
+    of experts (one per position and layer) that the two paths make apart
+    is at most ``MAX_ROUTED_APART`` and the lagged control's is above it,
+    and the full forward held is the one with the replay's routing forced.  Then
+    one more serve under the profiler for the device's idle share.  Fills
+    ``ph.info``
+    and returns (prompts, tokens, full-forward logits)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     tol = LOGIT_TOL[cfg.name]
@@ -948,7 +1009,7 @@ def serve_and_check(ph, cfg, model, want_counts, cuda, compare_cfg=None) -> tupl
     # the logits each token was chosen from, replayed: the same prefill
     # and decode steps fed the served tokens, which they must choose again
     prompts = serve.make_prompts(cfg, BATCH, PROMPT_LEN, SEED)
-    logits, drops = moe_drop_shares(
+    logits, routes, drops = moe_readings(
         model, lambda: serve.replay_logits(model, prompts, toks, seed=SEED))
     assert logits.shape == (BATCH, GEN_LEN, cfg.vocab_size) and bool(logits.isfinite().all())
     assert np.array_equal(logits.argmax(-1).cpu().numpy(), toks), \
@@ -957,26 +1018,56 @@ def serve_and_check(ph, cfg, model, want_counts, cuda, compare_cfg=None) -> tupl
     # kernel over all positions) against the served logits (prefill, then
     # the decode path over the caches)
     seq = torch.from_numpy(np.concatenate([prompts["tokens"], toks[:, :-1]], axis=1)).to(cuda)
+    flips = {}
     with configured(model, compare_cfg or cfg), torch.no_grad():
-        ref = logits if compare_cfg is None else \
-            serve.replay_logits(model, prompts, toks, seed=SEED)
-        full = model({"tokens": seq})[0][:, PROMPT_LEN - 1:]
+        ref = logits
+        if compare_cfg is not None:
+            ref, routes, _ = moe_readings(
+                model, lambda: serve.replay_logits(model, prompts, toks, seed=SEED))
+
+        def forward():
+            return model({"tokens": seq})[0][:, PROMPT_LEN - 1:]
+
+        full, full_routes, _ = moe_readings(model, forward)
+        if routes is not None:
+            # a rounding apart flips near-ties among some positions' top-k
+            # experts, and such a token mixes other experts from there on:
+            # counted here, and held below with the replay's routing forced
+            flipped = (full_routes != routes).any(-1)[:, :, PROMPT_LEN - 1:]  # (layers, B, G)
+            flips = {"routed_apart_share": float(flipped.float().mean()),
+                     "positions_routed_apart": int(flipped.any(0).sum()),
+                     "free_routing_max_abs_diff": float((full - ref).abs().max())}
+            with routed_as(model, routes):
+                full = forward()
         # control: every decode step fed the token before the one served, as
         # a cache or position off by one would; the check must fail on it
         lagged = np.concatenate([toks[:, :1], toks[:, :-1]], axis=1)
-        control_lagged = float((full - serve.replay_logits(model, prompts, lagged, seed=SEED))
-                               .abs().max())
+        lagged_logits, lagged_routes, _ = moe_readings(
+            model, lambda: serve.replay_logits(model, prompts, lagged, seed=SEED))
+        lagged_diff = (full - lagged_logits).abs()
+        if routes is not None:
+            flips["control_lagged_routed_apart_share"] = float(
+                (full_routes != lagged_routes).any(-1)[:, :, PROMPT_LEN - 1:].float().mean())
     diff = (full - ref).abs()
-    per_position = diff.amax(dim=-1).flatten()
+    control_lagged = float(lagged_diff.max())
+
+    def quantiles(v):
+        return {q: float(v.quantile(q)) for q in (0.5, 0.9, 0.99)}
+
     emit({"readings": ph.name, "logits_max_abs_diff": float(diff.max()),
           "logits_rms_diff": float(diff.pow(2).mean().sqrt()),
-          "per_position_max_diff_quantiles": {
-              q: float(per_position.quantile(q)) for q in (0.5, 0.9, 0.99)},
-          "control_lagged_tokens": control_lagged, "logits_tol": tol,
-          **({"dropped_share": drops} if compare_cfg is not None else {})})
+          "per_position_max_diff_quantiles": quantiles(diff.amax(dim=-1).flatten()),
+          **flips, "control_lagged_tokens": control_lagged,
+          "control_lagged_quantiles": quantiles(lagged_diff.amax(dim=-1).flatten()),
+          "logits_tol": tol, **({"dropped_share": drops} if compare_cfg is not None else {})})
     assert float(diff.max()) <= tol, f"full forward vs served logits: {float(diff.max())}"
     assert control_lagged > tol, \
         f"the check does not see decode fed the wrong tokens: {control_lagged}"
+    if flips:
+        assert flips["routed_apart_share"] <= MAX_ROUTED_APART, \
+            f"the two paths route {flips['routed_apart_share']} of the choices apart"
+        assert flips["control_lagged_routed_apart_share"] > MAX_ROUTED_APART, \
+            f"the routing check does not see decode fed the wrong tokens: {flips}"
     top2 = full.topk(2, dim=-1)
     clear = (top2.values[..., 0] - top2.values[..., 1]) > 2 * tol
     agree = top2.indices[..., 0].cpu().numpy() == ref.argmax(-1).cpu().numpy()
@@ -989,7 +1080,7 @@ def serve_and_check(ph, cfg, model, want_counts, cuda, compare_cfg=None) -> tupl
                    second_run={k: again[k] for k in ("prefill_s", "decode_s",
                                                      "decode_tokens_per_s")},
                    launches=counts, logits_max_abs_diff=float(diff.max()),
-                   logits_rms_diff=float(diff.pow(2).mean().sqrt()),
+                   logits_rms_diff=float(diff.pow(2).mean().sqrt()), **flips,
                    logits_tol=tol, control_lagged_tokens=control_lagged,
                    clear_positions=int(clear.sum()), argmax_agree=int(agree.sum()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1023,12 +1114,12 @@ def train_launches(ops, cfg) -> dict:
     scan once in the forward, and once more where remat "full" runs each
     block's forward again in the backward; the final norm, outside the
     blocks, once.  The MoE experts launch no kernel of the port."""
-    from repro_torch.models.lm import ATTENTION_BLOCKS
+    attention = ("dense", "local_attn", "moe")
     kinds = cfg.layer_types
-    norms = sum(2 + (2 if t in ATTENTION_BLOCKS and cfg.qk_norm else 0) for t in kinds)
+    norms = sum(2 + (2 if t in attention and cfg.qk_norm else 0) for t in kinds)
     again = 2 if cfg.remat == "full" else 1
     return only(ops, rmsnorm=again * norms + 1,
-                flash_attention=again * sum(t in ATTENTION_BLOCKS for t in kinds),
+                flash_attention=again * sum(t in attention for t in kinds),
                 ssd_scan=again * kinds.count("ssd"), rglru_scan=again * kinds.count("rglru"))
 
 

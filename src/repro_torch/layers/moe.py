@@ -29,7 +29,7 @@ in a bf16 model as the reference keeps it, ``w_gate`` / ``w_up``
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple, Optional, Tuple
+from typing import Mapping, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,49 +59,44 @@ def _route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int, renormalize: bo
 
 class Plan(NamedTuple):
     """Where each of the N·k token-expert assignments goes, in dispatch
-    order (a stable sort of the local expert ids; ``n_local`` is the
-    overflow bucket of experts outside the local slice)."""
+    order (a stable sort of the expert ids)."""
     order: torch.Tensor     # (N·k,) flat assignment index, in dispatch order
-    expert: torch.Tensor    # (N·k,) local expert id, or n_local
+    expert: torch.Tensor    # (N·k,) expert id
     token: torch.Tensor     # (N·k,) token of the assignment
     slot: torch.Tensor      # (N·k,) position in its expert's segment
-    valid: torch.Tensor     # (N·k,) kept: a local expert, within the capacity
+    valid: torch.Tensor     # (N·k,) kept: within the capacity
 
 
-def _plan(topi: torch.Tensor, expert_offset: int, n_local: int, capacity: int) -> Plan:
+def _plan(topi: torch.Tensor, capacity: int) -> Plan:
     """The reference's dispatch plan for ids ``topi`` (N, k): which
     assignments its capacity keeps, and where they go."""
     N, k = topi.shape
     flat_e = topi.reshape(N * k)
-    local = (flat_e >= expert_offset) & (flat_e < expert_offset + n_local)
-    le = torch.where(local, flat_e - expert_offset, n_local)
-    order = torch.sort(le, stable=True).indices
-    s_le = le[order]
-    first = torch.searchsorted(s_le, s_le, side="left")
+    order = torch.sort(flat_e, stable=True).indices
+    s_e = flat_e[order]
+    first = torch.searchsorted(s_e, s_e, side="left")
     pos = torch.arange(N * k, device=topi.device) - first
-    return Plan(order, s_le, torch.div(order, k, rounding_mode="floor"), pos,
-                (s_le < n_local) & (pos < capacity))
+    return Plan(order, s_e, torch.div(order, k, rounding_mode="floor"), pos, pos < capacity)
 
 
-def _dispatch_compute(xf, topw, topi, w_gate, w_up, w_down, expert_offset: int,
-                      capacity: int) -> torch.Tensor:
-    """Sort-based capacity dispatch for the local expert slice ``w_*``
-    (E_l, D, F) / (E_l, F, D): the (N, D) contribution of those experts
-    for ``xf`` (N, D), ``topw`` (N, k) in xf's dtype and ``topi`` (N, k)."""
+def _dispatch_compute(xf, topw, topi, w_gate, w_up, w_down, capacity: int) -> torch.Tensor:
+    """Sort-based capacity dispatch to the experts ``w_*`` (E, D, F) /
+    (E, F, D): their (N, D) contribution for ``xf`` (N, D), ``topw``
+    (N, k) in xf's dtype and ``topi`` (N, k)."""
     N, D = xf.shape
     k = topi.shape[1]
-    E_l = w_gate.shape[0]
-    p = _plan(topi, expert_offset, E_l, capacity)
-    # pack into (E_l + 1, C, D); dropped assignments land, as zeros, in the
+    E = w_gate.shape[0]
+    p = _plan(topi, capacity)
+    # pack into (E + 1, C, D); dropped assignments land, as zeros, in the
     # overflow row, which is discarded
-    be = torch.where(p.valid, p.expert, E_l)
+    be = torch.where(p.valid, p.expert, E)
     bp = torch.where(p.valid, p.slot, 0)
     rows = torch.where(p.valid[:, None], xf[p.token], 0.0)
-    buf = xf.new_zeros((E_l + 1, capacity, D)).index_put((be, bp), rows)[:E_l]
+    buf = xf.new_zeros((E + 1, capacity, D)).index_put((be, bp), rows)[:E]
     dt = xf.dtype
     h = F.silu(torch.bmm(buf, w_gate.to(dt))) * torch.bmm(buf, w_up.to(dt))
     y = torch.bmm(h, w_down.to(dt))
-    y_rows = y[torch.clamp(p.expert, max=E_l - 1), bp]       # garbage where dropped
+    y_rows = y[p.expert, bp]                                  # garbage where dropped
     s_w = topw.reshape(N * k)[p.order]
     contrib = torch.where(p.valid, s_w, 0.0)[:, None].to(dt) * y_rows
     # each token's k contributions in dispatch order, i.e. ascending expert
@@ -122,19 +117,15 @@ def moe_capacity(n_tokens: int, top_k: int, n_experts: int, capacity_factor: flo
 
 def moe_apply_local(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
                     capacity_factor: float = 1.25, min_capacity: int = 4,
-                    renormalize: bool = True, expert_offset: int = 0,
-                    n_experts_total: Optional[int] = None, capacity: Optional[int] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    renormalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-device routed MoE: x (B, S, D) -> (out (B, S, D), aux loss).
     The capacity comes from this call's own token count B·S."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    E_total = n_experts_total or params["w_gate"].shape[0]
     topw, topi, aux = _route(xf, params["w_router"], top_k, renormalize)
-    C = capacity if capacity is not None else moe_capacity(
-        B * S, top_k, E_total, capacity_factor, min_capacity)
+    C = moe_capacity(B * S, top_k, params["w_gate"].shape[0], capacity_factor, min_capacity)
     out = _dispatch_compute(xf, topw.to(xf.dtype), topi, params["w_gate"], params["w_up"],
-                            params["w_down"], expert_offset, C)
+                            params["w_down"], C)
     return out.reshape(B, S, D), aux
 
 
@@ -147,7 +138,7 @@ def dropped_assignments(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, 
     _, topi, _ = _route(x.reshape(B * S, D), params["w_router"], top_k, renormalize)
     E = params["w_gate"].shape[0]
     C = moe_capacity(B * S, top_k, E, capacity_factor, min_capacity)
-    return (~_plan(topi, 0, E, C).valid).sum(), B * S * top_k
+    return (~_plan(topi, C).valid).sum(), B * S * top_k
 
 
 def moe_reference(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, top_k: int,

@@ -77,8 +77,8 @@ def _oracle_valid(ids, n_experts, capacity):
     return valid
 
 
-def _port_valid(topi, n_experts, capacity):
-    plan = moe._plan(topi, 0, n_experts, capacity)
+def _port_valid(topi, capacity):
+    plan = moe._plan(topi, capacity)
     valid = torch.empty_like(plan.valid)
     valid[plan.order] = plan.valid
     return valid.numpy()
@@ -175,7 +175,7 @@ def test_moe_apply_local_matches_jax(case, dtype):
     _, ti, _ = moe._route(tx.reshape(B * S, D), tp["w_router"], k)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     want = _oracle_valid(ji, E, C)
-    np.testing.assert_array_equal(_port_valid(ti, E, C), want)
+    np.testing.assert_array_equal(_port_valid(ti, C), want)
     assert (want.all()) == (case == "cf8"), "the case must drop exactly when meant to"
     dropped, total = moe.dropped_assignments(tp, tx, top_k=k, capacity_factor=cf)
     assert (int(dropped), total) == (int((~want).sum()), B * S * k)
