@@ -38,17 +38,36 @@ failure raises (the script then exits non-zero without a result):
 4. knn     — run_knn on 2M x 50 training rows, 50k test rows;
 5. kmeans  — run_kmeans on 8M x 50 points, k=16, 10 iterations, twice;
 6. linreg  — run_linreg on 2M x 100 rows;
-7. serve   — serve_batch on qwen3-0.6b at full width (28 layers, d 1024,
+7. simulate — the three pipelines' cost models calibrated on the card at
+             their own task sizes (each call timed between two
+             synchronisations), their DAGs at this script's sizes
+             projected at 1..128 workers on one node (Graham's bounds
+             hold at every width), each pipeline run once more on one
+             worker: the 1-worker projection within 2x of that wall, and
+             the run's measured DAG replayed beside it; the launches
+             are exactly the calibration's and one run's;
+8. process — the three pipelines in 4 spawned worker processes (each its
+             own CUDA context), bitwise equal to phases 4-6, with the
+             workers' launch counts gathered from their replies; every
+             worker holds card memory (its allocator's reserved bytes,
+             reported with its replies; the card's used memory covers
+             them and the parent's); one worker killed
+             during KNN_frag, retried to the same predictions and
+             exactly one more run's launches; no segment the plane held
+             left in /dev/shm after runtime_stop;
+9. dashboard — inside phase 8, every endpoint of the process runtime's
+             dashboard fetched and held against the runtime;
+10. serve  — serve_batch on qwen3-0.6b at full width (28 layers, d 1024,
              bf16, random weights from seed 0): 8 prompts of 512 tokens,
              32 generated tokens each, twice; then one cache-free forward
              over prompt + generated tokens, held against the served
              logits (replayed) and against two controls;
-8. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
+11. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
              d 1536, 48 heads x 64, state 128, bf16), one control;
-9. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
+12. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
              12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, MQA with
              head dim 256, window 2048, bf16, 9.6B parameters), one control;
-10. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
+13. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
              d 2048, MHA 16 x 128, 64 routed experts of width 1408, top-6,
              2 shared, vocab 102,400, bf16, 16.9B parameters), one
              control; the full-forward comparison and its control run at
@@ -60,7 +79,7 @@ failure raises (the script then exits non-zero without a result):
              full forward; the share
              of assignments dropped in the served prefill and decode is
              recorded;
-11. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
+14. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
              recurrentgemma, deepseek-moe and qwen3-moe configs (fp32), 4
              steps on the card and on the CPU from the same
              ``init_params`` weights and batches: the losses agree within
@@ -68,14 +87,14 @@ failure raises (the script then exits non-zero without a result):
              checkpoint saved at step 2 by the runtime's
              ``checkpoint_save`` task restores into a fresh model on the
              card, which continues as the uninterrupted run did;
-12. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
+15. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
              "full"), batch 8 x 512 tokens, 10 steps: finite losses, the
              first within 1.0 of ln(vocab), exact launch counts, the loss
              on the first batch lower after the ten steps; one more step
              must lower the loss on its batch, and one under the profiler
              gives the device's idle share;
-13. train_ssd — the same on mamba2-780m at full width;
-14. train_moe — the same on deepseek-moe-16b at full width, its depth cut
+16. train_ssd — the same on mamba2-780m at full width;
+17. train_moe — the same on deepseek-moe-16b at full width, its depth cut
              to 4 of 28 layers (at full depth, bf16 weights and gradients
              and fp32 moments need ~200 GB).
 
@@ -83,7 +102,8 @@ Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5 and 7-14, by phase; times measured in phase 3)
+counted during phases 4, 5, 7, 8 and 10-17, by phase; times measured in
+phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
 and the repository's ``src/repro_torch`` beside it.
@@ -92,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import os
 import re
@@ -99,6 +120,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -114,7 +136,7 @@ PEAK_BYTES_PER_S = 3.35e12     # HBM3
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 
 SEED = 0
-# served vs full-forward logits, per served model (phases 7-10): logits
+# served vs full-forward logits, per served model (phases 10-13): logits
 # are rounded to bf16 and the two paths (prefill + decode, one cache-free
 # forward) round differently in every layer.  Each limit sits between the
 # sound reading and a decode fed the wrong tokens (the lagged control,
@@ -670,10 +692,10 @@ def check_flash(fa_k, gen, cuda):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_ms_fp32_cores": bound(flops, nbytes)[0]}
 
-    row = at_shape(8, 16, 8, 512, 64, None)      # every layer's prefill in phase 7
-    # every local_attn layer's prefill in phase 9 (recurrentgemma-9b)
+    row = at_shape(8, 16, 8, 512, 64, None)      # every layer's prefill in phase 10
+    # every local_attn layer's prefill in phase 12 (recurrentgemma-9b)
     row["hybrid_shape"] = at_shape(8, 16, 1, 512, 256, 2048)
-    # every layer's prefill in phase 10 and forward in phase 14
+    # every layer's prefill in phase 13 and forward in phase 17
     # (deepseek-moe-16b: MHA, 16 heads of 128)
     row["moe_shape"] = at_shape(8, 16, 16, 512, 128, None)
     return {"name": "flash_attention", "route": "cuda",
@@ -707,7 +729,7 @@ def check_rglru(rg_k, gen, cuda):
                                     (2, 129, 1000, torch.bfloat16, True),
                                     (1, 1, 37, torch.bfloat16, False)):
         check(*inputs(B, S, R, dtype, with_h0), (B, S, R, dtype, with_h0))
-    # the path shape: every rglru layer's prefill in phase 9 (fp32 gates)
+    # the path shape: every rglru layer's prefill in phase 12 (fp32 gates)
     B, S, R = 8, 512, 4096
     la, b, _ = inputs(B, S, R, torch.float32, False)
     err = check(la, b, None, "timed")
@@ -763,7 +785,7 @@ def check_ssd(ssd_k, gen, cuda):
     dt = gen.uniform(0.0, 1.0, (2, 300, H)) * near
     dt = np.where(np.arange(H) % 2 == 0, dt, np.maximum(dt, 5.0))
     check(inputs(2, 300, H, 64, 128, torch.bfloat16, dt), 256, "extreme decays")
-    # the path shape: every layer's prefill in phase 8 (mamba2-780m)
+    # the path shape: every layer's prefill in phase 11 (mamba2-780m)
     B, S, H, P, N, Q = 8, 512, 48, 64, 128, 256
     args = inputs(B, S, H, P, N, torch.bfloat16)
     err = check(args, Q, "timed")
@@ -1248,6 +1270,116 @@ def train_and_check(ph, ops, lm, train, cfg, cuda) -> dict:
     return counts
 
 
+# phases simulate, process and dashboard
+SIM_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+PROJECTION_FACTOR = 2.0    # the 1-worker projection against the measured 1-worker wall
+PROCESS_WORKERS = 4
+# calibration units (phase simulate): each reaches the pipeline's own task
+# size, where the card's tasks are not launch-bound.  KNN's units are rows:
+# a test block's 12,500 for KNN_frag, a training fragment's 125,000 for
+# the fill (fitted up to 12,500 rows only, it projected 0.61 of the
+# measured 1-worker wall: the fill is superlinear past the caches)
+CALIBRATE = {"knn": dict(d=50, k=5, n_classes=4, units=(3125, 6250, 12_500, 125_000),
+                         n_train_frag=125_000),
+             "kmeans": dict(d=50, k=16, units=(125_000, 250_000, 500_000)),
+             "linreg": dict(p=100, units=(31_250, 62_500, 125_000))}
+
+
+def zero_machine(sim, workers: int):
+    """One node of ``workers`` workers with zero transport and dispatch:
+    the machine on which Graham's bounds hold."""
+    return sim.MachineModel(n_nodes=1, workers_per_node=workers, ser_Bps=None,
+                            dispatch_overhead_s=0.0)
+
+
+def cost_rows(costs) -> list:
+    """Each cost model's a, b, its samples and the fit's largest relative
+    residual."""
+    return [{"task": m.name, "a": m.a, "b": m.b, "samples": m.samples,
+             "max_rel_residual": max(abs(m(u) - t) / t for u, t in m.samples)}
+            for m in vars(costs).values()]
+
+
+def project(sim, tasks) -> dict:
+    """Projected makespan and strong-scaling efficiency T1 / (P * T_P) at
+    each width of ``SIM_WIDTHS``; raises where Graham's bounds
+    ``max(T1/P, Tinf) <= T_P <= T1/P + Tinf`` fail."""
+    out, t1 = {}, None
+    for w in SIM_WIDTHS:
+        r = sim.simulate(tasks, zero_machine(sim, w))
+        lo = max(r.total_work / w, r.critical_path)
+        hi = r.total_work / w + r.critical_path
+        assert lo * (1 - 1e-12) <= r.makespan <= hi * (1 + 1e-12), \
+            f"Graham's bounds fail at {w} workers: {lo} <= {r.makespan} <= {hi}"
+        t1 = r.makespan if t1 is None else t1
+        out[w] = {"makespan_s": r.makespan, "efficiency": t1 / (w * r.makespan)}
+    return out
+
+
+def plane_names(ex) -> set:
+    """The names of the segments the executor's plane holds now: inputs
+    and adopted results alike (``/dev/shm`` is shared with every other
+    process on the machine, so only these are checked)."""
+    return set(ex.plane._by_name)
+
+
+def compute_app_pids() -> dict:
+    """pid -> used memory, from nvidia-smi's list of compute processes
+    (recorded; on the card's machine it lists one app, pid 1)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mem = (f.strip() for f in line.split(",", 1))
+        apps[int(pid)] = mem
+    return apps
+
+
+def check_dashboard(rt) -> dict:
+    """Fetch every endpoint of the runtime's dashboard (ephemeral port) and
+    hold what it serves against the runtime; a failed fetch raises."""
+    import urllib.request
+    url = rt.dashboard.url
+
+    def get(path: str) -> bytes:
+        with urllib.request.urlopen(url + path, timeout=30) as resp:
+            assert resp.status == 200, f"{path}: HTTP {resp.status}"
+            return resp.read()
+
+    status = json.loads(get("api/status"))
+    stats = rt.stats()
+    for key, stat in (("submitted", "tasks_submitted"), ("done", "tasks_done"),
+                      ("failed", "tasks_failed"), ("retries", "retries")):
+        assert status["tasks"][key] == stats[stat], (key, status["tasks"], stat, stats[stat])
+    tasks = json.loads(get("api/tasks?since=0"))
+    done = sum(e["kind"] == "done" for e in tasks["events"])
+    assert tasks["dropped"] == 0 and done == stats["tasks_done"], (done, stats["tasks_done"])
+    transfers = json.loads(get("api/transfers"))
+    assert transfers["transfers"] == rt.store.transfer_detail()["transfers"]
+    trace = json.loads(get("api/trace"))
+    spans = sum(ev.get("ph") == "X" for ev in trace["traceEvents"])
+    assert spans >= stats["tasks_done"], (spans, stats["tasks_done"])
+    page = get("")
+    assert b"Task stream" in page
+    return {"url": url, "tasks_done": stats["tasks_done"], "events": len(tasks["events"]),
+            "trace_spans": spans, "transfers": transfers["transfers"],
+            "nodes": sorted(status["nodes"]), "page_bytes": len(page)}
+
+
+def kill_during(ex, task: str, killed: list, timeout: float = 60.0) -> None:
+    """SIGKILL the first worker seen running ``task`` (its head of pipe)."""
+    import signal
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        for w in range(ex.n_workers):
+            if ex.running_task(w) == task:
+                os.kill(ex.worker_pids[w], signal.SIGKILL)
+                killed.append(w)
+                return
+        time.sleep(0.0005)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
@@ -1259,6 +1391,10 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; one CUDA card is needed",
               file=sys.stderr)
         return 2
+    # a fixed cuBLAS workspace: the process phase runs linreg's float64
+    # GEMMs under torch.use_deterministic_algorithms, which needs it; set
+    # before the first cuBLAS call, and inherited by spawned workers
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.algorithms import kmeans, knn, linreg
     from repro_torch.algorithms.common import make_blobs
@@ -1317,13 +1453,14 @@ def main(argv) -> int:
         ph.info["grad_max_abs_err"] = grad_errs
 
     launches = {}
+    thread_wall = {}       # pipeline -> its wall under the thread backend
     knn_cfg = dict(n_train=2_000_000, n_test=50_000, d=50, k=5, n_classes=4,
                    train_fragments=16, test_blocks=4)
     with Phase("knn") as ph:
         ops.reset_launch_counts()
         with api.runtime_start(n_workers=4, backend="thread") as rt:
             res = knn.run_knn(**knn_cfg, seed=SEED, device=cuda)
-        ph.info["pipeline_seconds"] = rt.tracer.wallclock()
+        ph.info["pipeline_seconds"] = thread_wall["knn"] = rt.tracer.wallclock()
         ph.info["task_seconds"] = task_seconds(rt)
         counts = ops.launch_counts()
         launches["knn_topk"] = counts["knn_topk"]
@@ -1334,9 +1471,12 @@ def main(argv) -> int:
         assert agree >= 999, f"only {agree}/1000 predictions agree with the fp64 oracle"
         ph.info.update(tasks=res.n_tasks, launches=counts, oracle_agree=agree)
 
+    km_cfg = dict(n_points=8_000_000, d=50, k=16, fragments=16, max_iters=10, tol=0.0,
+                  seed=SEED, device=cuda)
+    lr_cfg = dict(n_rows=2_000_000, p=100, n_pred=100_000, fragments=16, pred_blocks=4,
+                  seed=SEED, device=cuda)
     with Phase("kmeans") as ph:
-        cfg = dict(n_points=8_000_000, d=50, k=16, fragments=16, max_iters=10, tol=0.0,
-                   seed=SEED, device=cuda)
+        cfg = km_cfg
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with api.runtime_start(n_workers=4, backend="thread") as rt:
@@ -1355,16 +1495,16 @@ def main(argv) -> int:
             r2 = kmeans.run_kmeans(**cfg)
         assert r1.centroids.tobytes() == r2.centroids.tobytes(), \
             "two K-means runs gave different centroids"
+        thread_wall["kmeans"] = t_first
         ph.info.update(first_run_seconds=t_first, sse_history=hist, shifts=r1.shifts)
 
     with Phase("linreg") as ph:
-        n_rows, p, fragments = 2_000_000, 100, 16
+        n_rows, p, fragments = lr_cfg["n_rows"], lr_cfg["p"], lr_cfg["fragments"]
         ops.reset_launch_counts()
         with api.runtime_start(n_workers=4, backend="thread") as rt:
-            r = linreg.run_linreg(n_rows=n_rows, p=p, n_pred=100_000, fragments=fragments,
-                                  pred_blocks=4, seed=SEED, device=cuda)
+            r = linreg.run_linreg(**lr_cfg)
         assert ops.launch_counts() == only(ops)
-        ph.info["pipeline_seconds"] = rt.tracer.wallclock()
+        ph.info["pipeline_seconds"] = thread_wall["linreg"] = rt.tracer.wallclock()
         ph.info["task_seconds"] = task_seconds(rt)
         assert r.predictions.shape == (100_000,) and np.isfinite(r.predictions).all()
         truth = np.random.default_rng(1234).standard_normal(p + 1)
@@ -1382,6 +1522,182 @@ def main(argv) -> int:
         err_single = float(np.abs(r.beta - beta1).max())
         assert err_single <= 1e-8, f"beta is {err_single} from the single-shot solve"
         ph.info.update(tasks=r.n_tasks, beta_vs_truth=err_truth, beta_vs_single_shot=err_single)
+
+    with Phase("simulate") as ph:
+        # card-calibrated cost models, the pipelines' DAGs at this script's
+        # sizes, and their projections: projections, not measurements of a
+        # many-core node
+        from repro_torch.algorithms import common
+        from repro_torch.core import simulator as sim
+        ops.reset_launch_counts()
+        costs = {"knn": knn.calibrate(**CALIBRATE["knn"], device=cuda),
+                 "kmeans": kmeans.calibrate(**CALIBRATE["kmeans"], device=cuda),
+                 "linreg": linreg.calibrate(**CALIBRATE["linreg"], device=cuda)}
+        ph.info["cost_models"] = {name: cost_rows(c) for name, c in costs.items()}
+        # a synchronised timer reads the task's device work: the calibrated
+        # hot tasks at the pipelines' task sizes cost at least half their
+        # kernel's device time (a timer reading launches reads ~10 us of
+        # KNN_frag's 4.2 ms; synchronised it read 0.98x the profiler's)
+        frag_s = costs["knn"].frag(12_500)
+        psum_s = costs["kmeans"].psum(km_cfg["n_points"] // km_cfg["fragments"])
+        assert frag_s >= 0.5e-3 * rows[0]["ms"], (frag_s, rows[0]["ms"])
+        assert psum_s >= 0.5e-3 * rows[1]["ms"], (psum_s, rows[1]["ms"])
+        ph.info["hot_task_s"] = {"KNN_frag": frag_s, "KNN_frag_kernel": 1e-3 * rows[0]["ms"],
+                                 "partial_sum": psum_s,
+                                 "partial_sum_kernel": 1e-3 * rows[1]["ms"]}
+        dags = {"knn": knn.dag_spec(costs["knn"], n_train=knn_cfg["n_train"],
+                                    n_test=knn_cfg["n_test"], d=knn_cfg["d"], k=knn_cfg["k"],
+                                    train_fragments=knn_cfg["train_fragments"],
+                                    test_blocks=knn_cfg["test_blocks"],
+                                    calib_frag_rows=CALIBRATE["knn"]["n_train_frag"]),
+                "kmeans": kmeans.dag_spec(costs["kmeans"], km_cfg["n_points"], km_cfg["d"],
+                                          km_cfg["k"], km_cfg["fragments"],
+                                          km_cfg["max_iters"]),
+                "linreg": linreg.dag_spec(costs["linreg"], lr_cfg["n_rows"], lr_cfg["p"],
+                                          lr_cfg["n_pred"], lr_cfg["fragments"],
+                                          lr_cfg["pred_blocks"])}
+        projected = {name: project(sim, tasks) for name, tasks in dags.items()}
+        runs = {"knn": lambda: knn.run_knn(**knn_cfg, seed=SEED, device=cuda),
+                "kmeans": lambda: kmeans.run_kmeans(**km_cfg),
+                "linreg": lambda: linreg.run_linreg(**lr_cfg)}
+        one_worker = {}
+        for name, run in runs.items():
+            with api.runtime_start(n_workers=1, backend="thread") as rt:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                replay = sim.replay_graph(rt.graph)
+            proj = projected[name][1]["makespan_s"]
+            one_worker[name] = {
+                "measured_wall_s": wall, "projected_s": proj, "ratio": proj / wall,
+                "tasks": len(dags[name]), "replayed_tasks": len(replay),
+                "replay_1_worker_s": sim.simulate(replay, zero_machine(sim, 1)).makespan}
+            assert len(replay) == len(dags[name]), (name, len(replay), len(dags[name]))
+            assert 1 / PROJECTION_FACTOR <= proj / wall <= PROJECTION_FACTOR, \
+                f"{name}: 1-worker projection {proj} s against a measured {wall} s"
+        # calibrate_cost times each unit `repeats` times; KNN_merge and
+        # KNN_classify (merge and update_centroids) build their input with
+        # one launch per unit; then one run of each pipeline
+        repeats = inspect.signature(common.calibrate_cost).parameters["repeats"].default
+        calib = {name: len(CALIBRATE[name]["units"]) * (repeats + 2)
+                 for name in ("knn", "kmeans")}
+        counts = ops.launch_counts()
+        assert counts == only(ops, knn_topk=calib["knn"] + 64,
+                              kmeans_assign=calib["kmeans"] + 160), (calib, counts)
+        launches_sim = counts
+        ph.info.update(projected=projected, one_worker=one_worker, launches=counts)
+
+    with Phase("process") as ph:
+        # the three pipelines in PROCESS_WORKERS spawned worker processes,
+        # each its own CUDA context; float64 GEMMs under deterministic
+        # algorithms (the workers take the setting at spawn)
+        ops.reset_launch_counts()
+        torch.use_deterministic_algorithms(True)
+        # what the parent's allocator holds from the earlier phases, so the
+        # growth below is this phase's own
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved()
+        try:
+            t0 = time.perf_counter()
+            rt = api.runtime_start(n_workers=PROCESS_WORKERS, backend="process",
+                                   dashboard_port=0, max_retries=1)
+            pool_start = time.perf_counter() - t0   # every worker up, its CUDA context made
+            ex = rt.executor
+            planed = set()    # every segment name this runtime's plane held
+            try:
+                walls = {}
+                for name, run in runs.items():
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    walls[name] = time.perf_counter() - t0
+                    planed |= plane_names(ex)
+                    if name == "knn":
+                        assert out.predictions.tobytes() == preds.tobytes(), \
+                            "KNN predictions differ between the process and thread backends"
+                    elif name == "kmeans":
+                        assert out.centroids.tobytes() == r1.centroids.tobytes(), \
+                            "K-means centroids differ between the process and thread backends"
+                        assert out.sse_history == r1.sse_history, (out.sse_history, r1.sse_history)
+                    else:
+                        assert out.beta.tobytes() == r.beta.tobytes(), \
+                            "linreg beta differs between the process and thread backends"
+                        assert out.predictions.tobytes() == r.predictions.tobytes()
+                st = rt.stats()["executor"]
+                gathered = {k: st["kernel_launches"].get(k, 0) for k in ops.KERNELS}
+                assert gathered == only(ops, knn_topk=64, kmeans_assign=160), gathered
+                assert ops.launch_counts() == only(ops), "the parent launched a kernel"
+                # every worker holds card memory: each reports what its
+                # allocator reserves, and the card's used memory covers
+                # the parent's and the workers' together.  (nvidia-smi on
+                # the card's machine lists one compute app, pid 1, with
+                # every process's memory summed: it cannot name a pid.)
+                pids = ex.worker_pids
+                by_pid = st["card_bytes_by_pid"]
+                assert all(by_pid.get(pid, 0) > 0 for pid in pids), (pids, by_pid)
+                free, total = torch.cuda.mem_get_info()
+                workers_bytes = sum(by_pid[pid] for pid in pids)
+                assert total - free >= torch.cuda.memory_reserved() + workers_bytes, \
+                    (total - free, torch.cuda.memory_reserved(), workers_bytes)
+                apps = compute_app_pids()
+                ph.info.update(
+                    pool_start_s=pool_start, wall_s=walls, thread_wall_s=thread_wall,
+                    start_method=st["start_method"],
+                    pipeline_depth=st["pipeline_depth"], bytes_planed=st["bytes_planed"],
+                    device_uploads=st["device_uploads"],
+                    device_upload_bytes=st["device_upload_bytes"],
+                    device_uploads_saved=st["device_uploads_saved"],
+                    worker_cache_hits=st["worker_cache_hits"], launches=gathered,
+                    worker_card_bytes={str(pid): by_pid[pid] for pid in pids},
+                    card_used_bytes=total - free,
+                    parent_reserved_bytes=torch.cuda.memory_reserved(),
+                    parent_reserved_before_bytes=reserved_before,
+                    parent_allocated_bytes=torch.cuda.memory_allocated(),
+                    nvidia_smi_compute_apps=apps)
+
+                with Phase("dashboard") as dph:
+                    dph.info.update(check_dashboard(rt))
+
+                # one SIGKILL of a worker while it runs KNN_frag
+                restarts = ex.worker_restarts
+                killed = []
+                killer = threading.Thread(target=kill_during, args=(ex, "KNN_frag", killed))
+                killer.start()
+                t0 = time.perf_counter()
+                again = runs["knn"]()
+                kill_run = time.perf_counter() - t0
+                killer.join()
+                assert killed, "no worker was seen running KNN_frag"
+                assert again.predictions.tobytes() == preds.tobytes(), \
+                    "the predictions changed after a worker was killed"
+                assert ex.worker_restarts == restarts + 1, (restarts, ex.worker_restarts)
+                st = rt.stats()
+                ph.info.update(killed_worker=killed[0], worker_restarts=ex.worker_restarts,
+                               retries=st["retries"], kill_run_s=kill_run)
+                launches_proc = {k: st["executor"]["kernel_launches"].get(k, 0)
+                                 for k in ops.KERNELS}
+                # a killed task's launches die with its worker: only
+                # replied tasks are counted, so the retried run adds 64
+                assert launches_proc == only(ops, knn_topk=128, kmeans_assign=160), \
+                    launches_proc
+                ph.info["launches_with_the_kill_run"] = launches_proc
+            finally:
+                planed |= plane_names(ex)
+                api.runtime_stop()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert planed, "the plane held no segment"
+        left = sorted(n for n in planed if os.path.exists(os.path.join("/dev/shm", n)))
+        assert not left, f"segments left in /dev/shm: {left}"
+        ph.info["segments_checked"] = len(planed)
+    for name in ("knn_topk", "kmeans_assign"):
+        pipeline_by_phase = {"knn" if name == "knn_topk" else "kmeans": launches[name],
+                             "simulate": launches_sim[name], "process": launches_proc[name]}
+        launches[name] = sum(pipeline_by_phase.values())
+        for row in rows:
+            if row["name"] == name:
+                row["launches_by_phase"] = pipeline_by_phase
 
     by_phase = {}          # serve phase -> its launch counts
     with Phase("serve") as ph:

@@ -4,11 +4,13 @@ the paper's Fig. 2 program on ``repro_torch``'s task runtime.
 Four numbers, here tensors on the device, are summed through three
 asynchronous ``add`` tasks; the runtime discovers the dependency DAG
 (main -> {1,2} -> 3 -> sync) and prints it in Graphviz form, like
-``runcompss --lang=r -g job.R``.  The port's runtime has the thread
-backend only: task bodies run in this process, so their results stay on
-the card from task to task.
+``runcompss --lang=r -g job.R``.  Under the thread backend (the default)
+task bodies run in this process, so their results stay on the card from
+task to task; with ``--backend process`` they run in spawned worker
+processes, and each result comes back to this process's card.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
+      [--backend process]
 (the default device is the CUDA card)
 """
 import argparse
@@ -26,8 +28,10 @@ def add(x, y):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    dev = resolve_device(ap.parse_args().device)
-    api.runtime_start(n_workers=4)           # compss_start()
+    ap.add_argument("--backend", default="thread", choices=("thread", "process"))
+    args = ap.parse_args()
+    dev = resolve_device(args.device)
+    api.runtime_start(n_workers=4, backend=args.backend)   # compss_start()
     try:
         add_t = api.task(add)                # task(add, ...)
         a, b, c, d = (torch.tensor(float(v), device=dev) for v in (4, 5, 6, 7))

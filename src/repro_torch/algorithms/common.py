@@ -1,5 +1,10 @@
 """Shared helpers for the task-parallel algorithms (copied from the JAX
-package; ``calibrate_cost`` comes with the simulator in a later slice)."""
+package), and the bridge from measured task times to the simulator.
+
+The port's task bodies launch kernels asynchronously on the current
+stream, so a host clock around a call on the card reads the launch (about
+10 µs), not the task: :func:`timeit_median` brackets each call with
+``torch.cuda.synchronize`` when it is given a CUDA device."""
 from __future__ import annotations
 
 import time
@@ -7,6 +12,8 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..core.simulator import CostModel
 
 
 def tree_reduce(items: Sequence, merge_task: Callable, arity: int = 2):
@@ -72,14 +79,40 @@ def make_blobs(seed: int, n: int, d: int, n_classes: int, spread: float = 4.0):
     return X.astype(np.float64), y.astype(np.int64)
 
 
-def timeit_median(fn: Callable, repeats: int = 3) -> float:
+def _synchronize(device) -> None:
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timeit_median(fn: Callable, repeats: int = 3, device=None) -> float:
+    """Median seconds of ``repeats`` calls of ``fn``.  On a CUDA
+    ``device`` each call is timed between two synchronisations of that
+    device, so the time covers the work the call queued; on the CPU (or
+    with no device) it is the plain wall clock."""
     ts = []
     for _ in range(repeats):
+        _synchronize(device)
         t0 = time.perf_counter()
         fn()
+        _synchronize(device)
         ts.append(time.perf_counter() - t0)
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def calibrate_cost(fn_of_units: Callable[[int], Callable], units: Sequence[int],
+                   name: str = "", repeats: int = 3, device=None) -> CostModel:
+    """Measure ``fn_of_units(u)()`` for each u and fit an affine CostModel —
+    the bridge between real execution and the scaling simulator.  The
+    samples stay on the model (``samples``: ``(units, seconds)`` pairs) so
+    a caller can read the fit's residuals."""
+    samples = []
+    for u in units:
+        call = fn_of_units(u)
+        samples.append((float(u), timeit_median(call, repeats=repeats, device=device)))
+    model = CostModel.fit(samples, name=name)
+    model.samples = samples
+    return model
 
 
 def resolve_device(device=None) -> torch.device:

@@ -31,8 +31,9 @@ import numpy as np
 import torch
 
 from ..core import api, collectives
+from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
-from .common import resolve_device
+from .common import calibrate_cost, resolve_device, tree_reduce_spec
 
 
 # --------------------------------------------------------------------- tasks
@@ -170,3 +171,91 @@ def reference_kmeans(n_points, d, k, fragments, max_iters, tol, seed=0):
         if shift < tol:
             break
     return centroids, it, sse
+
+
+# --------------------------------------------------- simulator DAG generation
+@dataclass
+class KMeansCosts:
+    fill: CostModel
+    psum: CostModel
+    merge: CostModel
+    update: CostModel
+
+
+def calibrate(d: int = 50, k: int = 8, units=(2000, 8000, 16000),
+              device=None) -> KMeansCosts:
+    """Fit per-task cost models by timing the real task functions on
+    ``device`` (CUDA unless ``device="cpu"``; each call timed between two
+    synchronisations of the card)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    cents = torch.from_numpy(rng.standard_normal((k, d))).to(dev)
+
+    def fill_u(u):
+        return lambda: fill_fragment(1, int(u), d, device=dev)
+
+    def psum_u(u):
+        X = fill_fragment(2, int(u), d, device=dev)
+        return lambda: partial_sum(X, cents)
+
+    def merge_u(u):
+        X = fill_fragment(3, max(int(u) // 8, 64), d, device=dev)
+        a = partial_sum(X, cents)
+        return lambda: merge(a, a)
+
+    def update_u(u):
+        X = fill_fragment(4, max(int(u) // 8, 64), d, device=dev)
+        a = partial_sum(X, cents)
+        return lambda: update_centroids(a, cents)
+
+    return KMeansCosts(
+        fill=calibrate_cost(fill_u, units, "fill_fragment", device=dev),
+        psum=calibrate_cost(psum_u, units, "partial_sum", device=dev),
+        merge=calibrate_cost(merge_u, units, "merge", device=dev),
+        update=calibrate_cost(update_u, units, "update_centroids", device=dev),
+    )
+
+
+def dag_spec(
+    costs: KMeansCosts,
+    n_points: int,
+    d: int,
+    k: int,
+    fragments: int,
+    iterations: int,
+    merge_arity: int = 2,
+) -> List[SimTask]:
+    tasks: List[SimTask] = []
+    tid = 0
+    rows = n_points // fragments
+    fbytes = rows * d * 8
+    cbytes = k * d * 8 + k * 8
+    fill_ids = []
+    for _ in range(fragments):
+        tasks.append(SimTask(tid, "fill_fragment", costs.fill(rows), (), out_bytes=fbytes))
+        fill_ids.append(tid)
+        tid += 1
+    prev_update = None
+    for _ in range(iterations):
+        psum_ids = []
+        for f in fill_ids:
+            deps = (f,) if prev_update is None else (f, prev_update)
+            tasks.append(SimTask(tid, "partial_sum", costs.psum(rows), deps,
+                                 out_bytes=cbytes))
+            psum_ids.append(tid)
+            tid += 1
+        merges = tree_reduce_spec(len(psum_ids), arity=merge_arity)
+        merge_ids = []
+        for _, (a, b) in merges:
+            da = psum_ids[a] if a < len(psum_ids) else merge_ids[a - len(psum_ids)]
+            db = psum_ids[b] if b < len(psum_ids) else merge_ids[b - len(psum_ids)]
+            tasks.append(SimTask(tid, "merge", costs.merge(rows), (da, db),
+                                 out_bytes=cbytes))
+            merge_ids.append(tid)
+            tid += 1
+        last = merge_ids[-1] if merge_ids else psum_ids[-1]
+        tasks.append(SimTask(tid, "update_centroids", costs.update(rows), (last,),
+                             out_bytes=cbytes))
+        prev_update = tid
+        tid += 1
+    return tasks

@@ -26,13 +26,15 @@ What the port changes, and why:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List
 
 import numpy as np
 import torch
 
 from ..core import api, collectives
+from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
-from .common import make_blobs, resolve_device
+from .common import calibrate_cost, make_blobs, resolve_device, tree_reduce_spec
 
 
 # --------------------------------------------------------------------- tasks
@@ -169,3 +171,106 @@ def reference_knn(n_train, n_test, d, k, n_classes, train_fragments, test_blocks
         local = _np_knn_frag((X, y), test_b, k)
         preds.append(_np_knn_classify(local, n_classes))
     return np.concatenate(preds)
+
+
+# --------------------------------------------------- simulator DAG generation
+@dataclass
+class KNNCosts:
+    fill: CostModel
+    frag: CostModel
+    merge: CostModel
+    classify: CostModel
+
+
+def calibrate(d: int = 50, k: int = 5, n_classes: int = 4,
+              units=(500, 1000, 2000), n_train_frag: int = 1000,
+              device=None) -> KNNCosts:
+    """Fit per-task cost models by timing the real task functions on
+    ``device`` (CUDA unless ``device="cpu"``): each call is timed between
+    two synchronisations of the card.  The fill tasks time as they run, a
+    NumPy fill and then one host-to-device copy.  On the card, units that
+    leave ``KNN_frag`` launch-bound make an affine fit that extrapolates
+    to nothing: calibrate at the pipeline's own task sizes."""
+    dev = resolve_device(device)
+    frag = knn_fill_fragment(0, n_train_frag, d, n_classes, dev)
+
+    def fill_u(u):
+        return lambda: knn_fill_fragment(1, int(u), d, n_classes, dev)
+
+    def frag_u(u):
+        test = knn_gen_test(2, int(u), d, n_classes, dev)
+        return lambda: knn_frag(frag, test, k)
+
+    def merge_u(u):
+        test = knn_gen_test(3, int(u), d, n_classes, dev)
+        a = knn_frag(frag, test, k)
+        return lambda: knn_merge(a, a)
+
+    def classify_u(u):
+        test = knn_gen_test(4, int(u), d, n_classes, dev)
+        a = knn_frag(frag, test, k)
+        return lambda: knn_classify(a, n_classes)
+
+    return KNNCosts(
+        fill=calibrate_cost(fill_u, units, "KNN_fill_fragment", device=dev),
+        frag=calibrate_cost(frag_u, units, "KNN_frag", device=dev),
+        merge=calibrate_cost(merge_u, units, "KNN_merge", device=dev),
+        classify=calibrate_cost(classify_u, units, "KNN_classify", device=dev),
+    )
+
+
+def dag_spec(
+    costs: KNNCosts,
+    n_train: int,
+    n_test: int,
+    d: int,
+    k: int,
+    train_fragments: int,
+    test_blocks: int,
+    merge_arity: int = 2,
+    calib_frag_rows: int = 1000,
+) -> List[SimTask]:
+    """Build the KNN DAG as SimTasks with calibrated durations.
+
+    ``KNN_frag`` cost scales with (test rows × train-fragment rows) — the
+    distance GEMM — normalized to the ``calib_frag_rows`` used during
+    calibration; ``merge``/``classify`` scale with test-block rows; ``fill``
+    with fragment rows.
+    """
+    tasks: List[SimTask] = []
+    tid = 0
+    frag_rows = n_train // train_fragments
+    blk_rows = n_test // test_blocks
+    frag_units = blk_rows * frag_rows / max(calib_frag_rows, 1)
+    fbytes = frag_rows * d * 8
+    fill_ids = []
+    for _ in range(train_fragments):
+        tasks.append(SimTask(tid, "KNN_fill_fragment", costs.fill(frag_rows), (),
+                             out_bytes=fbytes))
+        fill_ids.append(tid)
+        tid += 1
+    for _ in range(test_blocks):
+        gen_id = tid
+        tasks.append(SimTask(tid, "KNN_gen_test", costs.fill(blk_rows), (),
+                             out_bytes=blk_rows * d * 8))
+        tid += 1
+        frag_ids = []
+        for f in fill_ids:
+            tasks.append(SimTask(tid, "KNN_frag", costs.frag(frag_units), (f, gen_id),
+                                 out_bytes=blk_rows * k * 16))
+            frag_ids.append(tid)
+            tid += 1
+        merges = tree_reduce_spec(len(frag_ids), arity=merge_arity)
+        merge_ids = []
+        for _, (a, b) in merges:
+            da = frag_ids[a] if a < len(frag_ids) else merge_ids[a - len(frag_ids)]
+            db = frag_ids[b] if b < len(frag_ids) else merge_ids[b - len(frag_ids)]
+            tasks.append(SimTask(tid, "KNN_merge", costs.merge(blk_rows), (da, db),
+                                 out_bytes=blk_rows * k * 16))
+            merge_ids.append(tid)
+            tid += 1
+        last = merge_ids[-1] if merge_ids else frag_ids[-1]
+        tasks.append(SimTask(tid, "KNN_classify", costs.classify(blk_rows), (last,),
+                             out_bytes=blk_rows * 8))
+        tid += 1
+    return tasks

@@ -18,12 +18,14 @@ come back to the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List
 
 import numpy as np
 import torch
 
 from ..core import api, collectives
-from .common import resolve_device
+from ..core.simulator import CostModel, SimTask
+from .common import calibrate_cost, resolve_device
 
 # default k-ary width of the collective merge trees (DESIGN.md §16): one
 # k-ary tree node is ONE task folding k partials, so the reduction costs
@@ -170,3 +172,124 @@ def reference_linreg(n_rows, p, n_pred, fragments, pred_blocks, ridge=0.0, seed=
         Xp = _np_genpred(50_000 + seed + b, blk_m[b], p)
         preds.append(np.concatenate([np.ones((Xp.shape[0], 1)), Xp], axis=1) @ beta)
     return beta, np.concatenate(preds)
+
+
+# --------------------------------------------------- simulator DAG generation
+@dataclass
+class LinRegCosts:
+    fill: CostModel
+    ztz: CostModel
+    zty: CostModel
+    merge: CostModel
+    fit: CostModel
+    genpred: CostModel
+    predict: CostModel
+
+
+def calibrate(p: int = 100, units=(1000, 4000, 8000), device=None) -> LinRegCosts:
+    """Fit per-task cost models by timing the real task functions on
+    ``device`` (CUDA unless ``device="cpu"``; each call timed between two
+    synchronisations of the card)."""
+    dev = resolve_device(device)
+
+    def fill_u(u):
+        return lambda: lr_fill_fragment(1, int(u), p, device=dev)
+
+    def ztz_u(u):
+        f = lr_fill_fragment(2, int(u), p, device=dev)
+        return lambda: partial_ztz(f)
+
+    def zty_u(u):
+        f = lr_fill_fragment(3, int(u), p, device=dev)
+        return lambda: partial_zty(f)
+
+    def merge_u(u):
+        a = torch.ones((p + 1, p + 1), dtype=torch.float64, device=dev)
+        return lambda: merge_add(a, a)
+
+    def fit_u(u):
+        f = lr_fill_fragment(4, max(int(u), p + 8), p, device=dev)
+        A, b = partial_ztz(f), partial_zty(f)
+        return lambda: compute_model_parameters(A, b, 1e-6)
+
+    def genpred_u(u):
+        return lambda: lr_genpred(5, int(u), p, device=dev)
+
+    def pred_u(u):
+        f = lr_fill_fragment(6, max(int(u), p + 8), p, device=dev)
+        A, b = partial_ztz(f), partial_zty(f)
+        beta = compute_model_parameters(A, b, 1e-6)
+        Xp = lr_genpred(7, int(u), p, device=dev)
+        return lambda: compute_prediction(Xp, beta)
+
+    return LinRegCosts(
+        fill=calibrate_cost(fill_u, units, "LR_fill_fragment", device=dev),
+        ztz=calibrate_cost(ztz_u, units, "partial_ztz", device=dev),
+        zty=calibrate_cost(zty_u, units, "partial_zty", device=dev),
+        merge=calibrate_cost(merge_u, (1,), "merge", device=dev),
+        fit=calibrate_cost(fit_u, (1,), "compute_model_parameters", device=dev),
+        genpred=calibrate_cost(genpred_u, units, "LR_genpred", device=dev),
+        predict=calibrate_cost(pred_u, units, "compute_prediction", device=dev),
+    )
+
+
+def dag_spec(
+    costs: LinRegCosts,
+    n_rows: int,
+    p: int,
+    n_pred: int,
+    fragments: int,
+    pred_blocks: int,
+    merge_arity: int = MERGE_ARITY,
+) -> List[SimTask]:
+    tasks: List[SimTask] = []
+    tid = 0
+    rows = n_rows // fragments
+    fbytes = rows * (p + 1) * 8
+    gbytes = (p + 1) * (p + 1) * 8
+    fill_ids = []
+    for _ in range(fragments):
+        tasks.append(SimTask(tid, "LR_fill_fragment", costs.fill(rows), (),
+                             out_bytes=fbytes))
+        fill_ids.append(tid)
+        tid += 1
+
+    def emit_tree(leaf_parent_ids: List[int], leaf_name: str, leaf_cost: float,
+                  leaf_bytes: int) -> int:
+        nonlocal tid
+        leaf_ids = []
+        for pid in leaf_parent_ids:
+            tasks.append(SimTask(tid, leaf_name, leaf_cost, (pid,), out_bytes=leaf_bytes))
+            leaf_ids.append(tid)
+            tid += 1
+        # same k-ary collective shape the live runtime builds (§16): one
+        # SimTask per tree node folding k children, cost (k-1) pair-merges
+        merges = collectives.reduce_spec(len(leaf_ids), arity=merge_arity)
+        merge_ids: List[int] = []
+        for _, children in merges:
+            deps = tuple(
+                leaf_ids[c] if c < len(leaf_ids) else merge_ids[c - len(leaf_ids)]
+                for c in children)
+            name = "merge" if len(deps) == 2 else f"mergex{len(deps)}"
+            tasks.append(SimTask(tid, name, costs.merge(1) * (len(deps) - 1),
+                                 deps, out_bytes=leaf_bytes))
+            merge_ids.append(tid)
+            tid += 1
+        return merge_ids[-1] if merge_ids else leaf_ids[-1]
+
+    ztz_root = emit_tree(fill_ids, "partial_ztz", costs.ztz(rows), gbytes)
+    zty_root = emit_tree(fill_ids, "partial_zty", costs.zty(rows), (p + 1) * 8)
+    tasks.append(SimTask(tid, "compute_model_parameters", costs.fit(1),
+                         (ztz_root, zty_root), out_bytes=(p + 1) * 8))
+    fit_id = tid
+    tid += 1
+    mrows = n_pred // pred_blocks
+    for _ in range(pred_blocks):
+        tasks.append(SimTask(tid, "LR_genpred", costs.genpred(mrows), (),
+                             out_bytes=mrows * p * 8))
+        gen_id = tid
+        tid += 1
+        tasks.append(SimTask(tid, "compute_prediction", costs.predict(mrows),
+                             (gen_id, fit_id), out_bytes=mrows * 8))
+        tid += 1
+    return tasks

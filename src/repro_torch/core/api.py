@@ -57,18 +57,34 @@ def runtime_start(n_workers: Optional[int] = None, *,
         with api.runtime_start(n_workers=4) as rt:
             ...                       # runtime_stop guaranteed on exit
 
-    Only ``backend="thread"`` is ported: task bodies run on the
-    dispatcher threads in this address space, so task results may be
-    CUDA tensors that stay on the device from task to task.
-    ``"process"`` and ``"cluster"`` raise ``ValueError`` (a later slice
-    brings them), as does any knob that only those backends read, and
-    ``dashboard_port`` raises ``NotImplementedError``.
+    ``backend`` selects the executor model (see
+    :mod:`repro_torch.core.executors`): ``"thread"`` runs task bodies on
+    the dispatcher threads in this address space, so task results may be
+    CUDA tensors that stay on the device from task to task; ``"process"``
+    runs them in persistent worker processes behind a shared-memory
+    object plane (the paper's per-node worker architecture, §3.3.2),
+    each worker its own CUDA context.  The port's pools *spawn* by
+    default (``mp_context`` / ``RJAX_MP_CONTEXT``; ``"fork"`` raises once
+    this process has initialised CUDA).  ``"cluster"`` raises
+    ``ValueError`` (a later slice brings it), as does any knob that only
+    it reads.
 
-    ``memory_budget`` bounds the object store (DESIGN.md §13): e.g.
+    ``memory_budget`` bounds every object plane (DESIGN.md §13): e.g.
     ``"256M"`` or ``2**30``; cold host arrays past the high watermark
     spill to mmap-codec files and fault back transparently on the next
     read.  Defaults to ``RJAX_MEMORY_BUDGET``; ``None``/``0`` =
-    unbounded."""
+    unbounded.
+
+    ``pipeline_depth`` bounds the in-flight task messages per worker on
+    the process backend (DESIGN.md §14): depth 1 is stop-and-wait,
+    higher depths overlap dispatch with remote execution.  Defaults to
+    ``RJAX_PIPELINE_DEPTH`` (4).
+
+    ``telemetry`` toggles the live telemetry plane (DESIGN.md §17).
+    ``dashboard_port`` serves the zero-dependency live dashboard on
+    ``127.0.0.1:<port>`` (``0`` = pick an ephemeral port, read it back
+    from ``runtime.dashboard.url``; implies ``telemetry=True``);
+    ``RJAX_DASHBOARD=<port>`` does the same from the environment."""
     global _runtime
     cfg = config if config is not None else RuntimeConfig()
     if n_workers is not None:
@@ -172,8 +188,8 @@ def task(fn: Optional[Callable] = None, *, returns: int = 1, name: Optional[str]
     a retryable :class:`~repro_torch.core.executors.DeadlineExceededError` —
     pair it with ``max_retries`` when overruns are transient.  Defaults
     to the runtime's ``deadline_s`` knob (``RJAX_DEADLINE_S``).  Only
-    the process and cluster backends enforce it, so it has no effect in
-    this slice."""
+    the process backend enforces it (it kills the worker); under
+    ``"thread"`` it has no effect."""
     def wrap(f: Callable) -> TaskFunction:
         return TaskFunction(f, returns=returns, name=name, max_retries=max_retries,
                             priority=priority, speculatable=speculatable,
@@ -220,4 +236,4 @@ compss_wait_on = wait_on
 
 # -- collectives (DESIGN.md §16) ----------------------------------------------
 # imported last: collectives resolves this module lazily at call time
-from .collectives import tree_reduce  # noqa: E402,F401
+from .collectives import broadcast, shuffle, tree_reduce  # noqa: E402,F401

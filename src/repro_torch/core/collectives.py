@@ -10,8 +10,16 @@
     merely numerically close.  Every merge carries a placement hint
     pinning it to the node where its largest child is resident.
 
-``broadcast`` and ``shuffle`` move data between cluster agents; they come
-with the cluster slice of the port.
+``broadcast``
+    Publishes a value under a fresh datum key.  On the thread and process
+    backends this is a keyed store put; the cluster backend's agent→agent
+    fan-out comes with the cluster slice of the port.
+
+``shuffle``
+    All-to-all repartition of a fragment set: each input fragment is split
+    into ``n_out`` keyed pieces by a user partition function, and piece
+    ``p`` of every fragment is combined into output partition ``p``
+    (ndarray rows concatenated, tensor rows ``torch.cat``-ed).
 
 The shape helpers (``reduce_spec`` / ``spec_depth``) describe exactly
 what the runtime schedules.
@@ -20,11 +28,16 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from .executors import _dumps_fn, _loads_fn
 from .futures import Future
 
 __all__ = [
+    "broadcast",
     "reduce_spec",
+    "shuffle",
     "spec_depth",
     "tree_reduce",
 ]
@@ -185,3 +198,84 @@ def tree_reduce(items: Sequence, merge, arity: int = 2):
         sizes.append(max(gsizes) if gsizes else 0)
         homes.append(hint)
     return vals[-1]
+
+
+# ------------------------------------------------------------------ broadcast
+def broadcast(value: Any) -> Future:
+    """Publish ``value`` under a fresh datum key.
+
+    On the thread and process backends the value is stored client-side
+    (a process worker then reads it through the shared-memory plane, once
+    per worker); the cluster backend's agent-to-agent fan-out comes with
+    the cluster slice.  Accepts a Future (materialized first) or a plain
+    value."""
+    from . import api
+
+    rt = api.current_runtime()
+    if isinstance(value, Future):
+        value = rt.wait_on(value)
+    store = rt.store
+    key = (store.new_data_id(), 1)
+    store.put(key, value)
+    # producer task 0 never exists: graph ids start at 1, and the store
+    # already holds the value, so dependents are immediately ready
+    return Future(key[0], key[1], 0, store)
+
+
+# -------------------------------------------------------------------- shuffle
+def _split_fragment(partition_fn: Callable, frag, n_out: int):
+    parts = list(partition_fn(frag, n_out))
+    if len(parts) != n_out:
+        raise ValueError(
+            f"partition_fn returned {len(parts)} pieces, expected {n_out}")
+    return tuple(parts) if n_out > 1 else parts[0]
+
+
+def _concat_parts(*parts):
+    if parts and all(isinstance(p, np.ndarray) for p in parts):
+        return np.concatenate(parts)
+    if parts and all(isinstance(p, torch.Tensor) for p in parts):
+        return torch.cat(parts)
+    out: list = []
+    for p in parts:
+        out.extend(p)
+    return out
+
+
+def shuffle(fragments: Sequence, partition_fn: Callable, n_out: int,
+            combine=None) -> List:
+    """All-to-all repartition: split every fragment into ``n_out`` pieces
+    with ``partition_fn(frag, n_out)`` and combine piece ``p`` of every
+    fragment into output partition ``p``.
+
+    ``combine`` is an optional binary TaskFunction merged via
+    :func:`tree_reduce`; by default pieces are concatenated (ndarray
+    or tensor rows) or flattened into a list.  Returns ``n_out`` Futures."""
+    from . import api
+
+    rt = api.current_runtime()
+    fragments = list(fragments)
+    if not fragments:
+        raise ValueError("shuffle of empty fragment set")
+    if n_out < 1:
+        raise ValueError(f"shuffle n_out must be >= 1, got {n_out}")
+
+    rows = []
+    part = _Fn(partition_fn)
+    for frag in fragments:
+        pieces = rt.submit(_split_fragment, (part, frag, n_out),
+                           name="shuffle_split", returns=n_out)
+        rows.append(pieces if isinstance(pieces, tuple) else (pieces,))
+
+    outs: List = []
+    for p in range(n_out):
+        col = [row[p] for row in rows]
+        if combine is not None:
+            outs.append(tree_reduce(col, combine,
+                                    arity=max(2, min(len(col), 4))))
+        elif len(col) == 1:
+            outs.append(col[0])
+        else:
+            outs.append(rt.submit(_concat_parts, tuple(col),
+                                  name="shuffle_concat"))
+    return outs

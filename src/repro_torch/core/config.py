@@ -222,9 +222,10 @@ class RuntimeConfig:
         env="RJAX_GRAPH_RETAIN", default=0, cast=int, scope="env",
         doc="Completed-task records kept for lineage (0 = automatic).")
     mp_context: Optional[str] = knob(
-        env="RJAX_MP_CONTEXT", default="fork", scope="agent",
+        env="RJAX_MP_CONTEXT", default="spawn", scope="agent",
         cli="--mp-context",
-        doc="multiprocessing start method for worker pools (fork | spawn).")
+        doc="multiprocessing start method for worker pools (spawn | fork; "
+            "fork raises once CUDA is initialised).")
 
     # -- cluster wire / data plane ----------------------------------------
     inline_max: Optional[int] = knob(
@@ -309,7 +310,7 @@ class RuntimeConfig:
                      "dashboard_port", "control_plane", "inline_max",
                      "heartbeat_s", "p2p", "liveness", "suspicion_s",
                      "deadline_s", "resolve_timeout_s",
-                     "reconnect_grace_s", "replication"):
+                     "reconnect_grace_s", "replication", "mp_context"):
             v = getattr(self, name)
             if v is not None:
                 out[name] = v

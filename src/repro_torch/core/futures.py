@@ -32,6 +32,37 @@ class TaskFailedError(RuntimeError):
         self.cause = cause
 
 
+class Deferred:
+    """A stored value its reader must finish first: ``Future.result``
+    returns ``materialize()`` in its place (the process backend keeps a
+    worker's card tensor as host bytes until the parent reads it)."""
+
+    __slots__ = ()
+
+    def materialize(self) -> Any:
+        raise NotImplementedError
+
+
+def materialize(value: Any) -> Any:
+    """``value`` with every :class:`Deferred` leaf of its lists, tuples
+    and dicts materialized; ``value`` itself when it holds none."""
+    if isinstance(value, Deferred):
+        return value.materialize()
+    if isinstance(value, (list, tuple)):
+        out = [materialize(v) for v in value]
+        if all(a is b for a, b in zip(out, value)):
+            return value
+        if isinstance(value, tuple):
+            return type(value)(*out) if hasattr(value, "_fields") else tuple(out)
+        return out
+    if isinstance(value, dict):
+        out = {k: materialize(v) for k, v in value.items()}
+        if all(out[k] is v for k, v in value.items()):
+            return value
+        return out
+    return value
+
+
 class Future:
     """Handle to the (eventual) value of ``data_id`` at ``version``."""
 
@@ -51,7 +82,7 @@ class Future:
         return self._store.is_ready(self.key)
 
     def result(self, timeout: Optional[float] = None) -> Any:
-        return self._store.get(self.key, timeout=timeout)
+        return materialize(self._store.get(self.key, timeout=timeout))
 
     def __repr__(self) -> str:  # matches the paper's DAG edge labels
         return f"<Future d{self.data_id}v{self.version} by task#{self.producer_task}>"

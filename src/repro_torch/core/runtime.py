@@ -1,5 +1,5 @@
 """The RJAX runtime engine — RCOMPSs' COMPSs core, reproduced (the port's
-copy, trimmed to the thread backend).
+copy: the thread and process backends).
 
 One ``Runtime`` owns: the versioned object store, the dynamic task graph,
 a scheduling policy, an *executor backend* holding the pool of persistent
@@ -7,20 +7,21 @@ workers (the paper's persistent-executor model: workers live for the whole
 application and are reused across tasks, §3.3.2), the tracer, fault
 handling, and the optional straggler-speculation monitor.
 
-The task lifecycle is three runtime-owned phases, run synchronously by
-each worker's dispatcher thread:
+The task lifecycle is three runtime-owned phases:
 
 * :meth:`begin_task`    — claim the task (mark RUNNING) and resolve its
                           inputs from the store;
-* the backend invokes the body on the dispatcher thread;
+* the backend runs the body: on the dispatcher thread (``"thread"``), or
+  in a worker process, pipelined (``"process"``, DESIGN.md §14);
 * :meth:`complete_task` / :meth:`fail_task` — publish outputs or apply
   the retry policy, release dependents, trace.
 
-Only ``backend="thread"`` exists in this slice of the port: task bodies
-share one address space, so the store can hold CUDA tensors and hand them
-from task to task without a copy.  The process and cluster backends (and
-with them lineage recovery of node-resident data) and the live dashboard
-come with later slices.
+Under ``"thread"`` task bodies share one address space, so the store can
+hold CUDA tensors and hand them from task to task without a copy; under
+``"process"`` values cross to the workers through the shared-memory
+plane of :mod:`repro_torch.core.executors` and are rebuilt on the device
+they lived on.  The cluster backend (and with it lineage recovery of
+node-resident data) comes with a later slice.
 
 Users normally go through :mod:`repro_torch.core.api` (``task`` /
 ``barrier`` / ``wait_on``), which mirrors the five-function RCOMPSs API.
@@ -44,6 +45,17 @@ from .memory import budget_from_env
 from .scheduler import Scheduler
 from .telemetry import TelemetryHub, normalize_executor_stats
 from .tracing import TraceEvent, Tracer
+
+# default in-flight task credits per worker (DESIGN.md §14)
+DEFAULT_PIPELINE_DEPTH = 4
+
+
+def pipeline_depth_from_env(explicit: Optional[int] = None) -> int:
+    if explicit is not None:
+        return max(1, int(explicit))
+    return max(1, int(os.environ.get("RJAX_PIPELINE_DEPTH",
+                                     DEFAULT_PIPELINE_DEPTH)))
+
 
 def _walk(obj: Any, fn: Callable[[Any], Any]) -> Any:
     """Structure-preserving map over (lists, tuples, dicts); applies ``fn``
@@ -111,23 +123,30 @@ class Runtime:
         dashboard_port: Optional[int] = None,
         deadline_s: Optional[float] = None,
         resolve_timeout_s: Optional[float] = None,
-        **later_backend_opts: Any,
+        pipeline_depth: Optional[int] = None,
+        mp_context: Optional[str] = None,
+        **cluster_opts: Any,
     ):
-        # ``later_backend_opts`` are the RuntimeConfig knobs only the
-        # process/cluster backends read (cluster, n_agents, pipeline_depth,
-        # control_plane, inline_max, heartbeat_s, p2p, liveness,
-        # suspicion_s, reconnect_grace_s, replication); those backends are
-        # not ported yet, so setting one is an error, not a silent no-op
-        pinned = sorted(k for k, v in later_backend_opts.items() if v is not None)
+        # ``cluster_opts`` are the RuntimeConfig knobs only the cluster
+        # backend reads (cluster, n_agents, control_plane, inline_max,
+        # heartbeat_s, p2p, liveness, suspicion_s, reconnect_grace_s,
+        # replication); that backend is not ported yet, so setting one is
+        # an error, not a silent no-op
+        pinned = sorted(k for k, v in cluster_opts.items() if v is not None)
         if pinned:
             raise ValueError(
-                f"knob(s) {', '.join(pinned)} configure the process/cluster "
-                f"backends, which the port does not have yet")
+                f"knob(s) {', '.join(pinned)} configure the cluster backend, "
+                f"which the port does not have yet")
         # memory governance (DESIGN.md §13): explicit knob beats
-        # RJAX_MEMORY_BUDGET; None/0 = unbounded.  Only host ndarrays are
-        # governed: device tensors in the store are never spilled.
+        # RJAX_MEMORY_BUDGET; None/0 = unbounded.  The budget applies per
+        # address-space domain: the scheduler-side store and each
+        # process-backend plane.  Only host ndarrays in the store are
+        # governed: device tensors there are never spilled.
         self.memory_budget = budget_from_env(memory_budget)
         self.spill_dir = spill_dir
+        # dispatch pipelining (DESIGN.md §14): explicit knob beats
+        # RJAX_PIPELINE_DEPTH; depth 1 = stop-and-wait
+        self.pipeline_depth = pipeline_depth_from_env(pipeline_depth)
         # fault-tolerance knobs (DESIGN.md §19): how long a dispatch may
         # wait for an input datum, and the default per-task deadline
         # (per-call submit(deadline_s=) overrides)
@@ -135,24 +154,32 @@ class Runtime:
             resolve_timeout_s, "RJAX_RESOLVE_TIMEOUT_S", None, 30.0, float)
         self.default_deadline_s = resolve_knob(
             deadline_s, "RJAX_DEADLINE_S", None, None, float)
+        backend_opts = {}
+        if backend == "process":
+            backend_opts["pipeline_depth"] = self.pipeline_depth
+            backend_opts["mp_context"] = mp_context
+            if self.memory_budget:
+                backend_opts["memory_budget"] = self.memory_budget
         self.n_workers = int(n_workers)
         self.backend = backend
+        # live telemetry plane (DESIGN.md §17): ring hooks follow the
+        # tracing flag unless asked for explicitly; a dashboard implies
+        # telemetry.  RJAX_DASHBOARD=<port> enables the dashboard from
+        # the environment (0 = ephemeral port).
         if dashboard_port is None:
             env_dash = os.environ.get("RJAX_DASHBOARD", "")
             dashboard_port = int(env_dash) if env_dash != "" else None
-        if dashboard_port is not None:
-            raise NotImplementedError(
-                "the live dashboard is not ported yet (it comes with a later "
-                "slice of the port); leave dashboard_port / RJAX_DASHBOARD unset")
-        # live telemetry plane (DESIGN.md §17): ring hooks follow the
-        # tracing flag unless asked for explicitly
         telemetry_on = bool(tracing) if telemetry is None else bool(telemetry)
-        # sampler thread only when telemetry was requested explicitly —
-        # plain traced runs keep their thread count unchanged
-        want_sampler = bool(telemetry)
+        if dashboard_port is not None:
+            telemetry_on = True
+        # sampler thread only when someone is watching (dashboard) or
+        # telemetry was requested explicitly — plain traced runs keep
+        # their thread count unchanged
+        want_sampler = bool(telemetry) or dashboard_port is not None
         if workers_per_node is None:
-            # threads all share one address space => one locality domain
-            workers_per_node = self.n_workers
+            # each worker process is its own address space => its own
+            # locality domain; threads all share one
+            workers_per_node = 1 if backend == "process" else self.n_workers
         self.workers_per_node = workers_per_node
         self.store = ObjectStore()
         self.store.configure_memory(self.memory_budget, spill_dir=self.spill_dir)
@@ -164,6 +191,7 @@ class Runtime:
         )
         self.tracer = Tracer(enabled=tracing)
         self.telemetry = TelemetryHub(enabled=telemetry_on)
+        self.dashboard = None
         self.retry = retry
         self.speculation = speculation
         self.name = name
@@ -176,9 +204,13 @@ class Runtime:
         self._idle_workers = self.n_workers
         self._stopped = False
 
-        self.executor = make_executor(backend, self.n_workers, label=name)
+        self.executor = make_executor(backend, self.n_workers, label=name,
+                                      **backend_opts)
         self.executor.start(self)
 
+        if dashboard_port is not None:
+            from .dashboard import DashboardServer
+            self.dashboard = DashboardServer(self, port=dashboard_port)
         if self.telemetry.enabled and want_sampler:
             # no agents to heartbeat: an in-process sampler synthesizes
             # the per-node view instead
@@ -632,6 +664,8 @@ class Runtime:
         if wait:
             self.barrier()
         self._stopped = True
+        if self.dashboard is not None:
+            self.dashboard.close()
         self.telemetry.close()
         self.scheduler.close()
         self.executor.shutdown(wait=wait)

@@ -1,18 +1,27 @@
-"""The raw-codec header and the mmap codec the memory governor spills
-through (trimmed copy: only what :mod:`repro_torch.core.memory` needs).
+"""Serialization codecs (paper §3.3.3 + Table 1), the port's copy,
+trimmed to what its object planes use.
 
-``mmap`` is the RMVL analogue: header + raw buffer written to a file;
-deserialization returns a ``numpy.memmap`` view — *zero-copy
-reconstruction*.  In-process task hand-off passes values by reference
-(no codec): serialization only happens at address-space boundaries, and
-the thread backend has none except spill.
+* ``pickle`` — stdlib pickle protocol 5 (general; the fallback for
+  non-array payloads).
+* ``raw``    — 24-byte header + raw buffer; the process backend's
+  shared-memory plane lays every segment out as a ``raw`` blob body
+  (header in the ref, buffer in the segment), so a reader rebuilds the
+  array with ``np.frombuffer`` — zero copies.
+* ``mmap``   — the RMVL analogue: header + raw buffer written to a file;
+  deserialization returns a ``numpy.memmap`` view — *zero-copy
+  reconstruction*; the memory governor spills through it.
+
+In-process task hand-off passes values by reference (no codec):
+serialization only happens at address-space boundaries — the process
+backend's worker pipes and segments, and spill.
 """
 from __future__ import annotations
 
 import os
+import pickle
 import struct
 import weakref
-from typing import Any, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 
@@ -50,6 +59,56 @@ def as_c_contiguous(obj: Any) -> np.ndarray:
     """Copy-on-encode for non-contiguous inputs.  Unlike
     ``np.ascontiguousarray``, this keeps 0-d arrays 0-d."""
     return np.asarray(obj, order="C")
+
+
+def _pickle_ser(obj: Any) -> bytes:
+    return pickle.dumps(obj, protocol=5)
+
+
+def _pickle_de(data: bytes) -> Any:
+    return pickle.loads(data)
+
+
+def _raw_ser(obj: Any) -> bytes:
+    arr = as_c_contiguous(obj)
+    return _pack_header(arr) + arr.tobytes()
+
+
+def _raw_de(data: bytes) -> Any:
+    mv = memoryview(data)
+    dtype, shape, off = _unpack_header(mv)
+    return np.frombuffer(mv, dtype=dtype, offset=off).reshape(shape)
+
+
+class Codec:
+    def __init__(self, name: str, ser: Callable[[Any], bytes], de: Callable[[bytes], Any],
+                 array_only: bool = False):
+        self.name = name
+        self.ser = ser
+        self.de = de
+        self.array_only = array_only
+
+
+CODECS: Dict[str, Codec] = {
+    "pickle": Codec("pickle", _pickle_ser, _pickle_de),
+    "raw": Codec("raw", _raw_ser, _raw_de, array_only=True),
+}
+
+DEFAULT_CODEC = "raw"
+
+
+def serialize(obj: Any, codec: str = DEFAULT_CODEC) -> bytes:
+    c = CODECS[codec]
+    if c.array_only and not isinstance(obj, np.ndarray):
+        c = CODECS["pickle"]  # graceful fallback for non-array payloads
+    return c.ser(obj)
+
+
+def deserialize(data: bytes, codec: str = DEFAULT_CODEC) -> Any:
+    # the pickle fallback is self-describing; raw has a magic to sniff
+    if codec == "raw" and data[:4] != _MAGIC:
+        return CODECS["pickle"].de(data)
+    return CODECS[codec].de(data)
 
 
 def _unlink_quiet(path: str) -> None:

@@ -663,3 +663,77 @@ def test_knn_and_kmeans_refuse_inputs_that_require_grad(cuda):
     with torch.no_grad():
         assert ops.knn_topk(x, x, labels, k=3)[0].shape == (64, 3)
         assert ops.kmeans_assign(x, x[:4])[0].shape == (4, 8)
+
+
+def _card_tensors(n):
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, 64, generator=g)
+    return {"fp32": x.cuda(), "bf16": x.to(torch.bfloat16).cuda(),
+            "int32": (x * 100).to(torch.int32).cuda()}
+
+
+def test_process_backend_on_the_card_equals_the_thread_backend(cuda):
+    """The three pipelines in two spawned workers, each its own CUDA
+    context, give the thread backend's bytes; the workers' launch counts,
+    gathered from their replies, are the thread run's; card tensors cross
+    the boundary with their dtype, wait in the parent as host bytes until
+    they are read, and come back on the card."""
+    from repro_torch.algorithms import linreg
+    from repro_torch.core import executors
+    kcfg = dict(n_train=4000, n_test=1000, d=16, k=5, n_classes=4, train_fragments=4,
+                test_blocks=2)
+    mcfg = dict(n_points=20_000, d=8, k=6, fragments=4, max_iters=5, tol=0.0)
+    lcfg = dict(n_rows=8000, p=20, n_pred=1000, fragments=4, pred_blocks=2)
+
+    def run():
+        return (knn.run_knn(**kcfg, device=cuda), kmeans.run_kmeans(**mcfg, device=cuda),
+                linreg.run_linreg(**lcfg, device=cuda))
+
+    with api.runtime_start(n_workers=2):
+        ops.reset_launch_counts()
+        want = run()
+        want_counts = ops.launch_counts()
+    with api.runtime_start(n_workers=2, backend="process") as rt:
+        ops.reset_launch_counts()
+        got = run()
+        fut = api.task(_card_tensors, name="card_tensors")(512)
+        rt.barrier()
+        held = rt.store.get(fut.key)     # not read yet: still host bytes
+        assert all(isinstance(v, executors.CardResult) for v in held.values())
+        crossed = api.wait_on(fut)
+        st = rt.stats()["executor"]
+        assert ops.launch_counts() == only(ops)     # nothing ran in this process
+    assert got[0].predictions.tobytes() == want[0].predictions.tobytes()
+    assert got[1].centroids.tobytes() == want[1].centroids.tobytes()
+    assert got[1].sse_history == want[1].sse_history
+    assert got[2].beta.tobytes() == want[2].beta.tobytes()
+    assert st["kernel_launches"]["knn_topk"] == want_counts["knn_topk"] == 4 * 2
+    assert st["kernel_launches"]["kmeans_assign"] == want_counts["kmeans_assign"] == 4 * 5
+    assert st["device_uploads"] > 0 and st["device_uploads_saved"] > 0
+    ref = _card_tensors(512)
+    for k, v in ref.items():
+        assert crossed[k].device.type == "cuda" and crossed[k].dtype == v.dtype
+        assert torch.equal(crossed[k], v)
+
+
+def only(ops_mod, **nonzero):
+    return {k: nonzero.get(k, 0) for k in ops_mod.KERNELS}
+
+
+def test_the_calibration_timer_synchronises_the_card(cuda):
+    """A host clock around an asynchronous launch reads the launch;
+    ``timeit_median`` on the card reads the work."""
+    from repro_torch.algorithms import common
+    cycles = 200_000_000
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    stop.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(stop) / 1e3
+    synced = common.timeit_median(lambda: torch.cuda._sleep(cycles), device=cuda)
+    unsynced = common.timeit_median(lambda: torch.cuda._sleep(cycles), device=None)
+    torch.cuda.synchronize()
+    assert synced >= 0.9 * device_s
+    assert unsynced < 0.5 * device_s

@@ -64,7 +64,8 @@ def test_port_files_exist():
                  "layers/rglru.py", "layers/ssd.py", "configs/mamba2_780m.py",
                  "configs/recurrentgemma_9b.py", "optim/adamw.py", "optim/compress.py",
                  "data/pipeline.py", "checkpoint/manager.py", "distributed/steps.py",
-                 "launch/train.py", "layers/moe.py"):
+                 "launch/train.py", "layers/moe.py", "core/simulator.py",
+                 "core/dashboard.py", "core/executors.py"):
         assert want in names
     examples = {os.path.basename(p) for p in _port_files() if p.startswith(EXAMPLES)}
     assert examples == {"quickstart_torch.py", "kmeans_pipeline_torch.py",
@@ -138,13 +139,22 @@ def test_config_copy_declares_the_same_knobs_as_the_reference():
     from repro.core import config as jconfig
     from repro_torch.core import config
     assert config.declared_env_knobs() == jconfig.declared_env_knobs()
-    assert config.knob_table() == jconfig.knob_table()
+    # one deliberate divergence: the port's worker pools spawn by default
+    # (a forked child cannot re-initialise CUDA); every other row is equal
+    rows = config.knob_table().splitlines()
+    jrows = jconfig.knob_table().splitlines()
+    assert len(rows) == len(jrows)
+    differ = [(r, j) for r, j in zip(rows, jrows) if r != j]
+    assert [r.split(" | ")[0] for r, _ in differ] == ["| `mp_context`"], differ
+    (row, jrow), = differ
+    assert row.split(" | ")[2] == "spawn" and jrow.split(" | ")[2] == "fork"
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.core.api\n"
+        "import repro_torch.core.simulator, repro_torch.core.dashboard\n"
         "import repro_torch.algorithms, repro_torch.kernels.ops\n"
         "import repro_torch.configs, repro_torch.layers, repro_torch.models\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"

@@ -1,10 +1,11 @@
-"""The port's copy of the task runtime, on its one backend (``thread``).
+"""The port's copy of the task runtime, on its thread backend.
 
 Mirrors the thread cases of ``tests/test_runtime.py`` and the shape and
 bitwise-order cases of ``tests/test_collectives.py`` against
 ``repro_torch.core``, and checks that what the port does not have yet
-(process and cluster backends, their knobs, the dashboard) is refused
-rather than silently ignored.
+(the cluster backend and its knobs) is refused rather than silently
+ignored.  The process backend is tested in ``test_torch_process.py``, the
+dashboard in ``test_torch_dashboard.py``.
 """
 import math
 import os
@@ -213,7 +214,7 @@ def test_stats_and_context_manager():
 
 
 # ------------------------------------------------- what the port lacks yet
-@pytest.mark.parametrize("backend", ["process", "cluster"])
+@pytest.mark.parametrize("backend", ["cluster"])
 def test_other_backends_raise(backend):
     with pytest.raises(ValueError, match="not ported"):
         api.runtime_start(n_workers=2, backend=backend)
@@ -221,16 +222,33 @@ def test_other_backends_raise(backend):
         api.current_runtime()
 
 
-@pytest.mark.parametrize("knob,value", [("pipeline_depth", 8), ("n_agents", 2),
+@pytest.mark.parametrize("knob,value", [("control_plane", "async"), ("n_agents", 2),
                                         ("p2p", False), ("replication", 1)])
 def test_later_backend_knobs_raise(knob, value):
     with pytest.raises(ValueError, match=knob):
         api.runtime_start(n_workers=2, **{knob: value})
 
 
-def test_dashboard_raises():
-    with pytest.raises(NotImplementedError):
-        api.runtime_start(n_workers=2, dashboard_port=0)
+def test_process_knobs_are_accepted_on_the_thread_backend():
+    # pipeline_depth and mp_context configure the process backend; the
+    # thread backend reads neither, and neither is refused
+    with api.runtime_start(n_workers=2, pipeline_depth=8, mp_context="spawn") as rt:
+        assert rt.pipeline_depth == 8
+        assert api.wait_on(api.task(lambda: 3, name="three")()) == 3
+
+
+def test_dashboard_from_the_environment(monkeypatch):
+    import json
+    import urllib.error
+    import urllib.request
+    monkeypatch.setenv("RJAX_DASHBOARD", "0")
+    with api.runtime_start(n_workers=1) as rt:
+        assert rt.dashboard is not None and rt.telemetry.enabled
+        with urllib.request.urlopen(rt.dashboard.url + "api/status", timeout=10) as resp:
+            assert json.loads(resp.read())["n_workers"] == 1
+        url = rt.dashboard.url
+    with pytest.raises(urllib.error.URLError):   # closed with the runtime
+        urllib.request.urlopen(url + "api/status", timeout=2)
 
 
 def test_unknown_knob_raises():
@@ -294,3 +312,116 @@ def test_collective_accepts_future_leaves(rt):
     leaves = api.map_tasks(gen_t, [(i,) for i in range(7)])
     got = api.wait_on(collectives.tree_reduce(leaves, merge_t, arity=3))
     assert torch.equal(got, torch.full((16,), 21.0))
+
+
+# ------------------------------------------- collectives against the reference
+def _np_rows(seed, n, d):
+    return np.random.default_rng(seed).standard_normal((n, d))
+
+
+def _by_thirds(block, n_out):
+    return [block[i::n_out] for i in range(n_out)]
+
+
+def _add_rows(a, b):
+    return a + b
+
+
+def _scaled_total(shared, block):
+    return float((shared * 0.5).sum() + block.sum())
+
+
+def _collective_program(api_mod, coll_mod, n_out, combine):
+    """shuffle (plain values and Futures mixed) and broadcast, read back."""
+    gen = api_mod.task(_np_rows, name="rows")
+    frags = [gen(0, 64, 8), _np_rows(1, 64, 8), gen(2, 64, 8)]
+    merge = None if combine is None else api_mod.task(combine, name="combine")
+    parts = api_mod.wait_on(coll_mod.shuffle(frags, _by_thirds, n_out, combine=merge))
+    shared = coll_mod.broadcast(np.arange(6000, dtype=np.float32))
+    total = api_mod.wait_on(api_mod.task(_scaled_total, name="use")(shared, frags[0]))
+    return parts, total, api_mod.wait_on(shared)
+
+
+@pytest.mark.parametrize("n_out", [1, 2, 3])
+@pytest.mark.parametrize("combine", [None, _add_rows], ids=["concat", "combine"])
+def test_shuffle_and_broadcast_equal_the_reference_bitwise(n_out, combine):
+    """The same NumPy fragments through the port's and the JAX package's
+    ``shuffle`` and ``broadcast``: the same pieces in the same order,
+    byte for byte."""
+    from repro.core import api as japi
+    from repro.core import collectives as jcoll
+    with japi.runtime_start(n_workers=3, backend="thread"):
+        want = _collective_program(japi, jcoll, n_out, combine)
+    with api.runtime_start(n_workers=3, backend="thread"):
+        got = _collective_program(api, collectives, n_out, combine)
+    assert len(got[0]) == len(want[0]) == n_out
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes()
+    assert got[1] == want[1]
+    assert got[2].tobytes() == want[2].tobytes()
+
+
+def _json_shape(obj):
+    """Keys and value types of a JSON document, lists by their first item."""
+    if isinstance(obj, dict):
+        return {k: _json_shape(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_json_shape(obj[0])] if obj else []
+    return type(obj).__name__
+
+
+def _dashboard_views(api_mod):
+    import json
+    import urllib.request
+
+    def _gen(seed, n):
+        return np.random.default_rng(seed).standard_normal(n)
+
+    rt = api_mod.runtime_start(n_workers=2, backend="thread", dashboard_port=0)
+    try:
+        gen, tot = api_mod.task(_gen, name="gen"), api_mod.task(_add_rows, name="tot")
+        frags = [gen(i, 4096) for i in range(6)]
+        api_mod.wait_on([tot(frags[i], frags[(i + 1) % 6]) for i in range(6)])
+        deadline = time.time() + 10    # the sampler's first beat fills /api/status
+        while time.time() < deadline and not rt.telemetry.nodes():
+            time.sleep(0.05)
+        out = {}
+        for path in ("", "api/status", "api/tasks?since=0", "api/transfers"):
+            with urllib.request.urlopen(rt.dashboard.url + path, timeout=10) as resp:
+                body = resp.read()
+            out[path] = body if path == "" else _json_shape(json.loads(body))
+        return out
+    finally:
+        api_mod.runtime_stop()
+
+
+def test_dashboard_page_and_views_equal_the_reference():
+    """The same task program under the port's and the JAX package's
+    runtime: the same page, byte for byte, and the same keys (with the
+    same value types) in ``/api/status``, ``/api/tasks`` and
+    ``/api/transfers``."""
+    from repro.core import api as japi
+    want = _dashboard_views(japi)
+    got = _dashboard_views(api)
+    assert got[""] == want[""]
+    for path in ("api/status", "api/tasks?since=0", "api/transfers"):
+        assert got[path] == want[path], path
+    assert got["api/tasks?since=0"]["events"], "no task event was served"
+
+
+# ------------------------------------------------------------ serialization
+@pytest.mark.parametrize("arr", [np.arange(12, dtype=np.float32).reshape(3, 4),
+                                 np.array(7, dtype=np.int64), np.ones((0, 5), np.float64),
+                                 np.arange(10, dtype=np.int16)[::2]],
+                         ids=["matrix", "0d", "empty", "strided"])
+def test_raw_codec_equals_the_reference(arr):
+    """The raw codec lays out the process backend's segments: its blob is
+    the JAX package's, byte for byte, and decodes to the same array."""
+    from repro.core import serialization as jser
+    from repro_torch.core import serialization as ser
+    blob = ser.serialize(arr)
+    assert blob == jser.serialize(arr, "raw")
+    back = ser.deserialize(blob)
+    assert back.dtype == arr.dtype and back.shape == arr.shape
+    assert np.array_equal(back, arr)
+    assert ser.deserialize(ser.serialize({"not": "an array"})) == {"not": "an array"}
