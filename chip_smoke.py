@@ -57,17 +57,31 @@ failure raises (the script then exits non-zero without a result):
              left in /dev/shm after runtime_stop;
 9. dashboard — inside phase 8, every endpoint of the process runtime's
              dashboard fetched and held against the runtime;
-10. serve  — serve_batch on qwen3-0.6b at full width (28 layers, d 1024,
+10. cluster — the three pipelines on 2 TCP node agents x 2 spawned
+             workers (``backend="cluster"``; each worker its own CUDA
+             context, the agents none), bitwise equal to phases 4-6; the
+             launches gathered from the agents' done replies exactly 64
+             ``knn_topk`` / 160 ``kmeans_assign`` and none in this
+             process; no agent initialised CUDA, every pool worker holds
+             card memory; each pipeline's scheduler relay, peer-fetch and
+             p2p bytes and node-resident results, KNN's relay under 5% of
+             its fill bytes; one agent SIGKILLed during KNN_frag: exactly
+             one respawn, the predictions bitwise equal through lineage
+             re-execution, the ``knn_topk`` launches 64 plus one per
+             KNN_frag completion the tracer records in that run; after
+             runtime_stop no agent process, pool worker or segment an
+             agent reported is left;
+11. serve  — serve_batch on qwen3-0.6b at full width (28 layers, d 1024,
              bf16, random weights from seed 0): 8 prompts of 512 tokens,
              32 generated tokens each, twice; then one cache-free forward
              over prompt + generated tokens, held against the served
              logits (replayed) and against two controls;
-11. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
+12. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
              d 1536, 48 heads x 64, state 128, bf16), one control;
-12. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
+13. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
              12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, MQA with
              head dim 256, window 2048, bf16, 9.6B parameters), one control;
-13. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
+14. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
              d 2048, MHA 16 x 128, 64 routed experts of width 1408, top-6,
              2 shared, vocab 102,400, bf16, 16.9B parameters), one
              control; the full-forward comparison and its control run at
@@ -79,7 +93,7 @@ failure raises (the script then exits non-zero without a result):
              full forward; the share
              of assignments dropped in the served prefill and decode is
              recorded;
-14. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
+15. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
              recurrentgemma, deepseek-moe and qwen3-moe configs (fp32), 4
              steps on the card and on the CPU from the same
              ``init_params`` weights and batches: the losses agree within
@@ -87,14 +101,14 @@ failure raises (the script then exits non-zero without a result):
              checkpoint saved at step 2 by the runtime's
              ``checkpoint_save`` task restores into a fresh model on the
              card, which continues as the uninterrupted run did;
-15. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
+16. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
              "full"), batch 8 x 512 tokens, 10 steps: finite losses, the
              first within 1.0 of ln(vocab), exact launch counts, the loss
              on the first batch lower after the ten steps; one more step
              must lower the loss on its batch, and one under the profiler
              gives the device's idle share;
-16. train_ssd — the same on mamba2-780m at full width;
-17. train_moe — the same on deepseek-moe-16b at full width, its depth cut
+17. train_ssd — the same on mamba2-780m at full width;
+18. train_moe — the same on deepseek-moe-16b at full width, its depth cut
              to 4 of 28 layers (at full depth, bf16 weights and gradients
              and fp32 moments need ~200 GB).
 
@@ -102,7 +116,7 @@ Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5, 7, 8 and 10-17, by phase; times measured in
+counted during phases 4, 5, 7, 8, 10 and 11-18, by phase; times measured in
 phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
@@ -1380,6 +1394,58 @@ def kill_during(ex, task: str, killed: list, timeout: float = 60.0) -> None:
         time.sleep(0.0005)
 
 
+CLUSTER_AGENTS, CLUSTER_WORKERS = 2, 2     # phase cluster: agents x workers per agent
+CLUSTER_RELAY_SHARE = 0.05                  # KNN's scheduler relay bytes / its fill bytes
+
+
+def agent_processes() -> list:
+    """pids of the live processes running ``repro_torch.cluster.agent``."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read()
+            with open(f"/proc/{pid}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if b"repro_torch.cluster.agent" in cmd and state != "Z":
+            out.append(int(pid))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def cluster_counters(rt) -> dict:
+    """The data-plane counters a pipeline moves, read now."""
+    ex = rt.executor
+    return {"relay_bytes": ex.stats()["relay_bytes"], "fetch_bytes": ex.fetch_bytes,
+            "remote_results": ex.remote_results, "p2p_bytes": rt.stats()["p2p_bytes"],
+            "gather_bytes": rt.store.transfer_detail()["gather_bytes"]}
+
+
+def kill_agent_during(rt, task: str, killed: list, timeout: float = 60.0) -> None:
+    """SIGKILL the first node agent seen with ``task`` in flight."""
+    import signal
+    ex = rt.executor
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        for a in range(ex.n_agents):
+            if any(req[1].t.name == task for req in list(ex._inflight_reqs[a].values())):
+                os.kill(rt.cluster._procs[a].pid, signal.SIGKILL)
+                killed.append(a)
+                return
+        time.sleep(0.0005)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
@@ -1691,9 +1757,136 @@ def main(argv) -> int:
         left = sorted(n for n in planed if os.path.exists(os.path.join("/dev/shm", n)))
         assert not left, f"segments left in /dev/shm: {left}"
         ph.info["segments_checked"] = len(planed)
+    with Phase("cluster") as ph:
+        # the three pipelines on CLUSTER_AGENTS node agents over TCP, each
+        # with CLUSTER_WORKERS spawned workers (each its own CUDA context;
+        # the agents hold host bytes only); float64 GEMMs under
+        # deterministic algorithms, which the agents pass to their workers
+        ops.reset_launch_counts()
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            rt = api.runtime_start(backend="cluster", n_agents=CLUSTER_AGENTS,
+                                   workers_per_node=CLUSTER_WORKERS, max_retries=1)
+            cluster_start = time.perf_counter() - t0   # every agent's pool up
+            ex = rt.executor
+            segments, worker_pids = set(), set()
+
+            def agents_report():
+                stats = ex.agent_stats()
+                assert all(s is not None for s in stats), "an agent did not answer"
+                for s in stats:
+                    segments.update(s["segment_names"])
+                    worker_pids.update(s["worker_pids"])
+                return stats
+
+            try:
+                walls, moved = {}, {}
+                for name, run in runs.items():
+                    before = cluster_counters(rt)
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    walls[name] = time.perf_counter() - t0
+                    after = cluster_counters(rt)
+                    moved[name] = {k: after[k] - before[k] for k in after}
+                    if name == "knn":
+                        assert out.predictions.tobytes() == preds.tobytes(), \
+                            "KNN predictions differ between the cluster and thread backends"
+                    elif name == "kmeans":
+                        assert out.centroids.tobytes() == r1.centroids.tobytes(), \
+                            "K-means centroids differ between the cluster and thread backends"
+                        assert out.sse_history == r1.sse_history, (out.sse_history, r1.sse_history)
+                    else:
+                        assert out.beta.tobytes() == r.beta.tobytes(), \
+                            "linreg beta differs between the cluster and thread backends"
+                        assert out.predictions.tobytes() == r.predictions.tobytes()
+                st = ex.stats()
+                gathered = {k: st["kernel_launches"].get(k, 0) for k in ops.KERNELS}
+                assert gathered == only(ops, knn_topk=64, kmeans_assign=160), gathered
+                assert ops.launch_counts() == only(ops), "the scheduler launched a kernel"
+                agents = agents_report()
+                assert not any(s["cuda_initialized"] for s in agents), \
+                    "a node agent initialised CUDA"
+                pool_pids = [pid for s in agents for pid in s["worker_pids"]]
+                by_pid = st["card_bytes_by_pid"]
+                assert len(pool_pids) == CLUSTER_AGENTS * CLUSTER_WORKERS
+                assert all(by_pid.get(pid, 0) > 0 for pid in pool_pids), (pool_pids, by_pid)
+                fill_bytes = knn_cfg["n_train"] * (knn_cfg["d"] * 4 + 4)   # fp32 rows, int32 labels
+                relay_share = moved["knn"]["relay_bytes"] / fill_bytes
+                assert relay_share < CLUSTER_RELAY_SHARE, (moved["knn"], fill_bytes)
+                ph.info.update(
+                    cluster_start_s=cluster_start, wall_s=walls, thread_wall_s=thread_wall,
+                    moved=moved, knn_fill_bytes=fill_bytes, knn_relay_share=relay_share,
+                    launches=gathered, agent_pids=[p.pid for p in rt.cluster._procs],
+                    worker_card_bytes={str(pid): by_pid[pid] for pid in pool_pids},
+                    agents_cuda_initialized=[s["cuda_initialized"] for s in agents],
+                    device_uploads=st["device_uploads"],
+                    device_upload_bytes=st["device_upload_bytes"],
+                    device_uploads_saved=st["device_uploads_saved"],
+                    puts=st["puts"], refs=st["refs"], fetches=st["fetches"],
+                    bytes_shipped=st["bytes_shipped"],
+                    relay_result_bytes=st["relay_result_bytes"],
+                    deferred_result_bytes=st["deferred_result_bytes"])
+
+                # one SIGKILL of an agent while it has KNN_frag in flight
+                restarts = ex.agent_restarts
+                killed = []
+                killer = threading.Thread(target=kill_agent_during,
+                                          args=(rt, "KNN_frag", killed))
+                t_kill = time.perf_counter()
+                killer.start()
+                again = runs["knn"]()
+                kill_run = time.perf_counter() - t_kill
+                killer.join()
+                assert killed, "no agent was seen running KNN_frag"
+                assert again.predictions.tobytes() == preds.tobytes(), \
+                    "the predictions changed after an agent was killed"
+                deadline = time.monotonic() + 120
+                while ex.agent_restarts == restarts and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                assert ex.agent_restarts == restarts + 1, (restarts, ex.agent_restarts)
+                # only replied tasks are counted: a task whose agent died
+                # with it in flight launches again, once, in its retry,
+                # and a lost result's producer once more per re-execution
+                frag_done = sum(1 for e in rt.tracer.events("task")
+                                if e.name == "KNN_frag" and e.t0 >= t_kill and e.meta["ok"])
+                st = ex.stats()
+                launches_cluster = {k: st["kernel_launches"].get(k, 0) for k in ops.KERNELS}
+                assert launches_cluster == only(ops, knn_topk=64 + frag_done,
+                                                kmeans_assign=160), (frag_done, launches_cluster)
+                assert ops.launch_counts() == only(ops), "the scheduler launched a kernel"
+                agents = agents_report()
+                assert not any(s["cuda_initialized"] for s in agents)
+                stats = rt.stats()
+                ph.info.update(killed_agent=killed[0], agent_restarts=ex.agent_restarts,
+                               retries=stats["retries"], kill_run_s=kill_run,
+                               knn_frag_completions=frag_done,
+                               knn_frag_reexecutions=frag_done - 64,
+                               launches_with_the_kill_run=launches_cluster)
+            finally:
+                pids = set(p.pid for p in rt.cluster._procs if p is not None)
+                api.runtime_stop()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        left = agent_processes()
+        assert not left, f"node agents left running: {left}"
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            stray = sorted(p for p in worker_pids | pids if pid_alive(p))
+            stale = sorted(n for n in segments if os.path.exists(os.path.join("/dev/shm", n)))
+            if not stray and not stale:
+                break
+            time.sleep(0.1)
+        assert not stray, f"agents or pool workers left running: {stray}"
+        assert segments, "the agents' planes held no segment"
+        assert not stale, f"segments left in /dev/shm: {stale}"
+        ph.info.update(segments_checked=len(segments), workers_checked=len(worker_pids))
+
     for name in ("knn_topk", "kmeans_assign"):
         pipeline_by_phase = {"knn" if name == "knn_topk" else "kmeans": launches[name],
-                             "simulate": launches_sim[name], "process": launches_proc[name]}
+                             "simulate": launches_sim[name], "process": launches_proc[name],
+                             "cluster": launches_cluster[name]}
         launches[name] = sum(pipeline_by_phase.values())
         for row in rows:
             if row["name"] == name:

@@ -9,7 +9,10 @@ With ``--backend process`` the tasks run in four persistent worker
 processes, spawned, each with its own CUDA context; each fragment
 crosses to a worker through the shared-memory plane as host bytes once,
 and the worker's segment cache keeps the device copy it uploaded, so
-later iterations upload nothing.
+later iterations upload nothing.  With ``--backend cluster`` they run on
+two real TCP node agents on localhost, each with two spawned workers:
+fragments stay node-resident and cross between nodes as host bytes over
+the peer data plane; the agents never touch the card.
 
 On the card a task's measured duration is host time around a body that
 launches its kernel asynchronously: the replay charges device time to
@@ -18,7 +21,7 @@ a projection of the measured host-side DAG, not a measurement of a
 many-core node.
 
 Run:  PYTHONPATH=src python examples/kmeans_pipeline_torch.py [--device cpu]
-      [--backend process] [--points 60000] [--iters 6]
+      [--backend process|cluster] [--points 60000] [--iters 6]
 (the default device is the CUDA card)
 """
 import argparse
@@ -33,11 +36,15 @@ from repro_torch.core.simulator import MachineModel, replay_graph, simulate
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    ap.add_argument("--backend", default="thread", choices=("thread", "process"))
+    ap.add_argument("--backend", default="thread", choices=("thread", "process", "cluster"))
     ap.add_argument("--points", type=int, default=60_000)
     ap.add_argument("--iters", type=int, default=6)
     args = ap.parse_args()
-    api.runtime_start(n_workers=4, policy="locality", tracing=True, backend=args.backend)
+    if args.backend == "cluster":
+        api.runtime_start(backend="cluster", n_agents=2, workers_per_node=2,
+                          policy="locality", tracing=True)
+    else:
+        api.runtime_start(n_workers=4, policy="locality", tracing=True, backend=args.backend)
     try:
         res = kmeans.run_kmeans(n_points=args.points, d=16, k=8, fragments=8,
                                 max_iters=args.iters, device=args.device)

@@ -7,10 +7,14 @@ asynchronous ``add`` tasks; the runtime discovers the dependency DAG
 ``runcompss --lang=r -g job.R``.  Under the thread backend (the default)
 task bodies run in this process, so their results stay on the card from
 task to task; with ``--backend process`` they run in spawned worker
-processes, and each result comes back to this process's card.
+processes, and each result comes back to this process's card; with
+``--backend cluster`` they run on two real TCP node agents on localhost,
+each with two spawned workers: the tensors cross the wire as host bytes,
+and only the workers (and this process, when it reads the result) touch
+the card.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
-      [--backend process]
+      [--backend process|cluster]
 (the default device is the CUDA card)
 """
 import argparse
@@ -28,10 +32,13 @@ def add(x, y):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    ap.add_argument("--backend", default="thread", choices=("thread", "process"))
+    ap.add_argument("--backend", default="thread", choices=("thread", "process", "cluster"))
     args = ap.parse_args()
     dev = resolve_device(args.device)
-    api.runtime_start(n_workers=4, backend=args.backend)   # compss_start()
+    if args.backend == "cluster":
+        api.runtime_start(backend="cluster", n_agents=2, workers_per_node=2)
+    else:
+        api.runtime_start(n_workers=4, backend=args.backend)   # compss_start()
     try:
         add_t = api.task(add)                # task(add, ...)
         a, b, c, d = (torch.tensor(float(v), device=dev) for v in (4, 5, 6, 7))

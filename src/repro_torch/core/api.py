@@ -54,7 +54,7 @@ def runtime_start(n_workers: Optional[int] = None, *,
     one documented precedence rule (explicit > env > default).  The
     returned runtime is a context manager::
 
-        with api.runtime_start(n_workers=4) as rt:
+        with api.runtime_start(backend="cluster", n_agents=2) as rt:
             ...                       # runtime_stop guaranteed on exit
 
     ``backend`` selects the executor model (see
@@ -65,9 +65,12 @@ def runtime_start(n_workers: Optional[int] = None, *,
     object plane (the paper's per-node worker architecture, §3.3.2),
     each worker its own CUDA context.  The port's pools *spawn* by
     default (``mp_context`` / ``RJAX_MP_CONTEXT``; ``"fork"`` raises once
-    this process has initialised CUDA).  ``"cluster"`` raises
-    ``ValueError`` (a later slice brings it), as does any knob that only
-    it reads.
+    this process has initialised CUDA).  ``"cluster"`` runs them on real
+    TCP node agents (``n_agents`` x ``workers_per_node``; a
+    ``LocalCluster`` on localhost unless ``cluster=`` is given), each
+    with its own spawned pool: tensors cross the wire as host bytes, the
+    agents never touch the card, node-resident results move agent to
+    agent, and a lost node's results are re-executed from lineage.
 
     ``memory_budget`` bounds every object plane (DESIGN.md §13): e.g.
     ``"256M"`` or ``2**30``; cold host arrays past the high watermark
@@ -112,7 +115,11 @@ def current_runtime() -> Runtime:
 
 def runtime_stats() -> dict:
     """Live statistics of the running runtime: task counters, wallclock/
-    utilization, the memory ledger, and the data-plane ledger."""
+    utilization, the memory ledger, and the data-plane split —
+    ``scheduler_relay_bytes`` (bytes that crossed the scheduler's own
+    link) vs ``p2p_bytes`` (bytes moved directly between node agents,
+    attributed per source node under ``data_plane.p2p_by_source``;
+    DESIGN.md §15)."""
     return current_runtime().stats()
 
 
@@ -187,8 +194,8 @@ def task(fn: Optional[Callable] = None, *, returns: int = 1, name: Optional[str]
     a body running longer has its worker killed and the attempt fails as
     a retryable :class:`~repro_torch.core.executors.DeadlineExceededError` —
     pair it with ``max_retries`` when overruns are transient.  Defaults
-    to the runtime's ``deadline_s`` knob (``RJAX_DEADLINE_S``).  Only
-    the process backend enforces it (it kills the worker); under
+    to the runtime's ``deadline_s`` knob (``RJAX_DEADLINE_S``).  The
+    process and cluster backends enforce it (they kill the worker); under
     ``"thread"`` it has no effect."""
     def wrap(f: Callable) -> TaskFunction:
         return TaskFunction(f, returns=returns, name=name, max_retries=max_retries,

@@ -1,4 +1,5 @@
-"""Runtime collectives: tree-reduce (DESIGN.md §16), the port's copy.
+"""Runtime collectives: tree-reduce, broadcast, shuffle (DESIGN.md §16),
+the port's copy.
 
 ``tree_reduce``
     Schedules a balanced k-ary merge tree over Futures.  Each tree node is
@@ -11,15 +12,21 @@
     pinning it to the node where its largest child is resident.
 
 ``broadcast``
-    Publishes a value under a fresh datum key.  On the thread and process
-    backends this is a keyed store put; the cluster backend's agent→agent
-    fan-out comes with the cluster slice of the port.
+    Fans a keyed datum out to every cluster agent over the §15 peer data
+    plane: ONE copy crosses the scheduler's own link (to a root agent),
+    the rest moves agent→agent in a doubling frontier — a binomial tree in
+    which every agent that holds the bytes immediately becomes a source
+    for one that does not.  A tensor crosses as host bytes (a tensor
+    frame) and stays host bytes on every agent.  On the thread and
+    process backends it degrades to a plain keyed store put.
 
 ``shuffle``
     All-to-all repartition of a fragment set: each input fragment is split
     into ``n_out`` keyed pieces by a user partition function, and piece
     ``p`` of every fragment is combined into output partition ``p``
-    (ndarray rows concatenated, tensor rows ``torch.cat``-ed).
+    (ndarray rows concatenated, tensor rows ``torch.cat``-ed).  Every
+    piece is a task result, so on the cluster backend the pieces stay
+    node-resident and move agent→agent to the node that combines them.
 
 The shape helpers (``reduce_spec`` / ``spec_depth``) describe exactly
 what the runtime schedules.
@@ -202,12 +209,15 @@ def tree_reduce(items: Sequence, merge, arity: int = 2):
 
 # ------------------------------------------------------------------ broadcast
 def broadcast(value: Any) -> Future:
-    """Publish ``value`` under a fresh datum key.
+    """Publish ``value`` under a fresh datum key on every node.
 
-    On the thread and process backends the value is stored client-side
-    (a process worker then reads it through the shared-memory plane, once
-    per worker); the cluster backend's agent-to-agent fan-out comes with
-    the cluster slice.  Accepts a Future (materialized first) or a plain
+    On the cluster backend the bytes cross the scheduler link once (to a
+    root agent) and then move agent→agent through the peer data plane in
+    a doubling frontier; every agent ends with the key resident, so tasks
+    consuming the returned Future never trigger a per-agent Put.  On the
+    thread and process backends the value is stored client-side (a
+    process worker then reads it through the shared-memory plane, once
+    per worker).  Accepts a Future (materialized first) or a plain
     value."""
     from . import api
 
@@ -217,6 +227,9 @@ def broadcast(value: Any) -> Future:
     store = rt.store
     key = (store.new_data_id(), 1)
     store.put(key, value)
+    fan = getattr(rt.executor, "broadcast", None)
+    if fan is not None:
+        fan(key, value, store)
     # producer task 0 never exists: graph ids start at 1, and the store
     # already holds the value, so dependents are immediately ready
     return Future(key[0], key[1], 0, store)

@@ -104,6 +104,12 @@ class TaskGraph:
         self._running: Set[int] = set()          # RUNNING task ids
         self._terminal: collections.deque = collections.deque()  # completion order
         self._durations: Dict[str, collections.deque] = {}
+        # body seconds as measured by the executing worker itself (the
+        # cluster agent times around its pool invoke and ships ``dur``
+        # in the done reply) — unlike ``_durations`` these carry no
+        # dispatch/queue latency, so the replication cost bar (§20)
+        # compares producer cost with producer cost
+        self._run_s: Dict[str, collections.deque] = {}
         self._submitted = 0      # non-speculative adds (cumulative)
         self._speculative = 0    # speculative adds (cumulative)
         self._retries = 0        # re-executions observed (cumulative)
@@ -218,9 +224,10 @@ class TaskGraph:
         newly_ready: List[int] = []
         for cid in n.children:
             c = self._nodes.get(cid)
-            # only PENDING children hold unresolved edges; decrementing a
-            # child that was already released would corrupt the in-degree
-            # bookkeeping
+            # only PENDING children hold unresolved edges; a resurrected
+            # producer (lineage re-execution, DESIGN.md §15) completes a
+            # second time with its children long released — decrementing
+            # them again would corrupt the in-degree bookkeeping
             if c is None or c.state != TaskState.PENDING:
                 continue
             c.unresolved -= 1
@@ -264,6 +271,39 @@ class TaskGraph:
             n = self._nodes[task_id]
             self._set_state_locked(n, TaskState.READY)
 
+    def producer_of(self, key: Tuple[int, int]) -> Optional[int]:
+        """The task id that produces datum ``key`` (None once pruned)."""
+        with self._lock:
+            return self._producers.get(key)
+
+    def resurrect(self, task_id: int) -> bool:
+        """Lineage re-execution (DESIGN.md §15): a DONE task whose
+        node-resident output was lost with its node goes back to READY so
+        it can run again from its recorded inputs.  Returns False when
+        the node is unknown, pruned, or not DONE (already resurrected /
+        failed — nothing to do)."""
+        with self._lock:
+            n = self._nodes.get(task_id)
+            if n is None or n.state != TaskState.DONE:
+                return False
+            try:
+                self._terminal.remove(task_id)
+            except ValueError:
+                pass
+            self._counts[TaskState.DONE] -= 1
+            self._counts[TaskState.READY] += 1
+            n.state = TaskState.READY
+            n.error = None
+            # re-arm edges to children still PENDING: their edge to this
+            # task was released by the first completion, so without the
+            # +1 the SECOND completion would double-decrement and release
+            # them while other parents are still running
+            for cid in n.children:
+                c = self._nodes.get(cid)
+                if c is not None and c.state == TaskState.PENDING:
+                    c.unresolved += 1
+            return True
+
     def mark_cancelled(self, task_id: int) -> None:
         with self._lock:
             n = self._nodes.get(task_id)
@@ -293,6 +333,33 @@ class TaskGraph:
         with self._lock:
             ds = self._durations.get(name)
             return list(ds) if ds else []
+
+    def note_run_s(self, name: str, dur: float) -> None:
+        """Record a worker-measured body duration (no queue latency) for
+        ``name`` — the cluster backend feeds these from the agent's done
+        replies."""
+        with self._lock:
+            ds = self._run_s.get(name)
+            if ds is None:
+                ds = self._run_s[name] = collections.deque(
+                    maxlen=_DURATIONS_KEPT)
+            ds.append(float(dur))
+
+    def duration_threshold(self) -> float:
+        """Fleet-wide mean of the recorded task durations — the
+        replication cost bar (DESIGN.md §20): a producer at or above the
+        mean is worth pushing a replica for, one below it is cheaper to
+        re-execute from lineage.  Prefers worker-measured body times
+        (``note_run_s``) over scheduler-observed completion latencies;
+        0.0 while no history exists, so early results replicate until
+        the profile fills in."""
+        with self._lock:
+            total = 0.0
+            n = 0
+            for ds in (self._run_s or self._durations).values():
+                total += sum(ds)
+                n += len(ds)
+        return (total / n) if n else 0.0
 
     def pending_count(self) -> int:
         with self._lock:

@@ -1,5 +1,5 @@
 """Executor backends (paper §3.3.2: persistent per-node workers), the
-port's copy: the ``"thread"`` and ``"process"`` backends.
+port's copy: the ``"thread"``, ``"process"`` and ``"cluster"`` backends.
 
 The runtime's dispatch loop is backend-agnostic: one dispatcher thread per
 worker pulls ready tasks from the :class:`~repro_torch.core.scheduler.Scheduler`
@@ -26,6 +26,16 @@ only in **where** the body runs:
                   closures) go through cloudpickle with a per-worker code
                   cache, so each function body crosses the pipe at most
                   once.
+* ``"cluster"`` — in one of N persistent worker processes *on a node
+                  agent* reached over TCP (DESIGN.md §12,
+                  :class:`ClusterExecutor`): the scheduler ships task
+                  bodies and only the inputs the target node does not
+                  already hold, node-resident results move agent to agent
+                  (DESIGN.md §15), and every node runs its own spawned
+                  ``"process"`` pool in its synchronous mode, so the
+                  shared-memory plane below serves as the intra-node tier.
+                  Tensors cross the wire as host bytes; the agent never
+                  touches the card.
 
 What the process backend does with the card, and why:
 
@@ -79,9 +89,7 @@ Semantics that differ under ``"process"`` (DESIGN.md §11): task bodies
 observe *read-only* views of plane-resident ndarray inputs (CPU tensors
 rebuilt from a segment are writable views of the shared copy: do not
 mutate them), and closure state mutated inside a body stays in the
-worker.  The cluster backend and the process pool's synchronous mode
-(which serves a cluster node agent) come with the cluster slice of the
-port.
+worker.
 """
 from __future__ import annotations
 
@@ -92,6 +100,7 @@ import struct
 import sys
 import threading
 import time
+import traceback
 from multiprocessing import get_context
 from multiprocessing import shared_memory as _shm_mod
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
@@ -253,7 +262,7 @@ def _value_to_segment(value) -> Tuple[_shm_mod.SharedMemory, ShmRef]:
     :class:`CardResult` keeps its device)."""
     if isinstance(value, CardResult):
         seg, ref = _value_to_segment(value.host)
-        ref.device = value.ref.device
+        ref.device = value.device
         return seg, ref
     if isinstance(value, torch.Tensor):
         src = _host_tensor(value)
@@ -293,64 +302,82 @@ def _segment_host_view(seg: _shm_mod.SharedMemory, ref: ShmRef):
         arr.flags.writeable = False
         return arr
     want = _TORCH_DTYPES[ref.torch_dtype]
-    host_dtype = _BIT_VIEWS.get(want, want)
     if count == 0:
         return torch.empty(shape, dtype=want)
-    host = torch.frombuffer(seg.buf, dtype=host_dtype, count=count).view(shape)
-    return host.view(want) if host_dtype is not want else host
+    # through NumPy, not torch.frombuffer: the array holds the buffer
+    # export, so closing the segment under a live tensor raises (and
+    # _dispose_segment defers it) instead of unmapping the tensor's bytes
+    host = torch.from_numpy(np.frombuffer(seg.buf, dtype=dtype, count=count).reshape(shape))
+    return host.view(want) if host.dtype is not want else host
 
 
-def _rebuild(host, ref: ShmRef):
-    """The value a reader gets for ``ref``: the host view itself, or for a
-    tensor that lived on the card, a copy uploaded to this process's card."""
-    if ref.device and ref.device != "cpu":
-        return host.to(ref.device)
+def _rebuild(host, device: str):
+    """The value a reader gets for host bytes that lived on ``device``: the
+    host view itself, or for a tensor that lived on the card, a copy
+    uploaded to this process's card."""
+    if device and device != "cpu":
+        return host.to(device)
     return host
 
 
 class CardResult(Deferred):
-    """A worker's result tensor that lived on the card, held in the
-    parent's store as its host view (zero-copy on the segment) until the
-    parent reads it: the first ``Future.result`` uploads it to this
-    process's card, once.  Shipping it on to another worker sends the
-    segment's ref and uploads nothing here."""
+    """The host bytes of a tensor that lived on the card: a worker's
+    result in the parent's store (a zero-copy view of its segment), or a
+    card tensor that crossed a cluster wire (a view of its frame).  Held
+    as host bytes until it is read: the first ``Future.result`` uploads it
+    to this process's card, once.  Shipping it on to another worker or
+    node sends the host bytes and uploads nothing here, so a process that
+    never reads it (a node agent) never touches the card."""
 
-    __slots__ = ("host", "ref", "_value", "_lock")
+    __slots__ = ("host", "device", "_value", "_lock")
 
-    def __init__(self, host: torch.Tensor, ref: ShmRef):
+    def __init__(self, host: torch.Tensor, device: str):
         self.host = host
-        self.ref = ref
+        self.device = device
         self._value = None
         self._lock = threading.Lock()
 
     @property
     def nbytes(self) -> int:
-        return self.ref.nbytes
+        return self.host.numel() * self.host.element_size()
 
     def materialize(self) -> torch.Tensor:
         with self._lock:
             if self._value is None:
-                self._value = _rebuild(self.host, self.ref)
+                self._value = _rebuild(self.host, self.device)
             return self._value
 
     def __reduce__(self):   # pickled straight through: rebuilt where read
-        return _rebuild, (self.host, self.ref)
+        return _rebuild, (self.host, self.device)
 
 
 _LEAVES = _LEAVES + (CardResult,)
+
+
+class _CardBytes(CardResult):
+    """A worker's small card result (below the segment threshold), sent
+    through the pipe as its host bytes: it unpickles as a plain
+    :class:`CardResult`, never as a CUDA tensor, so the receiving process
+    (the parent, or a node agent that has no CUDA context) uploads
+    nothing until the value is read."""
+
+    __slots__ = ()
+
+    def __reduce__(self):
+        return CardResult, (self.host, self.device)
 
 
 def _attached(host, ref: ShmRef):
     """What the parent stores for a result segment: a card tensor stays
     a :class:`CardResult` until it is read; anything else is its view."""
     if ref.device and ref.device != "cpu":
-        return CardResult(host, ref)
+        return CardResult(host, ref.device)
     return host
 
 
 def _shm_eligible(value) -> bool:
     if isinstance(value, CardResult):
-        return True
+        return value.nbytes >= SHM_MIN_BYTES
     if isinstance(value, torch.Tensor):
         return str(value.dtype).split(".")[1] in _TORCH_DTYPES \
             and value.numel() * value.element_size() >= SHM_MIN_BYTES
@@ -509,6 +536,11 @@ class SegmentPlane:
         if seg is not None:
             _dispose_segment(seg, unlink=True)
 
+    def names(self) -> List[str]:
+        """The names of every segment the plane holds now."""
+        with self._lock:
+            return sorted(self._by_name)
+
     def stats(self) -> dict:
         with self._lock:
             s = {
@@ -551,7 +583,7 @@ class _WorkerSegmentCache:
                 self.counters["device_uploads_saved"] += 1
             return hit[1]
         seg = _shm_mod.SharedMemory(name=ref.name)
-        value = _rebuild(_segment_host_view(seg, ref), ref)
+        value = _rebuild(_segment_host_view(seg, ref), ref.device)
         if on_card:
             self.counters["device_uploads"] += 1
             self.counters["device_upload_bytes"] += ref.nbytes
@@ -669,6 +701,11 @@ def _encode_result(result: Any, cache: "_WorkerSegmentCache"
         if passthrough is not None:   # identity result: reship, don't re-copy
             return passthrough
         if not _shm_eligible(value):
+            if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+                # a small card tensor: host bytes, never a pickled CUDA
+                # tensor (unpickling one would initialise CUDA where read)
+                return _CardBytes(value.detach().cpu(),
+                                  value.device.type)
             return value
         seg, ref = _value_to_segment(value)   # parent takes ownership on adopt()
         created.append(seg)
@@ -1026,8 +1063,12 @@ class ExecutorBackend:
                 # call per execution
                 self._submit_batch(worker, exs)
 
-    def _submit_batch(self, worker: int, exs: List) -> None:
+    def _submit_pipelined(self, worker: int, ex) -> None:
         raise NotImplementedError
+
+    def _submit_batch(self, worker: int, exs: List) -> None:
+        for ex in exs:
+            self._submit_pipelined(worker, ex)
 
     def _await_worker(self, worker: int) -> None:
         """Hook: block the dispatcher of ``worker`` until it can take a
@@ -1104,19 +1145,31 @@ def start_method(mp_context: Optional[str] = None) -> str:
 class ProcessExecutor(ExecutorBackend):
     """Persistent worker processes + shared-memory object plane.
 
-    Each worker pipe carries up to ``pipeline_depth`` in-flight task
-    messages, dispatcher threads hand off without blocking, and one
-    per-pool *collector* thread drains every worker's replies (replies
-    are strictly FIFO per pipe, so completion matching is a deque pop)."""
+    Runtime mode (``start()``) is pipelined: each worker pipe carries up
+    to ``pipeline_depth`` in-flight task messages, dispatcher threads hand
+    off without blocking, and one per-pool *collector* thread drains every
+    worker's replies (replies are strictly FIFO per pipe, so completion
+    matching is a deque pop).  Pool mode (``spawn_workers()`` +
+    ``invoke()``, used by the cluster node agent) stays synchronous
+    stop-and-wait per slot thread.
+
+    ``settings`` are the torch settings the workers take at spawn (default:
+    this process's, read at each spawn); a node agent passes the
+    scheduler's, since it has no CUDA context of its own to read.
+    ``build_kernels=False`` leaves the kernel library to the workers (a
+    node agent loads no CUDA library: the scheduler built it)."""
 
     name = "process"
     pipelined = True
 
     def __init__(self, n_workers: int, label: str = "rjax",
                  mp_context: Optional[str] = None, memory_budget=None,
-                 pipeline_depth: int = 1):
+                 pipeline_depth: int = 1, settings: Optional[dict] = None,
+                 build_kernels: bool = True):
         super().__init__(n_workers, label, pipeline_depth=pipeline_depth)
         self._ctx = get_context(start_method(mp_context))
+        self.settings = settings
+        self.build_kernels = build_kernels
         self.plane = SegmentPlane(memory_budget=memory_budget)
         self.plane.on_evict = self._note_evicted
         # evicted segment names each worker has not yet been told to drop;
@@ -1134,6 +1187,12 @@ class ProcessExecutor(ExecutorBackend):
         self._collector: Optional[threading.Thread] = None
         self._collector_stop = threading.Event()
         self._conn_gen = 0   # bumped per (re)spawn; keys the selector registry
+        # fds (beyond sibling pipe ends) that forked workers must close so
+        # a dead parent actually EOFs its peers — e.g. the node agent's TCP
+        # socket: a worker inheriting it would keep the scheduler's
+        # connection half-open after the agent dies, masking the crash
+        # (a spawned worker inherits no fd but its own pipe end)
+        self.inherit_blockers: List[int] = []
         # set once a worker has reported ready: the dispatcher of a
         # respawning worker takes no task, so retried tasks go to the
         # workers that are up
@@ -1154,7 +1213,8 @@ class ProcessExecutor(ExecutorBackend):
 
     # -- process management --------------------------------------------------
     def spawn_workers(self) -> None:
-        """Start the persistent worker pool."""
+        """Start the persistent worker pool.  Public because the cluster
+        node agent drives this pool directly (no dispatcher threads)."""
         # the tracker must exist BEFORE the first worker starts, or each
         # worker lazily starts its own and the one-tracker accounting
         # (and its crash safety-net) silently fragments
@@ -1163,7 +1223,7 @@ class ProcessExecutor(ExecutorBackend):
             resource_tracker.ensure_running()
         except Exception:
             pass
-        if torch.cuda.is_available():
+        if self.build_kernels and torch.cuda.is_available():
             # build the kernel library here, once, so that no worker
             # compiles: workers load the published library
             from ..kernels import _build
@@ -1209,8 +1269,10 @@ class ProcessExecutor(ExecutorBackend):
                         close_fds.append(c.fileno())
                     except (OSError, ValueError):
                         pass
+            close_fds.extend(self.inherit_blockers)
+        settings = self.settings if self.settings is not None else _torch_settings()
         p = self._ctx.Process(target=_worker_main,
-                              args=(child, worker, tuple(close_fds), _torch_settings()),
+                              args=(child, worker, tuple(close_fds), settings),
                               daemon=True, name=f"{self.label}-p{worker}")
         self._ready[worker].clear()
         p.start()
@@ -1480,9 +1542,7 @@ class ProcessExecutor(ExecutorBackend):
             self._ready[w].set()
             return
         kind, counters, payload = _unpack_reply(resp)
-        if counters:
-            with self._counter_lock:
-                self.worker_counters.update(counters)
+        self._note_counters(counters)
         with self._inflight_locks[w]:
             entry = (self._inflight[w].popleft()
                      if self._inflight[w] else None)
@@ -1583,6 +1643,73 @@ class ProcessExecutor(ExecutorBackend):
             q = self._inflight[worker]
             return q[0].ex.t.name if q else None
 
+    def _note_counters(self, counters: Dict[str, int]) -> None:
+        if counters:
+            with self._counter_lock:
+                self.worker_counters.update(counters)
+
+    # -- synchronous invocation (pool mode: the cluster node agent) ----------
+    def invoke(self, worker, fn, args, kwargs, input_keys=None):
+        """Run one task on ``worker`` and wait for its reply.  Keyed
+        inputs enter the plane leaf by leaf (the datum key extended by the
+        leaf's path), as in the pipelined mode.  The reply's counter
+        deltas (this task's launches, uploads, the worker's reserved card
+        bytes) are summed into ``stats()`` and left for the calling thread
+        in :meth:`last_counters`."""
+        self._tl.deltas = {}
+        token, blob = self._fns.entry(fn)
+        structure = (args, kwargs)
+        keys = self._plane_keys(structure, input_keys or {})
+        # pin this task's plane keys for the whole round-trip: a ref on
+        # the pipe must never point at a segment the governor unlinked
+        pinned = frozenset(keys.values())
+        if self.plane.governor is not None and pinned:
+            self.plane.governor.pin_many(pinned)
+        try:
+            structure = self._encode_structure(structure, keys)
+            with self._conn_locks[worker]:
+                conn = self._conns[worker]
+                first = token not in self._shipped[worker]
+                with self._evict_lock:
+                    evicted = tuple(self._pending_evicts[worker])
+                    self._pending_evicts[worker] = set()
+                try:
+                    if not self._ready[worker].is_set():
+                        # a respawned worker: its ready message comes first
+                        ready = conn.recv_bytes() if conn.poll(_READY_TIMEOUT_S) else b""
+                        if ready != _READY:
+                            raise EOFError(f"worker process {worker} did not start")
+                        self._ready[worker].set()
+                    conn.send_bytes(self._pack_task_bytes(
+                        token, blob, first, structure, evicted))
+                    self._shipped[worker].add(token)
+                    resp = conn.recv_bytes()
+                except (EOFError, OSError) as err:
+                    if not self._closing:
+                        self._restart(worker)
+                    raise WorkerCrashedError(
+                        f"worker process {worker} died executing "
+                        f"{getattr(fn, '__name__', fn)!r}") from err
+            kind, counters, payload = _unpack_reply(resp)
+            self._note_counters(counters)
+            self._tl.deltas = counters
+            if kind == b"K":
+                # decode while the inputs stay pinned: a pass-through
+                # result reships an input ref, which must still attach
+                return self._decode_result(payload)
+        finally:
+            if self.plane.governor is not None and pinned:
+                self.plane.governor.unpin_many(pinned)
+        enc, tb = pickle.loads(payload)
+        raise _rebuild_remote_error(enc, tb)
+
+    def last_counters(self) -> Dict[str, int]:
+        """Take the counter deltas of this thread's last :meth:`invoke`
+        reply (empty once taken, and after an invoke that got none)."""
+        deltas = getattr(self._tl, "deltas", None) or {}
+        self._tl.deltas = {}
+        return dict(deltas)
+
     def _restart(self, worker: int) -> None:
         self.worker_restarts += 1
         proc = self._procs[worker]
@@ -1607,6 +1734,8 @@ class ProcessExecutor(ExecutorBackend):
         for w, conn in enumerate(self._conns):
             if conn is None:
                 continue
+            # a slot thread blocked in recv holds the lock (pool mode):
+            # skip the polite exit for that worker and terminate it below
             if self._conn_locks[w].acquire(timeout=0.5 if wait else 0.05):
                 try:
                     conn.send_bytes(b"X")
@@ -1641,6 +1770,7 @@ class ProcessExecutor(ExecutorBackend):
             counters = dict(self.worker_counters)
         s = {"backend": self.name, "control_plane": "threads",
              "start_method": self._ctx.get_start_method(),
+             "worker_pids": self.worker_pids,
              "worker_restarts": self.worker_restarts,
              "pipeline_depth": self.pipeline_depth,
              "descriptor_sends": self.descriptor_sends,
@@ -1657,18 +1787,1606 @@ class ProcessExecutor(ExecutorBackend):
         return s
 
 
-BACKENDS = {"thread": ThreadExecutor, "process": ProcessExecutor}
+class ClusterExecutor(ExecutorBackend):
+    """Dispatch tasks to TCP node agents (DESIGN.md §12).
 
-# the slice of the port that will bring each backend that is not here yet
-_LATER = {"cluster": "the cluster-backend slice"}
+    Slot ``worker`` maps to agent ``worker // workers_per_node``, which
+    is also the task's locality domain, so the ``locality`` policy
+    scores real cross-node residency.  Each slot streams up to
+    ``pipeline_depth`` task requests before any completion arrives
+    (DESIGN.md §14).
+
+    Two control planes (``RJAX_CONTROL_PLANE`` / the ``control_plane``
+    knob, DESIGN.md §18): the default ``async`` plane runs every channel
+    as a coroutine pair on one IOLoop thread and dispatches from a loop
+    pump — scheduler-side thread count is O(1) in agent count; the
+    legacy ``threads`` plane keeps one dispatcher thread per slot and
+    one reader thread per channel, with replies routed on the reader.
+
+    Data plane: the scheduler tracks, per agent, which keys that node
+    already caches.  A keyed array or tensor input is shipped inside the
+    task message (``Put``) the *first* time a node needs it and referenced
+    (``Ref``) ever after — the wire-level send-once/reuse-many property.
+    Results at or above the inline threshold stay node-resident and come
+    back as :class:`~repro_torch.core.futures.RemoteValue` descriptors;
+    smaller ones come back tagged with agent-side cache tokens, and when
+    the runtime publishes them an ``alias`` control message pins them
+    into the producing node's plane under their datum key, so a node
+    never re-downloads its own outputs.
+
+    Device values cross as host bytes (tensor frames of
+    :mod:`repro_torch.cluster.protocol`): a node agent holds host bytes
+    only and never touches the card; its spawned pool workers rebuild a
+    tensor on the device it lived on, and this process uploads a card
+    result only when ``Future.result`` reads it.  Each ``done`` reply
+    carries the counter deltas of that task's pool reply (kernel
+    launches, device uploads, the worker's reserved card bytes), summed
+    into ``stats()`` as under the process backend.
+
+    Per-agent consistency relies on connection FIFO ordering: residency
+    marks and the messages that justify them are emitted under one
+    per-agent ordering lock, so a ``Ref`` can never overtake its ``Put``
+    or ``alias`` on the wire — pipelining does not change this, because
+    the marks are made at *send* time under the same lock.
+
+    Failure model: a dropped agent connection fails every in-flight task
+    on that agent as a retryable :class:`WorkerCrashedError`; if the
+    cluster harness can respawn the agent, the executor does so and clears
+    that node's residency ledger, after which retries re-ship whatever the
+    replacement needs.
+    """
+
+    name = "cluster"
+    pipelined = True
+    # dispatch resolves inputs WITHOUT materializing node-resident
+    # results: RemoteValue placeholders flow through pack_payload as
+    # Ref/Fetch directives instead (DESIGN.md §15)
+    remote_values_ok = True
+
+    def __init__(self, n_workers: int, label: str = "rjax", cluster=None,
+                 pipeline_depth: int = 1, p2p=None, control_plane=None,
+                 liveness=None, suspicion_s=None, reconnect_grace_s=None,
+                 replication=None):
+        super().__init__(n_workers, label, pipeline_depth=pipeline_depth)
+        from .config import parse_bool, resolve as resolve_knob
+        from .fault import LivenessConfig
+        if cluster is None:
+            raise ValueError(
+                'backend="cluster" needs a cluster= harness '
+                "(e.g. repro_torch.cluster.LocalCluster)")
+        self.cluster = cluster
+        self.n_agents = int(cluster.n_agents)
+        self.wpn = int(cluster.workers_per_node)
+        if self.n_workers != self.n_agents * self.wpn:
+            raise ValueError(
+                f"n_workers={self.n_workers} != n_agents({self.n_agents}) x "
+                f"workers_per_node({self.wpn})")
+        # peer data plane kill-switch: RJAX_P2P=0 restores the §12
+        # star topology (every result framed back to the scheduler)
+        self.p2p = resolve_knob(p2p, "RJAX_P2P", default=True,
+                                cast=parse_bool)
+        # scheduler comm layer (DESIGN.md §18): "async" = one IOLoop
+        # thread owns every channel + the dispatch pump (O(1) threads in
+        # agent count); "threads" = the legacy reader-thread-per-channel
+        # + dispatcher-thread-per-slot structure
+        self.control_plane = resolve_knob(
+            control_plane, "RJAX_CONTROL_PLANE", default="async")
+        if self.control_plane not in ("async", "threads"):
+            raise ValueError(
+                f"control_plane must be 'async' or 'threads', "
+                f"got {self.control_plane!r}")
+        self.async_plane = self.control_plane == "async"
+        # liveness failure detector (DESIGN.md §19): suspicion over
+        # heartbeat age + in-flight request deadlines; a dead verdict
+        # closes the channel, driving the normal on_close recovery
+        self.liveness_cfg = LivenessConfig(
+            enabled=resolve_knob(liveness, "RJAX_LIVENESS",
+                                 default=True, cast=parse_bool),
+            suspicion_s=resolve_knob(suspicion_s, "RJAX_SUSPICION_S",
+                                     default=5.0, cast=float))
+        self._detector = None
+        self._liveness_stop = threading.Event()
+        self._liveness_thread: Optional[threading.Thread] = None
+        # per-agent in-flight scheduler-side deadlines: id(ex) ->
+        # monotonic kill time (deadline + slack), under _stats_lock.
+        # The agent watchdog fires first at deadline_s; this is the
+        # backstop for an agent too wedged to run its own watchdog
+        self._deadline_inflight: List[Dict[int, float]] = []
+        self._deadline_slack = 0.0
+        self.liveness_kills = 0
+        # session resumption (DESIGN.md §20): on a TCP disconnect the
+        # agent is PARKED for a grace window and allowed to re-dial with
+        # its session token instead of being killed and replayed.  Only
+        # wired on the async plane (the legacy channel starts its
+        # on_close thread before consulting the adoption hook, so parking
+        # there would race the restart path).
+        self.reconnect_grace_s = resolve_knob(
+            reconnect_grace_s, "RJAX_RECONNECT_GRACE_S", default=5.0,
+            cast=float)
+        self.resumption = self.async_plane and self.reconnect_grace_s > 0
+        # asynchronous k-way replication (DESIGN.md §20): node-resident
+        # results whose producer cost clears the duration threshold are
+        # pushed to k buddy planes over the existing p2p bcast leg
+        self.replication = resolve_knob(
+            replication, "RJAX_REPLICATION", default=0, cast=int)
+        self._io = None            # IOLoop (async control plane only)
+        self._recovery = None      # small pool for blocking recovery work
+        self._agent_up = [True] * self.n_agents
+        # agents being replaced right now: a late failure callback of the
+        # dead channel must not park it for a resumption it cannot make
+        self._restarting: Set[int] = set()
+        self._channels: List[Any] = [None] * self.n_agents
+        self._data_addrs: List[Optional[str]] = [None] * self.n_agents
+        self._order_locks = [threading.Lock() for _ in range(self.n_agents)]
+        self._restart_lock = threading.Lock()
+        self._resident: List[Set[Tuple[int, int]]] = [set() for _ in range(self.n_agents)]
+        self._shipped_fns: List[Set[int]] = [set() for _ in range(self.n_agents)]
+        self._fns = _FnRegistry()
+        self._peers = None         # scheduler-side PeerPool (gather path)
+        self._tl = threading.local()
+        self._closing = False
+        # data-plane counters are bumped from per-agent channel reader
+        # threads AND dispatcher threads — bare += across threads loses
+        # updates, and relay_bytes is the CI-gated §15 acceptance metric
+        self._stats_lock = threading.Lock()
+        # first agent each scheduler-resident key was Put to (key ->
+        # (agent, nbytes), under _stats_lock): later agents needing the
+        # same key pull it agent→agent instead of costing a second copy
+        # over our own link (the broadcast-residue fix, DESIGN.md §16)
+        self._put_home: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        # residency generations (§20): per-(agent, key) counter bumped on
+        # every residency MARK the scheduler sends (Put/Fetch/alias/bcast
+        # leg); the agent bumps its mirror on receipt.  Equal counters at
+        # resume time prove the mark landed — the manifest reconciliation
+        # predicate.  Survives _drop_residency (a strike is not a
+        # process death); reset only when the process is replaced.
+        # Guarded by _order_locks[a], like _resident.
+        self._res_gen: List[Dict[Tuple[int, int], int]] = [
+            dict() for _ in range(self.n_agents)]
+        # process generation per agent: bumped in _restart_agent only.
+        # Result-token views carry the gen they were minted under so
+        # publish/drop never talk to a replacement process, while tokens
+        # minted before a RESUME (same process) stay valid.
+        self._proc_gen = [0] * self.n_agents
+        # parked agents: a -> {"ch", "token", "pending", "next_mid",
+        # "deadline", "timer", "state"}; under _park_lock.  "state" moves
+        # disconnected -> reconnecting while _on_resume reconciles.
+        self._park_lock = threading.Lock()
+        self._disconnected: Dict[int, dict] = {}
+        # ops (alias/drop) that arrived while the agent was parked; each
+        # list guarded by _order_locks[a], flushed on resume in order
+        self._parked_ops: List[list] = [[] for _ in range(self.n_agents)]
+        # in-flight task sends by mid: a -> {mid: (worker, ex)}.  A mid
+        # the resumed agent never received maps back to its task here and
+        # is re-submitted on the new channel instead of burning a retry
+        # (GIL-atomic dict ops; entries die with the reply or restart)
+        self._inflight_reqs: List[Dict[int, tuple]] = [
+            dict() for _ in range(self.n_agents)]
+        # replica locations: key -> set of agents holding a pushed copy
+        # (beyond the producer); under _stats_lock
+        self._replicas: Dict[Tuple[int, int], Set[int]] = {}
+        self.reconnects = 0        # sessions resumed in place
+        self.replica_bytes = 0     # bytes pushed to buddy planes
+        self.replica_hits = 0      # lost keys served from a replica
+        self.agent_restarts = 0
+        self.broadcasts = 0        # collective broadcast waves completed
+        self.puts = 0              # keyed datums shipped to some node
+        self.refs = 0              # keyed datums referenced, not re-shipped
+        self.fetches = 0           # peer-fetch directives issued
+        self.fetch_bytes = 0       # bytes those directives moved node↔node
+        self.bytes_shipped = 0     # scheduler→agent Put bytes
+        self.relay_result_bytes = 0   # agent→scheduler result frame bytes
+        self.remote_results = 0       # datums left node-resident
+        self.deferred_result_bytes = 0  # bytes that never crossed our link
+        # the agents' pool counters, summed from the done replies
+        self._counter_lock = threading.Lock()
+        self.worker_counters: Dict[str, int] = collections.Counter()
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self, runtime) -> None:
+        from ..cluster.peer import PeerPool
+        from ..cluster.protocol import inline_max_from_env
+        from .telemetry import heartbeat_interval
+        if torch.cuda.is_available():
+            # build the kernel library here, once, before any task runs:
+            # the agents' pool workers load the published library, and
+            # the agents themselves load no CUDA library at all
+            from ..kernels import _build
+            _build.library()
+        self.cluster.p2p = self.p2p
+        # ship the scheduler-side inline threshold in the welcome, so
+        # external agents on other hosts apply the same encoding policy
+        if getattr(self.cluster, "inline_max", None) is None:
+            self.cluster.inline_max = inline_max_from_env()
+        # likewise the heartbeat cadence (DESIGN.md §17): resolved here
+        # from the scheduler's environment so off-host agents beat in step
+        if getattr(self.cluster, "heartbeat_s", None) is None:
+            self.cluster.heartbeat_s = heartbeat_interval()
+        # grace window rides the welcome so agents know to re-dial
+        # (None disables the agent-side reconnect loop entirely)
+        if hasattr(self.cluster, "reconnect_grace_s"):
+            self.cluster.reconnect_grace_s = (
+                self.reconnect_grace_s if self.resumption else None)
+        if self.async_plane:
+            from ..cluster.eventloop import AsyncAgentChannel, IOLoop
+            self._io = IOLoop(name=f"{self.label}-io")
+            # every accepted/respawned agent connection becomes a
+            # coroutine pair on the one loop instead of a reader thread
+            self.cluster.channel_factory = (
+                lambda sock, nid, hello: AsyncAgentChannel(
+                    sock, nid, hello, io=self._io))
+        try:
+            self._channels = self.cluster.accept_agents()
+        except Exception:
+            self.cluster.shutdown()
+            if self._io is not None:
+                self._io.stop()
+            raise
+        self._peers = PeerPool(label=f"{self.label}-sched")
+        # arm the failure detector BEFORE channels are installed so
+        # note_install (the synthetic first beat) has somewhere to land
+        from .fault import FailureDetector
+        self._detector = FailureDetector(
+            self.liveness_cfg, float(self.cluster.heartbeat_s or 0.0))
+        self._deadline_slack = max(
+            1.0, 2.0 * float(self.cluster.heartbeat_s or 0.0))
+        self._deadline_inflight = [dict() for _ in range(self.n_agents)]
+        for a, ch in enumerate(self._channels):
+            self._install_channel(a, ch)
+        if self.resumption and hasattr(self.cluster, "start_acceptor"):
+            # re-dials land on the harness's background acceptor and are
+            # routed here with the session token for reconciliation
+            self.cluster.start_acceptor(self._on_resume)
+        runtime.store.set_fetcher(self._fetch_remote)
+        if self.liveness_cfg.enabled:
+            self._liveness_thread = threading.Thread(
+                target=self._liveness_loop, daemon=True,
+                name=f"{self.label}-liveness")
+            self._liveness_thread.start()
+        if not self.async_plane:
+            super().start(runtime)
+            return
+        # async control plane (DESIGN.md §18): no dispatcher threads.
+        # The scheduler's ready hook and every completion re-enter the
+        # dispatch pump on the loop; blocking recovery work (agent
+        # respawn, lost-input waits) is offloaded to a 2-thread pool so
+        # the loop never stalls — total scheduler-side thread count is
+        # O(1) in agent count.
+        from concurrent.futures import ThreadPoolExecutor
+        from .runtime import InputsPending
+        self._inputs_pending = InputsPending
+        self.runtime = runtime
+        self._credits = [threading.Semaphore(self.pipeline_depth)
+                         for _ in range(self.n_workers)]
+        self._recovery = ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix=f"{self.label}-recover")
+        runtime.scheduler.on_ready = self._schedule_pump
+        self._io.call_soon(self._pump)
+
+    def _install_channel(self, a: int, ch) -> None:
+        self._data_addrs[a] = ch.data_addr()
+        ch.on_close = lambda _a=a, _ch=ch: self._on_channel_down(_a, _ch)
+        ch.on_push = lambda meta, frames, _a=a: self._on_push(_a, meta)
+        if self.resumption:
+            # the channel consults this before erroring its in-flight
+            # slots: True = the executor adopted them (parked, awaiting a
+            # session resume); False = fail them retryably as before
+            ch.on_lost_pending = (
+                lambda pending, _a=a, _ch=ch:
+                    self._maybe_park(_a, _ch, pending))
+        if self._detector is not None:
+            self._detector.note_install(a)
+
+    def _on_push(self, a: int, meta: dict) -> None:
+        """Agent-initiated push (channel reader thread): feed the failure
+        detector and route heartbeats into the runtime's telemetry hub.
+        Guarded — the first beats can arrive before ``super().start``
+        binds the runtime."""
+        if meta.get("op") != "hb" or self._closing:
+            return
+        if self._detector is not None:
+            # liveness is independent of whether telemetry is enabled
+            self._detector.note_beat(a)
+        rt = self.runtime
+        if rt is not None:
+            rt.telemetry.note_heartbeat(meta.get("node", a),
+                                        meta.get("stats") or {})
+
+    def _on_channel_down(self, a: int, ch) -> None:
+        """Connection-death hook: recover even when nothing was in
+        flight — the dead node may hold the only copy of published
+        results (DESIGN.md §15)."""
+        if self._detector is not None:
+            # this hook runs on the dead channel's drain thread and can
+            # arrive AFTER a session resume already installed (and
+            # note_install-ed) the successor — wiping the fresh view
+            # would read as an instant DEAD verdict on the next liveness
+            # poll.  The order lock serializes against _do_resume's swap.
+            with self._order_locks[a]:
+                if self._channels[a] is ch:
+                    self._detector.note_removed(a)
+        if self._closing:
+            return
+        # session resumption (§20): a parked channel's recovery belongs
+        # to the grace timer / resume handler, not the restart path.
+        # _maybe_park is idempotent — on_lost_pending (fires only when
+        # requests were in flight) and this hook race freely, and an idle
+        # disconnect (no pending) parks here.
+        if ch is not None and self._maybe_park(a, ch, {}):
+            self._agent_up[a] = False
+            return
+        if self.async_plane:
+            self._kick_restart(a, ch)
+        else:
+            self._restart_agent(a, ch)
+
+    # -- liveness monitor (DESIGN.md §19) ------------------------------------
+    def _liveness_loop(self) -> None:
+        """Poll the failure detector and act on ``dead`` verdicts by
+        closing the node's channel — everything downstream (failing the
+        in-flight tasks retryable, respawn, §15 lineage re-execution) is
+        the one existing ``on_close`` recovery path."""
+        from .fault import DEAD
+        det = self._detector
+        poll = max(0.02, min(0.25, self.liveness_cfg.suspicion_s / 8.0))
+        while not self._liveness_stop.wait(poll):
+            if self._closing:
+                return
+            for a in range(self.n_agents):
+                ch = self._channels[a]
+                if ch is None or ch.closed or not self._agent_up[a]:
+                    continue   # down or respawning: recovery owns it
+                dl = self._deadline_inflight[a]
+                if dl:
+                    with self._stats_lock:
+                        oldest = min(dl.values()) if dl else None
+                    det.note_deadline(a, oldest)
+                else:
+                    det.note_deadline(a, None)
+                if det.assess(a) == DEAD:
+                    with self._stats_lock:
+                        self.liveness_kills += 1
+                    # a liveness verdict means the PROCESS is gone or
+                    # wedged — never park this channel for resumption
+                    ch.liveness_killed = True
+                    ch.close()
+
+    # -- async dispatch pump (DESIGN.md §18) ---------------------------------
+    def _schedule_pump(self) -> None:
+        io = self._io
+        if io is not None and not self._stop_dispatch:
+            io.call_soon(self._pump)
+
+    def _pump(self) -> None:
+        """The dispatch loop, as a loop callback: drain ready tasks into
+        free credits, no dispatcher threads.  Runs on the IOLoop, so it
+        must never block — credit acquire and scheduler take are
+        non-blocking polls, and input resolution that would wait (a
+        lost-node recovery race) is offloaded to a thread of its own,
+        which gives the worker's credit back while it waits."""
+        rt = self.runtime
+        if rt is None or self._stop_dispatch:
+            return
+        for worker in range(self.n_workers):
+            if not self._agent_up[worker // self.wpn]:
+                continue
+            credits = self._credits[worker]
+            node_id = rt.locality_domain(worker)
+            while credits.acquire(blocking=False):
+                if self._stop_dispatch:
+                    credits.release()
+                    return
+                tid = rt.scheduler.take(worker, timeout=0)
+                if tid is None:
+                    credits.release()
+                    break
+                rt._note_worker_busy()
+                try:
+                    ex = rt.begin_task(tid, worker, node_id,
+                                       block_inputs=False)
+                except self._inputs_pending as pend:
+                    # the claim waits for an input that lineage recovery
+                    # is re-executing: its credit goes back meanwhile, or
+                    # waiting consumers could hold every credit the
+                    # re-executed producers need to be dispatched
+                    credits.release()
+                    threading.Thread(target=self._resume_begin, args=(worker, pend),
+                                     daemon=True, name=f"{self.label}-pending").start()
+                    continue
+                if ex is None:   # cancelled / completed during resolution
+                    rt._note_worker_idle()
+                    credits.release()
+                    continue
+                self._submit_pipelined(worker, ex)
+
+    def _resume_begin(self, worker: int, pend) -> None:
+        """Tail of a non-blocking ``begin_task``, off the loop: wait for
+        the straggling input (or its error), take a credit of the worker
+        again, then submit."""
+        rt = self.runtime
+        ex = rt.resume_begin(pend)
+        if ex is None:
+            rt._note_worker_idle()
+            self._schedule_pump()
+            return
+        self._credits[worker].acquire()
+        self._submit_pipelined(worker, ex)
+
+    def _kick_restart(self, a: int, ch, park: bool = True) -> None:
+        """Route an agent death to a thread of its own: respawn blocks on
+        process spawn + handshake, which must never run on the loop, and
+        it must not queue behind the recovery pool either, whose threads
+        may all be waiting for inputs that only this recovery brings back
+        (lineage re-execution of the dead node's results).  The agent's
+        workers are skipped by the pump until the replacement is up.
+        ``park=False`` is the resumption machinery giving up on a session
+        (grace expired / resume failed): the respawn must proceed, never
+        re-park the same dead channel."""
+        if self._closing:
+            return
+        # a caller that observed ``closed`` before the park registered
+        # (the flag flips a beat earlier) must not respawn a channel the
+        # resume path owns — park it here instead (idempotent)
+        if park and ch is not None and self._maybe_park(a, ch, {}):
+            self._agent_up[a] = False
+            return
+        self._agent_up[a] = False
+
+        def work():
+            try:
+                self._restart_agent(a, ch)
+            finally:
+                new_ch = self._channels[a]
+                self._agent_up[a] = new_ch is not None and not new_ch.closed
+                self._schedule_pump()
+
+        threading.Thread(target=work, daemon=True,
+                         name=f"{self.label}-respawn{a}").start()
+
+    def _fetch_remote(self, key, rv, timeout=None):
+        """The store's gather-path materializer: pull a node-resident
+        datum straight from its producer's data plane, within the
+        caller's remaining deadline when one was given."""
+        from ..cluster.peer import PEER_FETCH_TIMEOUT, PeerFetchError
+        if rv.addr is None or self._peers is None:
+            raise PeerFetchError(
+                f"no data-plane address for node {rv.node} "
+                f"(d{key[0]}v{key[1]})")
+        t = PEER_FETCH_TIMEOUT if timeout is None \
+            else max(0.1, min(timeout, PEER_FETCH_TIMEOUT))
+        return self._peers.fetch(rv.addr, key, rv.token, timeout=t)
+
+    def shutdown(self, wait: bool = True, timeout: float = 10.0) -> None:
+        from ..cluster.protocol import ConnectionClosed
+        self._closing = True
+        self._liveness_stop.set()
+        if self._liveness_thread is not None:
+            self._liveness_thread.join(timeout=2.0)
+        self._halt_dispatch()
+        if self.runtime is not None:
+            self.runtime.store.set_fetcher(None)
+            sched = getattr(self.runtime, "scheduler", None)
+            if sched is not None and getattr(sched, "on_ready", None) is not None:
+                sched.on_ready = None
+        for ch in self._channels:
+            if ch is not None and not ch.closed:
+                try:
+                    ch.post({"op": "exit"})
+                except ConnectionClosed:
+                    pass
+        super().shutdown(wait=wait, timeout=timeout)
+        if self._recovery is not None:
+            # pending respawns observe _closing and exit fast; an
+            # in-flight one must not wedge shutdown
+            self._recovery.shutdown(wait=False, cancel_futures=True)
+        if self._peers is not None:
+            self._peers.close()
+        for ch in self._channels:
+            if ch is not None:
+                ch.close()
+        try:
+            self.cluster.shutdown()
+        except Exception:
+            pass
+        if self._io is not None:
+            self._io.stop()
+
+    # -- pipelined dispatch --------------------------------------------------
+    def _submit_pipelined(self, worker: int, ex) -> None:
+        from ..cluster.protocol import ConnectionClosed, pack_payload
+        a, slot = divmod(worker, self.wpn)
+        ch = self._channels[a]
+        if ch is None or ch.closed:
+            if self.async_plane:
+                # a parked channel (§20) is coming back: hold the task
+                # for the resumed session rather than burning a retry
+                if self._defer_if_parked(a, worker, ex):
+                    return
+                # never respawn inline (it blocks); fail retryably and
+                # let the recovery pool bring the agent back — unless the
+                # channel is parked for session resumption (§20), whose
+                # grace timer owns recovery
+                if not self._closing and not self._is_parked(a):
+                    self._kick_restart(a, ch)
+                self._finish_cluster(worker, ex, error=WorkerCrashedError(
+                    f"node agent {a} is down"))
+                return
+            if not self._closing:
+                self._restart_agent(a, ch)   # no-op if already replaced
+            ch = self._channels[a]
+            if ch is None or ch.closed:
+                self._finish_cluster(worker, ex, error=WorkerCrashedError(
+                    f"node agent {a} is down"))
+                return
+        t = ex.t
+        try:
+            token, blob = self._fns.entry(t.fn)
+            # the agent needs the declared output arity to know which
+            # result positions are whole datums (RemoteRef-eligible); a
+            # speculative clone reports its primary's arity
+            n_out = len(t.out_keys)
+            if t.speculative_of is not None and self.runtime is not None:
+                try:
+                    n_out = len(self.runtime.graph.get(t.speculative_of).out_keys)
+                except KeyError:
+                    pass
+            with self._order_locks[a]:
+                srcs = self._peer_sources(a, ex.input_keys)
+                structure, frames, info = pack_payload(
+                    (ex.args, ex.kwargs), ex.input_keys, self._resident[a],
+                    peer_sources=srcs)
+                meta = {"op": "task", "slot": slot, "token": token,
+                        "structure": structure, "n_out": n_out}
+                if token not in self._shipped_fns[a]:
+                    meta["fn"] = blob
+                if t.deadline_s is not None:
+                    # the agent watchdog enforces deadline_s at the body
+                    # (kills the wedged pool worker); the detector's
+                    # slacked copy is the backstop for an agent too
+                    # wedged to run its own watchdog.  Registered BEFORE
+                    # the send: the reply callback (which pops) can fire
+                    # on the reader thread the instant the send lands
+                    meta["deadline_s"] = t.deadline_s
+                    with self._stats_lock:
+                        self._deadline_inflight[a][id(ex)] = (
+                            time.monotonic() + t.deadline_s
+                            + self._deadline_slack)
+                mid = ch.request_cb(
+                    meta, frames,
+                    lambda rmeta, rframes, err, _w=worker, _a=a, _ch=ch,
+                    _ex=ex: self._on_reply(_w, _a, _ch, _ex, rmeta,
+                                           rframes, err))
+                self._inflight_reqs[a][mid] = (worker, ex)
+                self._shipped_fns[a].add(token)
+                # a Fetch directive makes the key node-resident exactly
+                # like a Put — the consumer agent registers the pull on
+                # its reader in stream order, so later Refs are safe
+                self._resident[a].update(info["put_keys"])
+                self._resident[a].update(info["fetch_keys"])
+                # residency generations (§20): one bump per mark message
+                # sent; the agent bumps its mirror on receipt, and equal
+                # counters at resume time validate a manifest entry
+                gens = self._res_gen[a]
+                for k in info["put_keys"]:
+                    gens[k] = gens.get(k, 0) + 1
+                for k in info["fetch_keys"]:
+                    gens[k] = gens.get(k, 0) + 1
+                with self._stats_lock:
+                    self.puts += len(info["put_keys"])
+                    self.refs += info["refs"]
+                    self.fetches += len(info["fetch_keys"])
+                    self.fetch_bytes += info["fetch_bytes"]
+                    self.bytes_shipped += info["put_bytes"]
+                    for k, nb in info["put_sizes"].items():
+                        self._put_home.setdefault(k, (a, nb))
+                if srcs:
+                    # input resolution booked these copies as relayed
+                    # before the transport was known — they move peer-to-
+                    # peer after all
+                    st = getattr(self.runtime, "store", None)
+                    if st is not None:
+                        for k in info["fetch_keys"]:
+                            src = srcs.get(k)
+                            if src is not None:
+                                st.reattribute_to_p2p(k, src[0], dest=a)
+        except (ConnectionClosed, OSError) as err:
+            if t.deadline_s is not None and self._deadline_inflight:
+                with self._stats_lock:
+                    self._deadline_inflight[a].pop(id(ex), None)
+            # the send failed while this call still owned the mid (the
+            # reply callback will never fire): a parked channel defers
+            # the task to the resumed session instead of failing it
+            if self._defer_if_parked(a, worker, ex):
+                return
+            if not self._closing and not self._is_parked(a):
+                if self.async_plane:
+                    self._kick_restart(a, ch)
+                else:
+                    self._restart_agent(a, ch)
+            crash = WorkerCrashedError(
+                f"node agent {a} died executing "
+                f"{getattr(t.fn, '__name__', t.fn)!r}")
+            crash.__cause__ = err
+            self._finish_cluster(worker, ex, error=crash)
+        except BaseException as err:   # pack/pickle failure: plain failure
+            self._finish_cluster(worker, ex, error=err)
+
+    def _peer_sources(self, a: int,
+                      input_keys) -> Optional[Dict[Tuple[int, int],
+                                                   Tuple[int, str, int]]]:
+        """Scheduler-resident input keys some OTHER live agent already
+        caches: ``pack_payload`` turns them into by-key ``Fetch``
+        directives so the bytes move agent→agent instead of crossing the
+        scheduler link once per consumer agent (DESIGN.md §16).  Must be
+        called under ``_order_locks[a]``."""
+        if not self.p2p or not input_keys:
+            return None
+        keys = set(input_keys.values()) - self._resident[a]
+        if not keys:
+            return None
+        with self._stats_lock:
+            homes = [(k, self._put_home[k]) for k in keys
+                     if k in self._put_home]
+        srcs: Optional[Dict[Tuple[int, int], Tuple[int, str, int]]] = None
+        for key, (home, nb) in homes:
+            if home == a:
+                continue   # ledger says resident elsewhere; re-Put is fine
+            addr = self._data_addrs[home]
+            ch = self._channels[home]
+            if addr is None or ch is None or ch.closed:
+                continue
+            if srcs is None:
+                srcs = {}
+            srcs[key] = (home, addr, nb)
+        return srcs
+
+    def _on_reply(self, worker: int, a: int, ch, ex, rmeta, rframes,
+                  err) -> None:
+        """Completion path, on the channel reader (or its failure
+        drainer): exactly one call per streamed task."""
+        if rmeta is not None and rmeta.get("mid") is not None:
+            self._inflight_reqs[a].pop(rmeta["mid"], None)
+        if ex.t.deadline_s is not None and self._deadline_inflight:
+            with self._stats_lock:
+                self._deadline_inflight[a].pop(id(ex), None)
+        if err is not None:
+            if not self._closing and not self._is_parked(a):
+                if self.async_plane:
+                    self._kick_restart(a, ch)
+                else:
+                    self._restart_agent(a, ch)
+            crash = WorkerCrashedError(
+                f"node agent {a} died with task {ex.t.name!r} in flight")
+            crash.__cause__ = err
+            self._finish_cluster(worker, ex, error=crash)
+            return
+        counters = rmeta.get("counters")
+        if counters:
+            with self._counter_lock:
+                self.worker_counters.update(counters)
+        if rmeta.get("op") == "done":
+            self._tl.views = None
+            # replication hint (§20): publish() consults this, in the same
+            # thread, for every RemoteValue this reply produced — replicate
+            # when the producer's run time clears the graph's fleet-wide
+            # duration bar (re-running cheap tasks beats paying their copy)
+            self._tl.replicate = False
+            # the agent times the task body itself ("dur" in the done
+            # reply) — scheduler-observed latency would fold pipeline
+            # queue time into every producer's apparent cost.  The
+            # profile is only consulted by the replication bar, so with
+            # replication off the hot completion path skips the graph
+            # lock entirely.
+            if self.replication > 0 and self.runtime is not None:
+                dur = rmeta.get("dur")
+                if dur is not None:
+                    dur = float(dur)
+                    self.runtime.graph.note_run_s(ex.t.name, dur)
+                    self._tl.replicate = (
+                        dur >= self.runtime.graph.duration_threshold())
+            try:
+                result = self._decode_result(a, ch, rmeta, rframes)
+            except BaseException as derr:
+                self._finish_cluster(worker, ex, error=derr)
+            else:
+                self._finish_cluster(worker, ex, result=result)
+        else:
+            remote = self._remote_error(rmeta)
+            from ..cluster.peer import PeerFetchError
+            if isinstance(remote, PeerFetchError):
+                # the agent failed to pull a datum we marked resident at
+                # dispatch time (transient peer failure with the producer
+                # channel still up — channel death has its own reset).
+                # Strike this task's input keys from the agent's ledger
+                # so the retry re-ships Put/Fetch instead of a Ref the
+                # plane cannot resolve; over-striking a genuinely
+                # resident Put key only costs a redundant re-Put (the
+                # agent's pre-store skips keys it already holds)
+                with self._order_locks[a]:
+                    self._resident[a] -= set(ex.input_keys.values())
+                # the failed pull may have chased a stale peer-source
+                # home: forget it so the retry ships a fresh Put
+                with self._stats_lock:
+                    for k in ex.input_keys.values():
+                        self._put_home.pop(k, None)
+                self._expire_dead_parks()
+            self._finish_cluster(worker, ex, error=remote)
+
+    def _finish_cluster(self, worker: int, ex, *, result: Any = None,
+                        error: Optional[BaseException] = None) -> None:
+        rt = self.runtime
+        try:
+            if error is not None:
+                rt.fail_task(ex, error)
+            else:
+                rt.complete_task(ex, result)
+        finally:
+            self.task_done()
+            rt._note_worker_idle()
+            self._credits[worker].release()
+            if self.async_plane:
+                # a freed credit is dispatch capacity: re-enter the pump
+                # (inline when the completion already runs on the loop)
+                self._schedule_pump()
+
+    def _remote_error(self, rmeta: dict) -> BaseException:
+        return _rebuild_remote_error(rmeta.get("exc"), rmeta.get("tb"))
+
+    def _decode_result(self, a: int, ch, rmeta: dict, rframes) -> Any:
+        from .futures import RemoteValue
+        from ..cluster.protocol import (Frame, RemoteRef, frame_to_value,
+                                        struct_nbytes)
+        tokens = rmeta.get("tokens") or []
+        gen = self._proc_gen[a]
+        views: Dict[int, Tuple[int, int, Any, int]] = {}
+        # inline (below-RJAX_INLINE_MAX) result arrays ride the reply
+        # pickle — they crossed our link too, so the relay ledger counts
+        # them (Frame/RemoteRef markers contribute 0 here; frames add
+        # their own bytes below, tensors included: they always ride a
+        # frame, untokened below the threshold)
+        with self._stats_lock:
+            self.relay_result_bytes += struct_nbytes(rmeta["structure"])
+
+        def dec(marker):
+            if isinstance(marker, RemoteRef):
+                # the datum stayed on the producing node: book a
+                # placeholder; only this descriptor crossed our link
+                rv = RemoteValue(marker.token, a, self._data_addrs[a],
+                                 marker.nbytes)
+                views[id(rv)] = (a, marker.token, ch, gen)
+                with self._stats_lock:
+                    self.remote_results += 1
+                    self.deferred_result_bytes += marker.nbytes
+                return rv
+            arr = frame_to_value(rframes[marker.i])
+            with self._stats_lock:
+                self.relay_result_bytes += struct_nbytes(arr)
+            token = tokens[marker.i]
+            if token is None:
+                return arr   # an inline tensor: nothing held agent-side
+            # the token is only meaningful in the PROCESS that minted it —
+            # a respawned agent restarts its counter, so publish/drop
+            # verify the process generation; a RESUMED session (§20) is
+            # the same process, and its tokens stay valid across the
+            # channel swap
+            views[id(arr)] = (a, token, ch, gen)
+            return arr
+
+        result = _walk(rmeta["structure"], dec, (Frame, RemoteRef))
+        self._tl.views = views   # consumed by publish() in the same thread
+        return result
+
+    # -- data-plane hooks ----------------------------------------------------
+    def publish(self, key, value):
+        """The runtime bound a just-returned result to ``(data_id,
+        version)``: pin it into the producing node's plane via ``alias``
+        so later tasks there reference it without a wire crossing.  For a
+        :class:`~repro_torch.core.futures.RemoteValue` the alias is load-bearing
+        — the node's token side-table holds the ONLY copy until it is
+        bound to the datum key."""
+        from .futures import RemoteValue
+        from ..cluster.protocol import WIRE_LEAVES, ConnectionClosed
+        views = getattr(self._tl, "views", None)
+        if not views or not isinstance(value, WIRE_LEAVES + (RemoteValue,)):
+            return
+        entry = views.pop(id(value), None)
+        if entry is None:
+            return
+        a, token, ch, gen = entry
+        key = tuple(key)
+        if isinstance(value, RemoteValue):
+            value.key = key
+        nb = int(getattr(value, "nbytes", 0) or 0)
+        published = False
+        try:
+            with self._order_locks[a]:
+                # the token survives as long as the agent PROCESS does:
+                # valid on the original channel and on any resumed
+                # successor (§20), dead after a respawn (gen mismatch)
+                if self._proc_gen[a] == gen:
+                    cur = self._channels[a]
+                    if cur is not None and not cur.closed:
+                        cur.post({"op": "alias", "token": token,
+                                  "key": key})
+                        self._resident[a].add(key)
+                        self._res_gen[a][key] = (
+                            self._res_gen[a].get(key, 0) + 1)
+                        if not isinstance(value, RemoteValue):
+                            # a framed result relayed through us now
+                            # lives BOTH here and on its producer: other
+                            # agents can pull it from that plane instead
+                            # of costing a second Put
+                            with self._stats_lock:
+                                self._put_home.setdefault(key, (a, nb))
+                        published = True
+                    elif self._is_parked(a):
+                        # parked for resumption: defer the alias; the
+                        # resume flush posts it (FIFO before any later
+                        # Ref) or the grace-expiry restart discards it
+                        self._parked_ops[a].append(
+                            ("alias", token, key, nb,
+                             isinstance(value, RemoteValue)))
+                        published = True
+        except ConnectionClosed:
+            return   # the restart path resets this node's residency ledger
+        if not published:
+            # agent died/respawned since.  A plain array is already safe
+            # in the store; a RemoteValue just entered the store pointing
+            # at a dead node AFTER the crash sweep.  Recovery cannot run
+            # HERE: publish() is called mid-completion, before mark_done,
+            # so graph.resurrect would refuse the still-RUNNING producer
+            # — park the key and let task_done() (which runs after the
+            # completion) invalidate + re-execute from lineage
+            if isinstance(value, RemoteValue) and not self._closing:
+                orphans = getattr(self._tl, "orphaned", None)
+                if orphans is None:
+                    orphans = self._tl.orphaned = []
+                orphans.append(key)
+            return
+        # asynchronous replication (§20): push a costly node-resident
+        # result to k buddy planes over the existing p2p bcast leg —
+        # fire-and-forget, outside the producer's ordering lock
+        if (isinstance(value, RemoteValue) and self.replication > 0
+                and getattr(self._tl, "replicate", False)
+                and not self._closing):
+            self._replicate(key, value, a)
+
+    def task_done(self):
+        """Drop result tokens that were never published (discarded
+        outputs, lost speculation races) so agent side-tables don't grow
+        — and recover keys orphaned by a publish that raced the
+        producer's death (the task is DONE by now, so lineage
+        re-execution can actually resurrect it)."""
+        from ..cluster.protocol import ConnectionClosed
+        views = getattr(self._tl, "views", None)
+        if views:
+            for a, token, ch, gen in views.values():
+                with self._order_locks[a]:
+                    if self._proc_gen[a] != gen:
+                        continue   # the minting process is gone
+                    cur = self._channels[a]
+                    if cur is not None and not cur.closed:
+                        try:
+                            cur.post({"op": "drop", "token": token})
+                        except ConnectionClosed:
+                            pass
+                    elif self._is_parked(a):
+                        self._parked_ops[a].append(("drop", token))
+        self._tl.views = None
+        orphans = getattr(self._tl, "orphaned", None)
+        self._tl.orphaned = None
+        if orphans and self.runtime is not None and not self._closing:
+            self.runtime.store.invalidate_keys(orphans)
+            self._drop_residency(orphans)
+            # relaunch every orphan key that is not (re-)published by now
+            # — NOT just the ones invalidate_keys caught: the restart
+            # sweep may have deleted the placeholder already, back when
+            # the producer was still RUNNING and resurrect had to refuse
+            # (it is DONE now, completions run before task_done).
+            # relaunch_lost is idempotent for producers the sweep did
+            # resurrect (resurrect no-ops unless DONE)
+            need = [k for k in orphans
+                    if not self.runtime.store.is_ready(k)]
+            self.runtime.relaunch_lost(need)
+
+    # -- collectives (DESIGN.md §16) -----------------------------------------
+    def broadcast(self, key, value, store=None) -> int:
+        """Fan a scheduler-resident datum out to every live agent: ONE
+        encoded copy crosses the scheduler link (to a root agent), then
+        the bytes move agent→agent in a doubling frontier — every ack
+        promotes the receiver to a source for the next wave, so the wave
+        count is ⌈log2(agents)⌉ (a binomial tree).  With p2p disabled the
+        copies go out over each agent link concurrently instead (star
+        topology, but never serialized behind one ordering lock).
+
+        Blocks until the wave settles; returns the number of agents that
+        hold the key.  Dead agents are skipped — a respawned agent picks
+        the key up as a normal Put/peer-Fetch when a task needs it."""
+        from ..cluster.peer import PEER_FETCH_TIMEOUT
+        from ..cluster.protocol import (ConnectionClosed, pack_payload,
+                                        struct_nbytes)
+        key = tuple(key)
+        nbytes = struct_nbytes(value)
+        cv = threading.Condition()
+        pending = [0]
+        failed = [0]
+        holders: List[int] = []
+        free: List[int] = []
+        waiting: List[int] = []
+        enc: List[Any] = []   # lazily packed [structure, frames]
+
+        for a in range(self.n_agents):
+            ch = self._channels[a]
+            if ch is None or ch.closed:
+                continue
+            with self._order_locks[a]:
+                resident = key in self._resident[a]
+            (holders if resident else waiting).append(a)
+        free.extend(holders)
+
+        def send_root(a: int) -> bool:
+            ch = self._channels[a]
+            if ch is None or ch.closed:
+                return False
+            if not enc:
+                structure, frames, _ = pack_payload(value)
+                enc.extend((structure, frames))
+            try:
+                with self._order_locks[a]:
+                    if self._channels[a] is not ch:
+                        return False
+                    ch.request_cb(
+                        {"op": "bcast", "key": key, "root": True,
+                         "structure": enc[0]},
+                        enc[1],
+                        lambda rm, rf, err, _a=a: on_leg(_a, None, rm, err))
+                    with self._stats_lock:
+                        self.puts += 1
+                        self.bytes_shipped += nbytes
+                return True
+            except (ConnectionClosed, OSError):
+                return False
+
+        def send_pull(child: int, parent: int) -> bool:
+            ch = self._channels[child]
+            addr = self._data_addrs[parent]
+            if ch is None or ch.closed or addr is None:
+                return False
+            try:
+                with self._order_locks[child]:
+                    if self._channels[child] is not ch:
+                        return False
+                    ch.request_cb(
+                        {"op": "bcast", "key": key, "addr": addr,
+                         "node": parent, "nbytes": nbytes},
+                        (),
+                        lambda rm, rf, err, _c=child, _p=parent:
+                            on_leg(_c, _p, rm, err))
+                    with self._stats_lock:
+                        self.fetches += 1
+                        self.fetch_bytes += nbytes
+                return True
+            except (ConnectionClosed, OSError):
+                return False
+
+        def pump() -> None:
+            """Launch every leg the current sources can serve.  Runs with
+            ``cv`` held (re-entrant from on_leg: Condition uses an RLock)."""
+            while waiting:
+                if not self.p2p or (not holders and pending[0] == 0):
+                    a = waiting.pop(0)
+                    if send_root(a):
+                        pending[0] += 1
+                    else:
+                        failed[0] += 1
+                    continue
+                if not free:
+                    return
+                parent = free.pop(0)
+                child = waiting.pop(0)
+                if send_pull(child, parent):
+                    pending[0] += 1
+                else:
+                    failed[0] += 1
+                    free.append(parent)
+
+        def on_leg(a: int, parent: Optional[int], rmeta, err) -> None:
+            ok = err is None and rmeta is not None \
+                and rmeta.get("op") == "bcast_ok"
+            with cv:
+                pending[0] -= 1
+                if parent is not None:
+                    free.append(parent)
+                if ok:
+                    with self._order_locks[a]:
+                        if self._channels[a] is not None:
+                            self._resident[a].add(key)
+                            # the agent bumped its mirror when the bcast
+                            # landed; bump ours on the ack (§20)
+                            self._res_gen[a][key] = (
+                                self._res_gen[a].get(key, 0) + 1)
+                    with self._stats_lock:
+                        self._put_home.setdefault(key, (a, nbytes))
+                    holders.append(a)
+                    free.append(a)
+                    if store is not None:
+                        store.note_location(key, a, source=parent)
+                else:
+                    failed[0] += 1
+                pump()
+                cv.notify_all()
+
+        deadline = time.monotonic() + PEER_FETCH_TIMEOUT + 30.0
+        with cv:
+            pump()
+            while pending[0] > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                cv.wait(timeout=left)
+            with self._stats_lock:
+                self.broadcasts += 1
+            return len(holders)
+
+    # -- failure handling ----------------------------------------------------
+    def _drop_residency(self, keys) -> None:
+        """Strike lost datum keys from EVERY agent's residency ledger: a
+        retried consumer must get a fresh Put/Fetch for the recomputed
+        value, never a Ref into a plane that predates the loss."""
+        if not keys:
+            return
+        keyset = set(tuple(k) for k in keys)
+        for a in range(self.n_agents):
+            with self._order_locks[a]:
+                self._resident[a] -= keyset
+        with self._stats_lock:
+            for k in keyset:
+                self._put_home.pop(k, None)
+                self._replicas.pop(k, None)
+
+    # -- session resumption (DESIGN.md §20) ----------------------------------
+    def _is_parked(self, a: int) -> bool:
+        with self._park_lock:
+            return a in self._disconnected
+
+    def _maybe_park(self, a: int, ch, pending) -> bool:
+        """Channel-death first refusal: adopt the in-flight slots and
+        park the node for the grace window instead of killing it.
+        Idempotent — the on_lost_pending hook and the on_close hook race
+        freely, and later calls merge extra pending slots into the
+        existing entry.  Returns False when resumption cannot apply
+        (disabled, closing, liveness-killed, or already replaced) — the
+        caller then runs the §19 fail/respawn path unchanged."""
+        if (not self.resumption or self._closing
+                or getattr(ch, "liveness_killed", False)):
+            return False
+        tok = getattr(self.cluster, "session_tokens", {}).get(a)
+        if not tok:
+            return False
+        with self._park_lock:
+            entry = self._disconnected.get(a)
+            if entry is not None:
+                if entry["ch"] is not ch:
+                    return False   # a successor channel died, not ours
+                entry["pending"].update(pending)
+                return True
+            if self._channels[a] is not ch or a in self._restarting:
+                return False       # being replaced: restart owns it
+            exited = getattr(self.cluster, "exited", None)
+            if exited is not None and exited(a):
+                return False       # the process is gone: it cannot re-dial
+            entry = {"ch": ch, "token": tok, "pending": dict(pending),
+                     "next_mid": ch.next_mid, "state": "disconnected",
+                     "deferred": [],
+                     "deadline": time.monotonic() + self.reconnect_grace_s}
+            timer = threading.Timer(self.reconnect_grace_s,
+                                    self._grace_expired, (a, entry))
+            timer.daemon = True
+            entry["timer"] = timer
+            self._disconnected[a] = entry
+            # stop the pump from offering this agent's workers new tasks
+            # while parked (set HERE, synchronously on the failing loop
+            # thread, so no dispatch can slip between close and park)
+            self._agent_up[a] = False
+            timer.start()
+        return True
+
+    def _expire_dead_parks(self) -> None:
+        """End the grace window of every parked agent whose process has
+        exited since it was parked (a pull from its data plane just
+        failed): it can never resume, and its node's losses must be
+        recovered before its consumers spend their retries."""
+        exited = getattr(self.cluster, "exited", None)
+        if exited is None:
+            return
+        with self._park_lock:
+            parked = list(self._disconnected.items())
+        for a, entry in parked:
+            if entry["state"] == "disconnected" and exited(a, wait_s=0):
+                timer = entry.get("timer")
+                if timer is not None:
+                    timer.cancel()
+                self._grace_expired(a, entry)
+
+    def _defer_if_parked(self, a: int, worker: int, ex) -> bool:
+        """A dispatch raced the park: hold the task (credit and all)
+        until the session resumes instead of burning one of its retries
+        on a channel that is coming back."""
+        with self._park_lock:
+            entry = self._disconnected.get(a)
+            if entry is None:
+                return False
+            entry["deferred"].append((worker, ex))
+            return True
+
+    def _grace_expired(self, a: int, entry: dict) -> None:
+        """The agent did not re-dial in time: fall through to the
+        normal kill-and-replay path (fail adopted slots retryably,
+        respawn, §15 lineage re-execution)."""
+        if self._closing:
+            return
+        with self._park_lock:
+            if self._disconnected.get(a) is not entry \
+                    or entry["state"] != "disconnected":
+                return   # resumed (or resuming) in time
+            del self._disconnected[a]
+        self._fail_slots(a, entry["pending"].values())
+        for worker, ex in entry["deferred"]:
+            self._finish_cluster(worker, ex, error=WorkerCrashedError(
+                f"node agent {a} session lost (grace expired)"))
+        if self.async_plane:
+            self._kick_restart(a, entry["ch"], park=False)
+        else:
+            self._restart_agent(a, entry["ch"])
+
+    def _fail_slots(self, a: int, slots) -> None:
+        """Error adopted slots retryably (grace expiry, or mids the
+        resumed agent never received)."""
+        from ..cluster.protocol import ConnectionClosed
+        err = ConnectionClosed(
+            f"agent {a} session lost", mid_message=True)
+        for slot in slots:
+            cb = getattr(slot, "callback", None)
+            if cb is not None:
+                try:
+                    cb(None, None, err)
+                except BaseException:
+                    traceback.print_exc()
+            else:
+                slot.error = err
+                slot.event.set()
+
+    def _on_resume(self, conn, hello: dict) -> None:
+        """A parked agent re-dialed with its session token (runs on the
+        cluster's acceptor thread).  Reconcile and swap the channel in;
+        any failure falls back to reject + the kill-and-replay path."""
+        from ..cluster.protocol import send_msg
+        a = hello.get("node_id")
+        tokens = getattr(self.cluster, "session_tokens", {})
+        ok = (isinstance(a, int) and 0 <= a < self.n_agents
+              and not self._closing and self.resumption
+              and tokens.get(a) == hello.get("resume"))
+        entry = None
+        if ok:
+            # the park entry may lag the re-dial (the scheduler-side
+            # read loop notices the break asynchronously): force the old
+            # channel down and wait briefly for the park to land
+            deadline = time.monotonic() + 2.0
+            kicked = False
+            while entry is None and time.monotonic() < deadline:
+                with self._park_lock:
+                    cur = self._disconnected.get(a)
+                    if cur is not None and cur["state"] == "disconnected":
+                        cur["state"] = "reconnecting"
+                        entry = cur
+                        break
+                    if cur is not None:
+                        break   # another resume is already in progress
+                if not kicked:
+                    kicked = True
+                    old = self._channels[a]
+                    if old is not None and not old.closed:
+                        old.close()
+                time.sleep(0.01)
+        if entry is None:
+            try:
+                send_msg(conn, {"op": "welcome", "resumed": False})
+            except Exception:
+                pass
+            conn.close()
+            return
+        timer = entry.get("timer")
+        if timer is not None:
+            timer.cancel()
+        try:
+            self._do_resume(a, conn, hello, entry)
+        except BaseException:
+            traceback.print_exc()
+            with self._park_lock:
+                self._disconnected.pop(a, None)
+            try:
+                conn.close()
+            except OSError:
+                pass
+            self._fail_slots(a, entry["pending"].values())
+            for worker, ex in entry["deferred"]:
+                self._finish_cluster(worker, ex, error=WorkerCrashedError(
+                    f"node agent {a} resume failed"))
+            self._kick_restart(a, entry["ch"], park=False)
+
+    def _do_resume(self, a: int, conn, hello: dict, entry: dict) -> None:
+        """The resumption body: strike stale residency via the manifest,
+        split in-flight mids at the agent's receive high-water, welcome,
+        swap the channel, flush parked ops — the partition costs zero
+        task re-executions (§20)."""
+        from ..cluster.eventloop import AsyncAgentChannel
+        from ..cluster.protocol import send_msg
+        pending = entry["pending"]
+        seen = int(hello.get("seen_mid") or 0)
+        # the async writer drains its queue in mid order, so a mid the
+        # agent has not seen implies nothing after it arrived either:
+        # mids <= seen survive (the agent replays their recorded replies
+        # or is still executing them); mids > seen never arrived — fail
+        # them retryably once the channel is live again
+        kept = {mid: slot for mid, slot in pending.items() if mid <= seen}
+        lost = {mid: slot for mid, slot in pending.items() if mid > seen}
+        # a lost mid that maps back to a task in the send ledger is not
+        # dead work — the request never reached the agent, so it re-sends
+        # on the resumed channel with a fresh mid, costing zero retries.
+        # Only mids with no ledger entry (stats probes, bcast legs) fail.
+        reqs = self._inflight_reqs[a]
+        resend = []
+        orphans = []
+        for mid, slot in lost.items():
+            req = reqs.pop(mid, None)
+            if req is not None:
+                resend.append(req)
+            else:
+                orphans.append(slot)
+        # manifest reconciliation: an entry is valid iff the agent's
+        # per-key mark generation matches ours — every mark message that
+        # was in flight when the wire broke shows up as a mismatch and
+        # is struck (conservative: a struck Put key only costs a re-ship)
+        manifest = hello.get("manifest") or ()
+        struck: Set[Tuple[int, int]] = set()
+        with self._order_locks[a]:
+            gens = self._res_gen[a]
+            valid = set()
+            for item in manifest:
+                k = tuple(item[0])
+                if gens.get(k, 0) == int(item[1]):
+                    valid.add(k)
+            struck = self._resident[a] - valid
+            self._resident[a] = valid
+            # an fn body that first shipped inside a lost message never
+            # landed: strike the ship ledger so the re-send carries the
+            # body again (the agent's blob table dedupes if it did land)
+            for _w, _ex in resend:
+                self._shipped_fns[a].discard(self._fns.entry(_ex.t.fn)[0])
+            if struck:
+                with self._stats_lock:
+                    for k in struck:
+                        home = self._put_home.get(k)
+                        if home is not None and home[0] == a:
+                            del self._put_home[k]
+            # welcome + channel swap still under the ordering lock: a
+            # dispatcher blocked on it must see the fully-resumed state
+            send_msg(conn, {"op": "welcome", "node_id": a,
+                            "resumed": True,
+                            "epoch": int(hello.get("epoch") or 0),
+                            "outstanding": sorted(kept)})
+            new_ch = AsyncAgentChannel(conn, a, hello, io=self._io,
+                                       start_mid=entry["next_mid"])
+            new_ch.adopt_pending(kept)
+            self._install_channel(a, new_ch)
+            self._channels[a] = new_ch
+            # flush ops that landed while parked, in arrival order (FIFO
+            # before anything a dispatcher sends after the lock drops)
+            for op in self._parked_ops[a]:
+                if op[0] == "alias":
+                    _, token, k, nb, _remote = op
+                    new_ch.post({"op": "alias", "token": token, "key": k})
+                    self._resident[a].add(k)
+                    gens[k] = gens.get(k, 0) + 1
+                elif op[0] == "drop":
+                    new_ch.post({"op": "drop", "token": op[1]})
+            self._parked_ops[a] = []
+            with self._park_lock:
+                self._disconnected.pop(a, None)
+        # node-resident values homed here whose manifest entry was struck
+        # are actually gone: invalidate + lineage, like a partial loss
+        if struck and self.runtime is not None:
+            gone = [k for k in self.runtime.store.homed_keys(a)
+                    if k in struck]
+            if gone:
+                self.runtime.store.invalidate_keys(gone)
+                self._drop_residency(gone)
+                self.runtime.relaunch_lost(
+                    [k for k in gone
+                     if not self.runtime.store.is_ready(k)])
+        self._agent_up[a] = True
+        with self._stats_lock:
+            self.reconnects += 1
+        if orphans:
+            self._fail_slots(a, orphans)
+        # tasks whose send died on the wire, then tasks a dispatcher
+        # deferred while the node was parked, go out on the resumed
+        # channel — off this (acceptor) thread, in order
+        for worker, ex in resend + entry["deferred"]:
+            self._recovery.submit(self._submit_pipelined, worker, ex)
+        self._schedule_pump()
+
+    # -- replication (DESIGN.md §20) -----------------------------------------
+    def _replicate(self, key, rv, a: int) -> None:
+        """Fire-and-forget: ask up to k buddy agents to pull ``key``
+        from its producer over the p2p data plane (the bcast leg, which
+        is §13 memory-governed on the receiving plane).  Failures are
+        ignored — a missing replica just means lineage recovery later."""
+        from ..cluster.protocol import ConnectionClosed
+        addr = self._data_addrs[a]
+        if addr is None or not self.p2p:
+            return
+        want = min(self.replication, self.n_agents - 1)
+        placed = 0
+        for off in range(1, self.n_agents):
+            if placed >= want:
+                break
+            b = (a + off) % self.n_agents
+            ch = self._channels[b]
+            if ch is None or ch.closed or not self._agent_up[b]:
+                continue
+            try:
+                with self._order_locks[b]:
+                    if self._channels[b] is not ch:
+                        continue
+                    ch.request_cb(
+                        {"op": "bcast", "key": key, "addr": addr,
+                         "node": a, "nbytes": rv.nbytes,
+                         "token": rv.token},
+                        (),
+                        lambda rm, rf, err, _b=b, _k=key, _nb=rv.nbytes,
+                        _a=a: self._on_replica(_b, _k, _nb, _a, rm, err))
+            except (ConnectionClosed, OSError):
+                continue
+            placed += 1
+
+    def _on_replica(self, b: int, key, nb: int, src: int, rmeta,
+                    err) -> None:
+        """A replica pull settled: book the copy (residency mark, store
+        location, replica ledger) on success; on failure do nothing."""
+        if err is not None or rmeta is None \
+                or rmeta.get("op") != "bcast_ok" or self._closing:
+            return
+        with self._order_locks[b]:
+            if self._channels[b] is None:
+                return
+            self._resident[b].add(key)
+            self._res_gen[b][key] = self._res_gen[b].get(key, 0) + 1
+        with self._stats_lock:
+            self.replica_bytes += nb
+            self._replicas.setdefault(key, set()).add(b)
+        if self.runtime is not None:
+            self.runtime.store.note_location(key, b, source=src)
+
+    def _redirect_replicas(self, a: int) -> int:
+        """Node ``a`` is really dead: point every store placeholder it
+        homed at a surviving replica holder instead, so
+        ``invalidate_lost`` skips them and zero producers re-execute for
+        replicated keys.  Returns the number of keys redirected."""
+        rt = self.runtime
+        if rt is None:
+            return 0
+        # snapshot candidate homes OUTSIDE the store lock (redirect_node
+        # runs under it and must not take executor locks)
+        with self._stats_lock:
+            cand: Dict[Tuple[int, int], Tuple[int, str]] = {}
+            for key, holders in self._replicas.items():
+                for b in sorted(holders):
+                    if b == a or not self._agent_up[b]:
+                        continue
+                    ch = self._channels[b]
+                    addr = self._data_addrs[b]
+                    if ch is None or ch.closed or addr is None:
+                        continue
+                    cand[key] = (b, addr)
+                    break
+        if not cand:
+            return 0
+        swapped = rt.store.redirect_node(a, cand)
+        if swapped:
+            with self._stats_lock:
+                self.replica_hits += len(swapped)
+        return len(swapped)
+
+    def _restart_agent(self, a: int, failed_ch) -> None:
+        """Replace a dead agent.  The node's losses are recovered BEFORE
+        the respawn: a replacement agent starts its spawned pool (each
+        worker imports torch, and on a card makes its CUDA context) before
+        it registers, which takes seconds, and consumers of the dead
+        node's results must not spend their retries pulling from a corpse
+        meanwhile.  So the residency ledgers are reset, surviving replicas
+        take over (§20), and every other lost placeholder is invalidated
+        and its producer re-executed from lineage (§15) on the live
+        agents; then the replacement is spawned and installed."""
+        with self._restart_lock:
+            if self._channels[a] is not failed_ch:
+                return   # another dispatcher already replaced it
+            self._restarting.add(a)
+            try:
+                self._replace_agent(a, failed_ch)
+            finally:
+                self._restarting.discard(a)
+
+    def _replace_agent(self, a: int, failed_ch) -> None:
+        """The body of :meth:`_restart_agent`, under its lock."""
+        # a stale park entry must not adopt a resume after the
+        # process is replaced (respawn also mints a new session
+        # token, so a late re-dial is rejected outright)
+        with self._park_lock:
+            stale = self._disconnected.pop(a, None)
+        if stale is not None:
+            timer = stale.get("timer")
+            if timer is not None:
+                timer.cancel()
+            if stale["pending"]:
+                self._fail_slots(a, stale["pending"].values())
+            for worker, ex in stale["deferred"]:
+                self._finish_cluster(worker, ex,
+                                     error=WorkerCrashedError(
+                                         f"node agent {a} replaced"))
+        old_addr = self._data_addrs[a]
+        if failed_ch is not None:
+            failed_ch.close()
+        if self._deadline_inflight:
+            # in-flight deadline entries die with the channel (each
+            # reply callback also pops its own — this is belt and
+            # braces against the detector chasing ghosts)
+            with self._stats_lock:
+                self._deadline_inflight[a].clear()
+        with self._order_locks[a]:
+            self._resident[a] = set()
+            self._shipped_fns[a] = set()
+            self._res_gen[a] = {}
+            self._parked_ops[a] = []
+            self._inflight_reqs[a] = {}
+            # tokens minted by the dead process are invalid forever;
+            # publish/drop for its results become no-ops (§20)
+            self._proc_gen[a] += 1
+            self._data_addrs[a] = None
+        if self._peers is not None:
+            self._peers.drop(old_addr)   # the pooled conn died with it
+        # every peer-source home pointing at the dead plane is stale
+        with self._stats_lock:
+            self._put_home = {k: v for k, v in self._put_home.items()
+                              if v[0] != a}
+            for k in list(self._replicas):
+                self._replicas[k].discard(a)
+                if not self._replicas[k]:
+                    del self._replicas[k]
+        # the store's residency metadata must die with the agent too,
+        # or locality keeps steering reads at data the replacement
+        # doesn't hold and the transfer ledger undercounts re-ships —
+        # and every node-resident result homed there is GONE: first
+        # rehome what a surviving replica can serve (§20), then the
+        # runtime invalidates the remaining placeholders and
+        # re-executes their producers from graph lineage (§15)
+        if self.runtime is not None:
+            self._redirect_replicas(a)
+            self.runtime.store.forget_node(a)
+            lost = self.runtime.recover_lost_node(a)
+            self._drop_residency(lost)
+        new_ch = None
+        if getattr(self.cluster, "can_respawn", False) \
+                and not self._closing:
+            try:
+                new_ch = self.cluster.respawn(a)
+            except Exception:
+                new_ch = None
+        with self._order_locks[a]:
+            if new_ch is not None:
+                # data addr + on_close BEFORE the channel is exposed:
+                # a dispatcher blocked on this order lock ships the
+                # moment we release it, and its reply must not mint
+                # RemoteValues with addr=None
+                self._install_channel(a, new_ch)
+            self._channels[a] = new_ch
+        if new_ch is not None:
+            self.agent_restarts += 1
+
+    # -- metrics -------------------------------------------------------------
+    def liveness(self) -> Dict[int, dict]:
+        """Per-agent liveness view (state, beat age, beat count) for
+        ``/api/status`` and the dashboard — the failure detector's own
+        numbers, so what the UI shows is exactly what verdicts use.
+        Agents between channel death and reinstall report ``respawning``;
+        agents parked for session resumption (§20) report
+        ``disconnected`` (grace window open) or ``reconnecting`` (a
+        resume is being reconciled), and every row carries its replica
+        count."""
+        det = self._detector
+        snap = det.snapshot() if det is not None else {}
+        with self._park_lock:
+            parked = {a: e["state"] for a, e in self._disconnected.items()}
+        repl: Dict[int, int] = {}
+        with self._stats_lock:
+            for holders in self._replicas.values():
+                for b in holders:
+                    repl[b] = repl.get(b, 0) + 1
+        out: Dict[int, dict] = {}
+        for a in range(self.n_agents):
+            ent = snap.get(a)
+            if ent is None:
+                ent = {"state": "respawning", "beat_age_s": None, "beats": 0}
+            st = parked.get(a)
+            if st is not None:
+                ent = dict(ent, state=st)
+            ent = dict(ent, replicas=repl.get(a, 0))
+            out[a] = ent
+        return out
+
+    def agent_stats(self) -> List[Optional[dict]]:
+        """Round-trip per-agent stats (pool + node plane); ``None`` for
+        agents that are down."""
+        out: List[Optional[dict]] = []
+        for ch in self._channels:
+            if ch is None or ch.closed:
+                out.append(None)
+                continue
+            try:
+                meta, _ = ch.request({"op": "stats"}, timeout=10.0)
+                out.append(meta.get("stats"))
+            except Exception:
+                out.append(None)
+        return out
+
+    def stats(self) -> dict:
+        with self._counter_lock:
+            counters = dict(self.worker_counters)
+        s = {
+            "backend": self.name,
+            "n_agents": self.n_agents,
+            "workers_per_node": self.wpn,
+            "pipeline_depth": self.pipeline_depth,
+            "control_plane": self.control_plane,
+            "agent_restarts": self.agent_restarts,
+            "liveness_kills": self.liveness_kills,
+            "reconnects": self.reconnects,
+            "replica_bytes": self.replica_bytes,
+            "replica_hits": self.replica_hits,
+            "p2p": self.p2p,
+            "broadcasts": self.broadcasts,
+            "puts": self.puts,
+            "refs": self.refs,
+            "fetches": self.fetches,
+            "fetch_bytes": self.fetch_bytes,
+            "bytes_shipped": self.bytes_shipped,
+            "relay_result_bytes": self.relay_result_bytes,
+            "remote_results": self.remote_results,
+            "deferred_result_bytes": self.deferred_result_bytes,
+            # everything that crossed the scheduler's own link for task
+            # data: Put payloads out + result frames back.  The §15
+            # acceptance metric — peer traffic lives in fetch_bytes and
+            # the store's transfer_detail() instead
+            "relay_bytes": self.bytes_shipped + self.relay_result_bytes,
+            # the agents' pool workers' counters, as the process backend
+            # reports its own workers'
+            "kernel_launches": {k.split(":", 1)[1]: v for k, v in counters.items()
+                                if k.startswith("launches:")},
+            "card_bytes_by_pid": {int(k.split(":", 1)[1]): v for k, v in counters.items()
+                                  if k.startswith("card_bytes:")},
+        }
+        for k in ("worker_cache_hits", "device_uploads", "device_upload_bytes",
+                  "device_uploads_saved"):
+            s[k] = counters.get(k, 0)
+        return s
+
+
+BACKENDS = {"thread": ThreadExecutor, "process": ProcessExecutor,
+            "cluster": ClusterExecutor}
 
 
 def make_executor(backend: str, n_workers: int, label: str = "rjax",
                   **kw) -> ExecutorBackend:
-    if backend in _LATER:
-        raise ValueError(
-            f"executor backend {backend!r} is not ported yet (it comes with "
-            f"{_LATER[backend]}); the port runs backend='thread' or 'process'")
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown executor backend {backend!r}; choose from {sorted(BACKENDS)}")

@@ -1,5 +1,5 @@
 """The RJAX runtime engine — RCOMPSs' COMPSs core, reproduced (the port's
-copy: the thread and process backends).
+copy).
 
 One ``Runtime`` owns: the versioned object store, the dynamic task graph,
 a scheduling policy, an *executor backend* holding the pool of persistent
@@ -7,21 +7,26 @@ workers (the paper's persistent-executor model: workers live for the whole
 application and are reused across tasks, §3.3.2), the tracer, fault
 handling, and the optional straggler-speculation monitor.
 
-The task lifecycle is three runtime-owned phases:
+The executor backend is pluggable (``backend="thread"``, ``"process"`` or
+``"cluster"``, see :mod:`repro_torch.core.executors`).  The task lifecycle is
+split into three runtime-owned phases so backends can *pipeline* the
+middle one (DESIGN.md §14):
 
 * :meth:`begin_task`    — claim the task (mark RUNNING) and resolve its
                           inputs from the store;
-* the backend runs the body: on the dispatcher thread (``"thread"``), or
-  in a worker process, pipelined (``"process"``, DESIGN.md §14);
+* the backend invokes the body — synchronously on the dispatcher thread
+  (``thread``), or asynchronously with up to ``pipeline_depth`` task
+  descriptors in flight per worker (``process``/``cluster``), completions
+  drained by a collector thread / channel reader;
 * :meth:`complete_task` / :meth:`fail_task` — publish outputs or apply
   the retry policy, release dependents, trace.
 
 Under ``"thread"`` task bodies share one address space, so the store can
 hold CUDA tensors and hand them from task to task without a copy; under
-``"process"`` values cross to the workers through the shared-memory
-plane of :mod:`repro_torch.core.executors` and are rebuilt on the device
-they lived on.  The cluster backend (and with it lineage recovery of
-node-resident data) comes with a later slice.
+``"process"`` and ``"cluster"`` values cross to the workers as host bytes
+(the shared-memory plane, the wire's tensor frames) and are rebuilt on the
+device they lived on; a card result stays host bytes in the store until
+``Future.result`` reads it.
 
 Users normally go through :mod:`repro_torch.core.api` (``task`` /
 ``barrier`` / ``wait_on``), which mirrors the five-function RCOMPSs API.
@@ -46,8 +51,24 @@ from .scheduler import Scheduler
 from .telemetry import TelemetryHub, normalize_executor_stats
 from .tracing import TraceEvent, Tracer
 
-# default in-flight task credits per worker (DESIGN.md §14)
+# per-worker in-flight task budget for pipelined backends (DESIGN.md §14);
+# 1 reproduces the stop-and-wait dispatch of earlier revisions
 DEFAULT_PIPELINE_DEPTH = 4
+
+# extra attempts granted when a task fails because its INPUT vanished
+# with a dead node (error carries lost_input=True, DESIGN.md §15) — the
+# task's own body never misbehaved, so this allowance is independent of
+# the user-facing max_retries budget, and bounded so a permanently
+# unreachable datum still fails instead of looping
+LOST_INPUT_RETRIES = int(os.environ.get("RJAX_LOST_INPUT_RETRIES", 3))
+
+# pacing for lost-input retries (per-attempt backoff slope, capped at 1s):
+# a lost input can only be refetched after lineage recovery has respawned
+# the dead node and re-executed the producer (~seconds), so an immediate
+# requeue hot-spins through the whole retry allowance in milliseconds —
+# the async control plane (DESIGN.md §18) re-dispatches fast enough to
+# burn 7 attempts before the replacement agent even registers
+LOST_INPUT_BACKOFF_S = 0.25
 
 
 def pipeline_depth_from_env(explicit: Optional[int] = None) -> int:
@@ -85,8 +106,8 @@ def _nbytes(v: Any) -> int:
 
 
 class TaskExecution:
-    """One claimed task with resolved inputs, between ``begin_task`` and
-    its completion."""
+    """One claimed task with resolved inputs — the unit a pipelined
+    backend keeps in flight between ``begin_task`` and completion."""
 
     __slots__ = ("t", "args", "kwargs", "input_keys", "t0", "t_run",
                  "worker", "node_id")
@@ -106,6 +127,24 @@ class TaskExecution:
         self.node_id = node_id
 
 
+class _InputsNotReady(Exception):
+    """Internal: ``_resolve_inputs(block=False)`` found an input that is
+    not immediately in the store."""
+
+
+class InputsPending(Exception):
+    """A ``begin_task(..., block_inputs=False)`` claim whose input
+    resolution would block (DESIGN.md §18).  Carries everything
+    ``Runtime.resume_begin`` needs to finish the claim off the loop."""
+
+    def __init__(self, t, worker: int, node_id: int, t0: float):
+        super().__init__(getattr(t, "name", None))
+        self.t = t
+        self.worker = worker
+        self.node_id = node_id
+        self.t0 = t0
+
+
 class Runtime:
     def __init__(
         self,
@@ -117,31 +156,30 @@ class Runtime:
         speculation: SpeculationConfig = SpeculationConfig(),
         name: str = "rjax",
         backend: str = "thread",
+        cluster: Any = None,
+        n_agents: Optional[int] = None,
         memory_budget: Any = None,
         spill_dir: Optional[str] = None,
+        pipeline_depth: Optional[int] = None,
         telemetry: Optional[bool] = None,
         dashboard_port: Optional[int] = None,
+        control_plane: Optional[str] = None,
+        inline_max: Optional[int] = None,
+        heartbeat_s: Optional[float] = None,
+        p2p: Optional[bool] = None,
+        liveness: Optional[bool] = None,
+        suspicion_s: Optional[float] = None,
         deadline_s: Optional[float] = None,
         resolve_timeout_s: Optional[float] = None,
-        pipeline_depth: Optional[int] = None,
+        reconnect_grace_s: Optional[float] = None,
+        replication: Optional[int] = None,
         mp_context: Optional[str] = None,
-        **cluster_opts: Any,
     ):
-        # ``cluster_opts`` are the RuntimeConfig knobs only the cluster
-        # backend reads (cluster, n_agents, control_plane, inline_max,
-        # heartbeat_s, p2p, liveness, suspicion_s, reconnect_grace_s,
-        # replication); that backend is not ported yet, so setting one is
-        # an error, not a silent no-op
-        pinned = sorted(k for k, v in cluster_opts.items() if v is not None)
-        if pinned:
-            raise ValueError(
-                f"knob(s) {', '.join(pinned)} configure the cluster backend, "
-                f"which the port does not have yet")
         # memory governance (DESIGN.md §13): explicit knob beats
-        # RJAX_MEMORY_BUDGET; None/0 = unbounded.  The budget applies per
-        # address-space domain: the scheduler-side store and each
-        # process-backend plane.  Only host ndarrays in the store are
-        # governed: device tensors there are never spilled.
+        # RJAX_MEMORY_BUDGET; None/0 = unbounded.  The budget applies
+        # per address-space domain: the scheduler-side store, each
+        # process-backend plane, each cluster node agent.  Only host
+        # ndarrays are governed: tensors are never spilled.
         self.memory_budget = budget_from_env(memory_budget)
         self.spill_dir = spill_dir
         # dispatch pipelining (DESIGN.md §14): explicit knob beats
@@ -156,12 +194,55 @@ class Runtime:
             deadline_s, "RJAX_DEADLINE_S", None, None, float)
         backend_opts = {}
         if backend == "process":
-            backend_opts["pipeline_depth"] = self.pipeline_depth
+            # the pool's start method (the port spawns by default); a
+            # node agent's pool reads its own --mp-context / env
             backend_opts["mp_context"] = mp_context
             if self.memory_budget:
                 backend_opts["memory_budget"] = self.memory_budget
+        if backend in ("process", "cluster"):
+            backend_opts["pipeline_depth"] = self.pipeline_depth
+        if backend == "cluster":
+            # geometry comes from the cluster harness: n_agents real node
+            # agents × workers_per_node worker processes on each
+            if cluster is None:
+                from ..cluster import LocalCluster
+                cluster = LocalCluster(n_agents=n_agents or 2,
+                                       workers_per_node=workers_per_node or 2)
+            n_workers = cluster.n_agents * cluster.workers_per_node
+            workers_per_node = cluster.workers_per_node
+            backend_opts["cluster"] = cluster
+            if control_plane is not None:
+                backend_opts["control_plane"] = control_plane
+            if p2p is not None:
+                backend_opts["p2p"] = p2p
+            # liveness failure detector (DESIGN.md §19): resolved inside
+            # ClusterExecutor (explicit > env > default), like p2p
+            if liveness is not None:
+                backend_opts["liveness"] = liveness
+            if suspicion_s is not None:
+                backend_opts["suspicion_s"] = suspicion_s
+            # bounded recovery (DESIGN.md §20): session-resumption grace
+            # window and async k-way replication, resolved inside
+            # ClusterExecutor like the liveness knobs
+            if reconnect_grace_s is not None:
+                backend_opts["reconnect_grace_s"] = reconnect_grace_s
+            if replication is not None:
+                backend_opts["replication"] = replication
+            # agents learn the budget from the welcome handshake (their
+            # own --memory-budget flag wins; see repro_torch.cluster.agent)
+            if self.memory_budget and getattr(cluster, "memory_budget", None) is None:
+                cluster.memory_budget = self.memory_budget
+            # likewise the inline threshold and heartbeat cadence: an
+            # explicit runtime_start knob seeds the welcome defaults
+            # (each agent's own flag/env still wins locally — one
+            # precedence rule, see core/config.py)
+            if inline_max is not None and getattr(cluster, "inline_max", None) is None:
+                cluster.inline_max = int(inline_max)
+            if heartbeat_s is not None and getattr(cluster, "heartbeat_s", None) is None:
+                cluster.heartbeat_s = float(heartbeat_s)
         self.n_workers = int(n_workers)
         self.backend = backend
+        self.cluster = cluster
         # live telemetry plane (DESIGN.md §17): ring hooks follow the
         # tracing flag unless asked for explicitly; a dashboard implies
         # telemetry.  RJAX_DASHBOARD=<port> enables the dashboard from
@@ -172,10 +253,28 @@ class Runtime:
         telemetry_on = bool(tracing) if telemetry is None else bool(telemetry)
         if dashboard_port is not None:
             telemetry_on = True
-        # sampler thread only when someone is watching (dashboard) or
+        # sampler threads only when someone is watching (dashboard) or
         # telemetry was requested explicitly — plain traced runs keep
         # their thread count unchanged
-        want_sampler = bool(telemetry) or dashboard_port is not None
+        self._want_sampler = bool(telemetry) or dashboard_port is not None
+        try:
+            self._init_rest(workers_per_node, policy, tracing, retry,
+                            speculation, name, backend, backend_opts,
+                            telemetry_on, dashboard_port)
+        except BaseException:
+            # a half-built cluster runtime must not leak agent processes
+            # (GC of the listener is not guaranteed, e.g. in a REPL)
+            if cluster is not None:
+                try:
+                    cluster.shutdown()
+                except Exception:
+                    pass
+            raise
+
+    def _init_rest(self, workers_per_node, policy, tracing, retry,
+                   speculation, name, backend, backend_opts,
+                   telemetry_on: bool = False,
+                   dashboard_port: Optional[int] = None) -> None:
         if workers_per_node is None:
             # each worker process is its own address space => its own
             # locality domain; threads all share one
@@ -190,6 +289,8 @@ class Runtime:
             node_budget=self.memory_budget,
         )
         self.tracer = Tracer(enabled=tracing)
+        # created before the executor starts: cluster agent heartbeats
+        # can arrive the moment the channels are installed
         self.telemetry = TelemetryHub(enabled=telemetry_on)
         self.dashboard = None
         self.retry = retry
@@ -201,6 +302,12 @@ class Runtime:
         self._inflight_cond = threading.Condition(self._inflight_lock)
         self._logical_done: Dict[int, bool] = {}   # speculation once-flags
         self._logical_lock = threading.Lock()
+        # datum keys whose producer is being re-executed after node loss
+        # (DESIGN.md §15): a consumer's resolve timeout on one of these
+        # is an input loss, not the consumer's own fault — it inherits
+        # the lost-input retry allowance.  Cleared on (re-)publication
+        self._recovering: set = set()
+        self._recover_lock = threading.Lock()
         self._idle_workers = self.n_workers
         self._stopped = False
 
@@ -211,9 +318,10 @@ class Runtime:
         if dashboard_port is not None:
             from .dashboard import DashboardServer
             self.dashboard = DashboardServer(self, port=dashboard_port)
-        if self.telemetry.enabled and want_sampler:
-            # no agents to heartbeat: an in-process sampler synthesizes
-            # the per-node view instead
+        if (self.telemetry.enabled and self._want_sampler
+                and backend != "cluster"):
+            # thread/process backends have no agents to heartbeat: an
+            # in-process sampler synthesizes the per-node view instead
             self.telemetry.start_sampler(self)
 
         self._monitor: Optional[threading.Thread] = None
@@ -386,18 +494,39 @@ class Runtime:
         return futures_out
 
     # ------------------------------------------------------- input resolution
-    def _resolve_inputs(self, t: TaskNode, node_id: int
+    def _resolve_inputs(self, t: TaskNode, node_id: int, block: bool = True
                         ) -> Tuple[tuple, dict, Dict[int, Tuple[int, int]]]:
         nbytes_in = 0
         input_keys: Dict[int, Tuple[int, int]] = {}
+        # a backend that understands RemoteValue placeholders (the cluster
+        # executor) gets them verbatim — the bytes move node↔node, never
+        # through this process (DESIGN.md §15)
+        materialize = not getattr(self.executor, "remote_values_ok", False)
 
         def _fetch(f: Future):
             nonlocal nbytes_in
             try:
-                v = self.store.get_nowait(f.key)
+                v = self.store.get_nowait(f.key, materialize=materialize)
             except KeyError:
-                # value arrived concurrently: block briefly
-                v = self.store.get(f.key, timeout=self.resolve_timeout_s)
+                # value arrived concurrently (or is being re-executed
+                # after its home node died); block briefly — unless the
+                # caller is the event-loop pump (DESIGN.md §18), which
+                # must never wait: it re-enters via ``resume_begin`` on
+                # a recovery thread instead
+                if not block:
+                    raise _InputsNotReady()
+                try:
+                    v = self.store.get(f.key, timeout=self.resolve_timeout_s,
+                                       materialize=materialize)
+                except TimeoutError as terr:
+                    with self._recover_lock:
+                        recovering = f.key in self._recovering
+                    if recovering:
+                        # lineage re-execution is slower than the resolve
+                        # window: this is an input loss, not this task's
+                        # failure — grant the lost-input retry allowance
+                        terr.lost_input = True
+                    raise
             except BaseException as err:
                 raise PoisonedInputError(f.producer_task, err) from err
             nbytes_in += _nbytes(v)
@@ -411,12 +540,17 @@ class Runtime:
         return args, kwargs, input_keys
 
     # --------------------------------------------------------- task lifecycle
-    def begin_task(self, tid: int, worker: int, node_id: int
-                   ) -> Optional[TaskExecution]:
+    def begin_task(self, tid: int, worker: int, node_id: int,
+                   block_inputs: bool = True) -> Optional[TaskExecution]:
         """Claim ``tid`` and resolve its inputs.  Returns ``None`` when the
         task was cancelled before start (lost speculation race) or input
         resolution already completed it (poisoned input / resolve error) —
-        in both cases no completion call must follow."""
+        in both cases no completion call must follow.
+
+        With ``block_inputs=False`` (the async control plane's pump), an
+        input that is not immediately in the store raises
+        :class:`InputsPending` instead of waiting; finish the claim off
+        the loop with :meth:`resume_begin`."""
         t = self.graph.claim_running(tid, worker, node_id)
         if t is None:
             return None  # cancelled before start (lost speculation race)
@@ -424,8 +558,17 @@ class Runtime:
         if self.telemetry.enabled:
             self.telemetry.note_dispatch(t.task_id, t.name, worker,
                                          node_id, t0)
+        return self._begin_resolve(t, worker, node_id, t0,
+                                   block=block_inputs)
+
+    def _begin_resolve(self, t: TaskNode, worker: int, node_id: int,
+                       t0: float, block: bool = True
+                       ) -> Optional[TaskExecution]:
         try:
-            args, kwargs, input_keys = self._resolve_inputs(t, node_id)
+            args, kwargs, input_keys = self._resolve_inputs(t, node_id,
+                                                            block=block)
+        except _InputsNotReady:
+            raise InputsPending(t, worker, node_id, t0)
         except PoisonedInputError as err:
             self._finish_failure(t, err, retryable=False)
             self._trace_task(t, worker, node_id, t0, ok=False)
@@ -435,6 +578,14 @@ class Runtime:
             return None
         return TaskExecution(t, args, kwargs, input_keys, t0, worker, node_id,
                              t_run=time.perf_counter())
+
+    def resume_begin(self, pend: "InputsPending") -> Optional[TaskExecution]:
+        """Blocking tail of a ``begin_task(..., block_inputs=False)``
+        that raised :class:`InputsPending` — same contract as
+        ``begin_task`` (the claim is already made; errors are handled
+        internally, never raised)."""
+        return self._begin_resolve(pend.t, pend.worker, pend.node_id,
+                                   pend.t0, block=True)
 
     def complete_task(self, ex: TaskExecution, result: Any) -> None:
         """Successful body execution: publish outputs, release children."""
@@ -455,13 +606,22 @@ class Runtime:
     def _handle_task_error(self, t: TaskNode, err: BaseException,
                            worker: int, node_id: int, t0: float,
                            t_run: Optional[float] = None) -> None:
-        if self.retry.should_retry(t.attempts, t.max_retries, err):
+        allowed = t.max_retries
+        lost = bool(getattr(err, "lost_input", False))
+        if lost:
+            allowed += LOST_INPUT_RETRIES
+        if self.retry.should_retry(t.attempts, allowed, err):
             # one unified backoff policy (DESIGN.md §19): exponential in
-            # the attempt number with bounded jitter
-            backoff = self.retry.delay_for(t.attempts)
+            # the attempt number with bounded jitter, folded with the
+            # lost-input pacing — the datum only reappears once lineage
+            # recovery has re-executed its producer
+            backoff = self.retry.delay_for(
+                t.attempts, lost_input=lost,
+                lost_input_pace=LOST_INPUT_BACKOFF_S)
             if backoff:
-                # a timer, not a sleep: the dispatcher thread goes straight
-                # back to other ready tasks
+                # completions run on shared threads (the pool collector, a
+                # channel reader) — a blocking sleep there would stall
+                # every worker's completions, so backoff is a timer
                 timer = threading.Timer(backoff,
                                         self._requeue_retry, args=(t.task_id,))
                 timer.daemon = True
@@ -479,7 +639,7 @@ class Runtime:
         self.scheduler.push(task_id)
 
     def _execute(self, tid: int, worker: int, node_id: int) -> None:
-        """Synchronous task lifecycle, run on the dispatcher thread."""
+        """Synchronous task lifecycle — the non-pipelined (thread) path."""
         ex = self.begin_task(tid, worker, node_id)
         if ex is None:
             return
@@ -519,6 +679,9 @@ class Runtime:
 
     def _put_output(self, key: Tuple[int, int], value: Any, node_id: int) -> None:
         self.store.put(key, value, node=node_id)
+        if self._recovering:   # bare read: cheap miss on the hot path
+            with self._recover_lock:
+                self._recovering.discard(key)
         self.executor.publish(key, value)
 
     def _finish_success(self, t: TaskNode, result: Any, node_id: int) -> None:
@@ -568,6 +731,9 @@ class Runtime:
         wrapped = TaskFailedError(primary.name, primary.task_id, err)
         for key in primary.out_keys:
             self.store.put_error(key, wrapped)
+            if self._recovering:
+                with self._recover_lock:
+                    self._recovering.discard(key)
         ready = self.graph.mark_failed(primary.task_id, err)
         self.scheduler.push_many(ready)
 
@@ -592,6 +758,63 @@ class Runtime:
             self._inflight -= 1
             if self._inflight <= 0:
                 self._inflight_cond.notify_all()
+
+    # ------------------------------------------- lineage recovery (§15)
+    def recover_lost_node(self, node_id: int) -> List[Tuple[int, int]]:
+        """A node died holding the only copy of node-resident results:
+        invalidate their placeholders (readers block instead of fetching
+        from a corpse) and re-execute the producers from graph lineage.
+        Returns the lost keys so the executor can strike them from every
+        agent's residency ledger.  Called by the cluster executor's
+        restart path, right after ``store.forget_node``."""
+        lost = self.store.invalidate_lost(node_id)
+        self.relaunch_lost(lost, node_id)
+        return lost
+
+    def relaunch_lost(self, keys: List[Tuple[int, int]],
+                      node_id: Optional[int] = None) -> None:
+        """Resurrect the producer of each lost datum.  Transitive losses
+        on the same node converge naturally: a resurrected producer whose
+        own input was also lost blocks in ``_resolve_inputs`` until that
+        input's producer (resurrected in the same sweep) re-publishes.
+        A producer pruned from the graph (``RJAX_GRAPH_RETAIN``) is
+        unrecoverable — its consumers fail fast with a retryable error
+        instead of hanging."""
+        if not keys:
+            return
+        from .executors import WorkerCrashedError
+        with self._recover_lock:
+            self._recovering.update(tuple(k) for k in keys)
+        producers: Dict[int, None] = {}
+        for key in keys:
+            tid = self.graph.producer_of(key)
+            if tid is None:
+                self.store.put_error(key, WorkerCrashedError(
+                    f"datum d{key[0]}v{key[1]} was lost with node "
+                    f"{node_id} and its producer is no longer in the "
+                    f"graph (pruned by retention)"))
+                with self._recover_lock:
+                    self._recovering.discard(tuple(key))
+            else:
+                producers[tid] = None
+        for tid in producers:
+            self._resurrect(tid)
+
+    def _resurrect(self, tid: int) -> None:
+        """Re-run a completed task: flip it back to READY, clear its
+        completion once-flag, and requeue.  No-op unless the task is DONE
+        — a concurrent sweep may already have resurrected it.  The flag
+        clears AFTER the state flip (the task cannot be dispatched until
+        the push below, so nothing races the fresh flag) and only for
+        genuinely resurrected tasks — clearing it for a FAILED task could
+        let a late speculative clone double-publish."""
+        if not self.graph.resurrect(tid):
+            return
+        with self._logical_lock:
+            self._logical_done.pop(tid, None)
+        with self._inflight_cond:
+            self._inflight += 1
+        self.scheduler.push(tid)
 
     # ------------------------------------------------------------ speculation
     def _speculation_loop(self) -> None:
@@ -687,10 +910,18 @@ class Runtime:
     # --------------------------------------------------------------- metrics
     def stats(self) -> dict:
         c = self.graph.counters()   # O(1): incrementally maintained
+        raw_ex = self.executor.stats()
         # uniform schema across backends (DESIGN.md §17): every canonical
         # executor counter present, 0 where the backend has no such concept
-        ex_stats = normalize_executor_stats(self.executor.stats())
+        ex_stats = normalize_executor_stats(raw_ex)
         data_plane = self.store.transfer_detail()
+        # wire-level truth wins where the executor measures its own link
+        # (the cluster backend counts actual Put payloads out + result
+        # frames back); other backends fall back to the store's
+        # cross-domain ledger — judged on the *raw* stats, since the
+        # normalized schema always carries a (zero) relay_bytes key
+        relay = raw_ex.get("relay_bytes",
+                           data_plane["scheduler_relay_bytes"])
         return {
             "tasks_submitted": c["submitted"],
             "tasks_done": c["done"],
@@ -702,7 +933,7 @@ class Runtime:
             "critical_path_s": self.graph.critical_path_seconds(),
             "wallclock_s": self.tracer.wallclock(),
             "utilization": self.tracer.utilization(self.n_workers),
-            "scheduler_relay_bytes": data_plane["scheduler_relay_bytes"],
+            "scheduler_relay_bytes": relay,
             "p2p_bytes": data_plane["p2p_bytes"],
             "data_plane": data_plane,
             "executor": ex_stats,

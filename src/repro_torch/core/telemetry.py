@@ -1,10 +1,13 @@
 """Live telemetry plane (DESIGN.md §17), the port's copy.
 
-* **Sampler** — the thread and process backends have no agents to
-  heartbeat, so an in-process sampler thread (started when
-  ``telemetry=True`` or a dashboard is served) records
-  ``executor.stats()`` + the store's memory ledger as a ``local``
-  pseudo-node heartbeat (cadence ``RJAX_HEARTBEAT_S``; 0 disables).
+* **Heartbeats** — every cluster node agent posts a periodic ``hb``
+  message on its scheduler channel (cadence settled by the welcome
+  handshake / ``RJAX_HEARTBEAT_S``; 0 disables) carrying its node-plane
+  ledger, pool occupancy and counters, and p2p fetch counters.  The
+  thread and process backends have no wire to ride, so an in-process
+  sampler thread (started when ``telemetry=True`` or a dashboard is
+  served) records ``executor.stats()`` + the store's memory ledger as a
+  ``local`` pseudo-node heartbeat at the same cadence.
 * **Task stream** — a bounded ring of lifecycle events
   (:class:`~repro_torch.core.tracing.TaskStream`), fed from
   ``Runtime.submit`` / ``begin_task`` / the completion paths.

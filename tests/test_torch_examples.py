@@ -26,6 +26,9 @@ def _run(name, *args):
     ("kmeans_pipeline_torch.py", ["--points", "6000", "--iters", "3", "--backend", "process"],
      "projected makespan on  64 workers"),
     ("quickstart_torch.py", ["--backend", "process"], "The result is: 22"),
+    ("quickstart_torch.py", ["--backend", "cluster"], "The result is: 22"),
+    ("kmeans_pipeline_torch.py", ["--points", "6000", "--iters", "3", "--backend", "cluster"],
+     "projected makespan on  64 workers"),
     ("serve_lm_torch.py", ["--arch", "deepseek-moe-16b", "--requests", "2", "--prompt-len", "8",
                            "--gen-len", "3"], "generated token matrix (2, 3)"),
     ("serve_lm_torch.py", ["--arch", "qwen3-0.6b", "--requests", "2", "--prompt-len", "8",
@@ -34,7 +37,7 @@ def _run(name, *args):
     ("train_lm_torch.py", ["--arch", "deepseek-moe-16b", "--steps", "2", "--batch", "2",
                            "--seq", "16"], "aux "),
 ], ids=["quickstart", "kmeans_pipeline", "kmeans_pipeline_process", "quickstart_process",
-        "serve_moe", "serve_dense", "train", "train_moe"])
+        "quickstart_cluster", "kmeans_pipeline_cluster", "serve_moe", "serve_dense", "train", "train_moe"])
 def test_example_runs_on_the_cpu(name, args, want):
     proc = _run(name, *args, "--device", "cpu")
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -65,7 +65,11 @@ def test_port_files_exist():
                  "configs/recurrentgemma_9b.py", "optim/adamw.py", "optim/compress.py",
                  "data/pipeline.py", "checkpoint/manager.py", "distributed/steps.py",
                  "launch/train.py", "layers/moe.py", "core/simulator.py",
-                 "core/dashboard.py", "core/executors.py"):
+                 "core/dashboard.py", "core/executors.py", "core/fault.py",
+                 "core/futures.py", "core/dag.py", "core/collectives.py",
+                 "cluster/__init__.py", "cluster/chaos.py", "cluster/protocol.py",
+                 "cluster/peer.py", "cluster/agent.py", "cluster/channel.py",
+                 "cluster/eventloop.py", "cluster/cluster.py"):
         assert want in names
     examples = {os.path.basename(p) for p in _port_files() if p.startswith(EXAMPLES)}
     assert examples == {"quickstart_torch.py", "kmeans_pipeline_torch.py",
@@ -160,6 +164,10 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.distributed\n"
+        "import repro_torch.cluster, repro_torch.cluster.agent\n"
+        "import repro_torch.cluster.eventloop, repro_torch.cluster.channel\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
         "from repro_torch.kernels import _build\n"
         "assert _build._lib is None\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"

@@ -2,10 +2,10 @@
 
 Mirrors the thread cases of ``tests/test_runtime.py`` and the shape and
 bitwise-order cases of ``tests/test_collectives.py`` against
-``repro_torch.core``, and checks that what the port does not have yet
-(the cluster backend and its knobs) is refused rather than silently
-ignored.  The process backend is tested in ``test_torch_process.py``, the
-dashboard in ``test_torch_dashboard.py``.
+``repro_torch.core``, and checks that every cluster knob is accepted on
+``backend="cluster"`` and shows in ``stats()``.  The process backend is
+tested in ``test_torch_process.py``, the cluster backend in
+``test_torch_cluster*.py``, the dashboard in ``test_torch_dashboard.py``.
 """
 import math
 import os
@@ -213,20 +213,42 @@ def test_stats_and_context_manager():
         api.current_runtime()
 
 
-# ------------------------------------------------- what the port lacks yet
-@pytest.mark.parametrize("backend", ["cluster"])
-def test_other_backends_raise(backend):
-    with pytest.raises(ValueError, match="not ported"):
-        api.runtime_start(n_workers=2, backend=backend)
-    with pytest.raises(RuntimeError):
-        api.current_runtime()
+# ------------------------------------------------------ the cluster's knobs
+BIG = 4096   # float64 elements: 32 KiB, above the inline threshold (8 KiB)
 
 
-@pytest.mark.parametrize("knob,value", [("control_plane", "async"), ("n_agents", 2),
+def _settled(read, want, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while read() != want and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return read()
+
+
+@pytest.mark.parametrize("knob,value", [("control_plane", "threads"),
+                                        ("control_plane", "async"), ("n_agents", 1),
                                         ("p2p", False), ("replication", 1)])
-def test_later_backend_knobs_raise(knob, value):
-    with pytest.raises(ValueError, match=knob):
-        api.runtime_start(n_workers=2, **{knob: value})
+def test_cluster_knobs_take_effect(knob, value):
+    """Each knob only the cluster backend reads is accepted there and
+    shows in ``stats()``.  The task body is ``np.ones`` (pickled by
+    reference), so the agents never import this module, which loads JAX."""
+    opts = {"n_agents": 2, "workers_per_node": 1, knob: value}
+    with api.runtime_start(backend="cluster", **opts) as rt:
+        ones = api.task(np.ones, name="ones")(BIG)
+        assert api.wait_on(ones).tobytes() == np.ones(BIG).tobytes()
+        st = rt.stats()["executor"]
+        assert st["backend"] == "cluster"
+        if knob == "n_agents":
+            assert st["n_agents"] == value and rt.n_workers == value
+        elif knob == "control_plane":
+            assert st["control_plane"] == value
+        elif knob == "p2p":
+            # every result relayed through the scheduler, none node-resident
+            assert st["p2p"] is False and st["remote_results"] == 0
+            assert st["relay_result_bytes"] >= BIG * 8
+        else:
+            # the node-resident result is pushed to the other agent
+            assert st["remote_results"] == 1
+            assert _settled(lambda: rt.executor.stats()["replica_bytes"], BIG * 8) == BIG * 8
 
 
 def test_process_knobs_are_accepted_on_the_thread_backend():
