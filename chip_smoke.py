@@ -110,13 +110,28 @@ failure raises (the script then exits non-zero without a result):
 17. train_ssd — the same on mamba2-780m at full width;
 18. train_moe — the same on deepseek-moe-16b at full width, its depth cut
              to 4 of 28 layers (at full depth, bf16 weights and gradients
-             and fp32 moments need ~200 GB).
+             and fp32 moments need ~200 GB);
+19. mesh   — the multi-device layer at world size 1: an NCCL process group
+             of one rank on the card and ``make_local_mesh()``'s (1, 1)
+             DeviceMesh; ``train_loop(mesh=)`` on qwen3-0.6b at full width
+             (parameters and moments stored as DTensors, gathered for
+             compute every step), 4 steps of BATCH x PROMPT_LEN tokens
+             with a checkpoint after step 3, and the same 4 steps without
+             a mesh from the same seed, checkpointed alike: the losses
+             bitwise equal, the
+             launches exactly phase train's per step; a launch on the mesh
+             restored from the step-3 checkpoint through
+             ``restore_checkpoint(shardings=)`` continues with step 4's
+             loss within 1e-5; ``serve_batch(mesh=)`` at phase serve's
+             settings gives phase serve's tokens with its launch counts;
+             the two runs' step seconds and tokens/s on one line beside
+             nvidia-smi's name and power limit; the group destroyed.
 
 Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5, 7, 8, 10 and 11-18, by phase; times measured in
+counted during phases 4, 5, 7, 8, 10 and 11-19, by phase; times measured in
 phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
@@ -994,8 +1009,8 @@ def routed_as(model, routes):
     layers = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
     given = {id(mod.w_router): ids.reshape(-1, ids.shape[-1]) for mod, ids in zip(layers, routes)}
 
-    def forced(xf, w_router, top_k, renormalize=True):
-        _, _, aux = route(xf, w_router, top_k, renormalize)
+    def forced(xf, w_router, top_k, renormalize=True, group=None):
+        _, _, aux = route(xf, w_router, top_k, renormalize, group=group)
         ids = given[id(w_router)]
         w = torch.softmax(xf.to(torch.float32) @ w_router, dim=-1).gather(1, ids)
         if renormalize:
@@ -1284,6 +1299,90 @@ def train_and_check(ph, ops, lm, train, cfg, cuda) -> dict:
     return counts
 
 
+MESH_STEPS, MESH_CKPT = 4, 3       # phase mesh: train steps, the step restored from
+
+
+def nvidia_smi() -> str:
+    """nvidia-smi's name and power limit of the card, read now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def mesh_phase(ph, ops, lm, train, serve, cfg, cuda, served_tokens) -> dict:
+    """Phase mesh: the multi-device layer on one card (see the module
+    docstring).  Fills ``ph.info`` and returns the phase's launch counts."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=cuda)
+    ckpt = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="chip_smoke_mesh_")
+    ckpt_plain = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="chip_smoke_plain_")
+    try:
+        mesh = make_local_mesh()
+        assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1), mesh
+        kw = dict(steps=MESH_STEPS, batch=BATCH, seq=PROMPT_LEN, lr=1e-3, warmup=2, seed=SEED,
+                  log_every=0, device=cuda)
+        ops.reset_launch_counts()
+        meshed = train.train_loop(cfg, mesh=mesh, ckpt_dir=ckpt, ckpt_every=MESH_CKPT, **kw)
+        counts = ops.launch_counts()
+        per_step = train_launches(ops, cfg)
+        assert counts == {k: MESH_STEPS * n for k, n in per_step.items()}, (counts, per_step)
+        torch.cuda.empty_cache()
+        # the same checkpoints as the mesh run, so that the two runs' times
+        # hold the same work
+        plain = train.train_loop(cfg, ckpt_dir=ckpt_plain, ckpt_every=MESH_CKPT, **kw)
+        shutil.rmtree(ckpt_plain, ignore_errors=True)
+        torch.cuda.empty_cache()
+        assert len(meshed["losses"]) == MESH_STEPS and np.isfinite(meshed["losses"]).all()
+        assert meshed["losses"] == plain["losses"], \
+            ("the mesh's losses are not the one-device losses", meshed["losses"], plain["losses"])
+        # a launch on the mesh restored from the step-3 checkpoint (other
+        # weights to start from) runs the last step
+        shutil.rmtree(os.path.join(ckpt, f"step_{MESH_STEPS:08d}"))
+        resumed = train.train_loop(cfg, mesh=mesh, ckpt_dir=ckpt, restore=True,
+                                   model=lm.init_params(cfg, seed=SEED + 1, device=cuda), **kw)
+        assert resumed["restored_from"] == MESH_CKPT, resumed["restored_from"]
+        np.testing.assert_allclose(resumed["losses"], plain["losses"][MESH_CKPT:], rtol=1e-5,
+                                   err_msg="resumed on the mesh vs uninterrupted losses")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        out = serve.serve_batch(cfg, batch=BATCH, prompt_len=PROMPT_LEN, gen_len=GEN_LEN,
+                                seed=SEED, device=cuda, mesh=mesh)
+        serve_counts = ops.launch_counts()
+        want = only(ops, rmsnorm=GEN_LEN * (cfg.n_layers * 4 + 1), flash_attention=cfg.n_layers)
+        assert serve_counts == want, (serve_counts, want)
+        assert np.array_equal(out["tokens"], served_tokens), "the mesh served other tokens"
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(ckpt_plain, ignore_errors=True)
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+
+    def run(r):
+        steady = float(np.median(r["step_seconds"][1:]))
+        return {"step_seconds": r["step_seconds"], "steady_step_s": steady,
+                "steady_tokens_per_s": BATCH * PROMPT_LEN / steady,
+                "steps_tokens_per_s": MESH_STEPS * BATCH * PROMPT_LEN / sum(r["step_seconds"]),
+                "tokens_per_s": r["tokens_per_s"]}
+
+    ph.info.update(arch=cfg.name, steps=MESH_STEPS, batch=BATCH, seq=PROMPT_LEN,
+                   losses=meshed["losses"], resumed_losses=resumed["losses"],
+                   launches_train=counts, launches_serve=serve_counts,
+                   mesh_run=run(meshed), plain_run=run(plain),
+                   serve={k: out[k] for k in ("prefill_s", "decode_s", "decode_tokens_per_s")})
+    emit({"mesh": {"meshed": run(meshed), "plain": run(plain)}, "nvidia_smi": nvidia_smi()})
+    return {k: counts[k] + serve_counts[k] for k in counts}
+
+
 # phases simulate, process and dashboard
 SIM_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
 PROJECTION_FACTOR = 2.0    # the 1-worker projection against the measured 1-worker wall
@@ -1486,9 +1585,7 @@ def main(argv) -> int:
         name = torch.cuda.get_device_name(0)
         cap = torch.cuda.get_device_capability(0)
         assert cap >= (9, 0), f"{name} has compute capability {cap}; sm_90a needs (9, 0)"
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        smi = nvidia_smi()
         print(smi, flush=True)
         ph.info.update(name=name, capability=list(cap), nvidia_smi=smi,
                        torch=torch.__version__, cuda=torch.version.cuda,
@@ -1903,6 +2000,7 @@ def main(argv) -> int:
             ph, cfg, model, only(ops, rmsnorm=GEN_LEN * (cfg.n_layers * 4 + 1),
                                  flash_attention=cfg.n_layers), cuda)
         by_phase["serve"] = ph.info["launches"]
+        served_tokens = toks                 # phase mesh serves them again
         # control (2): the decode path with bf16 scores and probabilities (the
         # chunked path under attn_scores_bf16, the same weights from the same
         # seed): a lower precision, recorded
@@ -1970,6 +2068,10 @@ def main(argv) -> int:
         ph.info["full_depth"] = cfg.n_layers
         by_phase["train_moe"] = train_and_check(
             ph, ops, lm, train, dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS), cuda)
+
+    with Phase("mesh") as ph:
+        by_phase["mesh"] = mesh_phase(ph, ops, lm, train, serve, get_config("qwen3-0.6b"), cuda,
+                                      served_tokens)
 
     for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
         launches[name] = sum(counts[name] for counts in by_phase.values())

@@ -17,7 +17,12 @@ bf16 tensors from their bits.
 Trees here are nested dicts, lists and NamedTuples; leaves are NumPy
 arrays (:class:`~repro_torch.models.convert.BF16Bits` for bf16, as
 :func:`~repro_torch.models.convert.to_jax_tree` gives them) or torch
-tensors, copied to the host.  Saves are atomic (a temp dir, then a
+tensors, copied to the host (a sharded caller gathers its DTensors to
+full tensors first, and one rank writes).  A restore may place every
+leaf on a device mesh (``shardings``): each rank loads the full leaf and
+keeps its shard, so a checkpoint written from one mesh restores onto any
+other — the reference's elastic resharding — and the files do not depend
+on the mesh.  Saves are atomic (a temp dir, then a
 rename) and may run as ``checkpoint_save`` tasks on the port's runtime,
 retried on failure, so checkpoint I/O overlaps the next training step.
 """
@@ -119,11 +124,15 @@ def _load_leaf(dirpath: Path, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_checkpoint(path: str, target_tree: Any, *,
+def restore_checkpoint(path: str, target_tree: Any, *, shardings: Any = None,
                        step: Optional[int] = None) -> Tuple[Any, int]:
     """Restore into the structure of ``target_tree`` (its leaves name the
     files; their values are not read): (the tree with host torch tensors
-    as leaves, the step).  ``step=None`` takes the newest checkpoint."""
+    as leaves, the step).  ``step=None`` takes the newest checkpoint.
+    ``shardings``: a tree of the same structure whose leaves are
+    :class:`~repro_torch.distributed.sharding.Sharding` (or ``None``: that
+    leaf stays a host tensor) — each such leaf comes back as a DTensor on
+    its mesh, this rank holding its shard."""
     root = Path(path)
     if step is None:
         cands = sorted(root.glob("step_*"))
@@ -140,6 +149,9 @@ def restore_checkpoint(path: str, target_tree: Any, *,
         missing = set(by_name) ^ set(names)
         raise ValueError(f"checkpoint/tree structure mismatch: {sorted(missing)[:5]}")
     loaded = {k: _load_leaf(final, by_name[n]) for k, n in zip(keystrs, names)}
+    if shardings is not None:
+        placed = dict(_paths(shardings))
+        loaded = {k: placed[k].place(v) if k in placed else v for k, v in loaded.items()}
     return _rebuild(target_tree, loaded.__getitem__), manifest["step"]
 
 
@@ -195,5 +207,5 @@ class CheckpointManager:
             return None
         return int(cands[-1].name.split("_")[1])
 
-    def restore(self, target_tree: Any, *, step: Optional[int] = None):
-        return restore_checkpoint(str(self.path), target_tree, step=step)
+    def restore(self, target_tree: Any, *, shardings: Any = None, step: Optional[int] = None):
+        return restore_checkpoint(str(self.path), target_tree, shardings=shardings, step=step)

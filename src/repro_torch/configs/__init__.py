@@ -1,14 +1,23 @@
 """Architecture registry: the 10 assigned architectures (``--arch <id>``),
 each with its published configuration (FULL) and a smoke-test REDUCED
 variant — the port of ``repro/configs``, as :class:`LMConfig` values with
-torch dtypes.  The TPU dry-run shape sets (``repro/configs/shapes.py``)
-are not ported (they belong to the multi-device layer)."""
+torch dtypes — plus the shape sets, the meta-tensor input specs and the
+smoke batches of :mod:`repro_torch.configs.shapes`."""
 from __future__ import annotations
 
 from importlib import import_module
 from typing import Dict, List
 
 from ..models.lm import LMConfig
+from .shapes import (  # noqa: F401
+    SHAPES,
+    SMOKE_SHAPES,
+    ShapeSpec,
+    cache_specs,
+    input_specs,
+    make_batch,
+    shape_applicable,
+)
 
 _MODULES: Dict[str, str] = {
     "granite-20b": "granite_20b",

@@ -3,7 +3,10 @@
 Each op takes the device of its tensors as the only switch: tensors on
 the CPU go to the kernel's plain PyTorch version (that is how the CPU
 tests run), tensors on a CUDA device go to the hand-written kernel —
-which launches or raises; there is no fallback.  Mixed devices raise.
+which launches or raises; there is no fallback.  Mixed devices raise,
+and so does a DTensor: the kernels take plain tensors through ctypes, so
+a caller over a device mesh gathers its shards first
+(``distributed/steps.py``) — nothing converts a DTensor here.
 
 The launch counters are plain ints, one per kernel, kept by each
 kernel's CUDA wrapper where it launches (``knn_topk.launches``, ...);
@@ -26,6 +29,7 @@ under ``jax.grad``: they refuse inputs that require grad.
 from __future__ import annotations
 
 import functools
+import sys
 from typing import Callable, Dict, Optional
 
 import torch
@@ -43,6 +47,12 @@ KERNELS = {"knn_topk": _knn, "kmeans_assign": _kmeans, "rmsnorm": _rms,
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
+    # a DTensor exists only once its module is loaded; importing it here
+    # would slow every import of the port
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in tensors):
+        raise TypeError("a DTensor reached a kernel op: the kernels take plain tensors; "
+                        "gather the shards first (full_tensor) or pass the local shard")
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
         raise ValueError(f"tensors on devices {sorted(str(t.device) for t in tensors)}: "

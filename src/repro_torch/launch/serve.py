@@ -11,9 +11,13 @@ caches).
 Request pre-processing (prompt synthesis, the tokenizer's stand-in) and
 response post-processing run as tasks on the port's runtime; prefill and
 the decode steps run on the device — the paper's split between
-orchestration (the runtime) and compute (here the H100).  There is no
-mesh: one device serves the batch (the multi-device layer is ROADMAP
-item A11).
+orchestration (the runtime) and compute (here the H100).  Prefill and
+decode are the step makers of :mod:`repro_torch.distributed.steps`.  With
+``mesh`` (a ``(data, model)`` DeviceMesh, one process per rank, each
+calling ``serve_batch``) the prompts are sharded over the data ranks,
+each rank prefills and decodes its rows with the full parameters, and
+the chosen tokens are gathered after every step (the next step's input
+is the global batch); compute is replicated over ``model``.
 
 What differs from the JAX driver:
 
@@ -50,6 +54,7 @@ import torch
 from ..algorithms.common import resolve_device
 from ..configs import ARCH_IDS, get_config
 from ..core import api
+from ..distributed.steps import gather_rows, make_decode_step, make_prefill_step
 from ..models.lm import LM, LMConfig, init_params
 
 
@@ -86,16 +91,19 @@ def _step_input(cfg: LMConfig, tok: torch.Tensor, step: int, seed: int) -> Dict:
 @torch.no_grad()
 def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
                 seed: int = 0, device=None, params: Optional[LM] = None,
-                manage_runtime: bool = True) -> Dict[str, Any]:
+                manage_runtime: bool = True, mesh=None) -> Dict[str, Any]:
     """Serve ``batch`` synthetic prompts of ``prompt_len`` and greedily
     generate ``gen_len`` tokens each.  ``device=None`` means CUDA (raises
     without a card); ``params`` is the model to serve (default: random
-    weights from ``init_params(cfg, seed)`` on the device).  Returns
-    ``tokens`` (batch, gen_len) int32, ``prefill_s``, ``decode_s`` and
-    ``decode_tokens_per_s``."""
+    weights from ``init_params(cfg, seed)`` on the device).  ``mesh``: a
+    DeviceMesh on the same device type, over which the prompts are
+    sharded.  Returns ``tokens`` (batch, gen_len) int32 (every rank: all
+    of them), ``prefill_s``, ``decode_s`` and ``decode_tokens_per_s``."""
     dev = resolve_device(device)
     if params is not None and params.device.type != dev.type:
         raise ValueError(f"params are on {params.device}, serving on {dev}")
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, serving on {dev}")
     if manage_runtime:
         api.runtime_start(n_workers=2)
     try:
@@ -105,13 +113,18 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
 
         model = params if params is not None else init_params(cfg, seed, device=dev)
         prompts = api.wait_on(prompts_f)
+        prefill = make_prefill_step(cache_len=cache_len, mesh=mesh)
+        decode = make_decode_step(mesh=mesh)
+
+        def choose(logits: torch.Tensor) -> torch.Tensor:
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            return tok if mesh is None else gather_rows(tok, mesh, batch)
 
         _sync(dev)
         t0 = time.perf_counter()
         dev_prompts = {k: torch.from_numpy(v).to(dev) for k, v in prompts.items()}
-        logits, caches = model(dev_prompts, make_cache_len=cache_len, last_only=True,
-                               remat="none")
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        logits, caches = prefill(model, dev_prompts)
+        next_tok = choose(logits)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
@@ -119,9 +132,8 @@ def serve_batch(cfg: LMConfig, *, batch: int = 4, prompt_len: int = 32, gen_len:
         t1 = time.perf_counter()
         pos = prompt_len
         for i in range(gen_len - 1):
-            logits, caches = model(_step_input(cfg, next_tok, i, seed), caches=caches,
-                                   pos_offset=pos, remat="none")
-            next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            logits, caches = decode(model, _step_input(cfg, next_tok, i, seed), caches, pos)
+            next_tok = choose(logits)
             generated.append(next_tok)
             pos += 1
         host_tokens = [t.cpu().numpy() for t in generated]   # waits for the last step

@@ -44,6 +44,20 @@ NEG_INF = -1e30
 INVALID_POS = 1 << 30
 
 
+def attention_axes(qk_norm: bool = False):
+    """Logical axes of :class:`Attention`'s parameters (for placement)."""
+    ax = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if qk_norm:
+        ax["q_norm"] = {"scale": ("head_dim",)}
+        ax["k_norm"] = {"scale": ("head_dim",)}
+    return ax
+
+
 def _mask(q_pos, kv_pos, window: Optional[int]):
     """(Sq, Skv) boolean validity: causal + optional sliding window.
     Invalid cache slots carry ``INVALID_POS`` and fail the causal test."""

@@ -18,6 +18,17 @@ def init_normal_(w: torch.Tensor, std: float, generator: torch.Generator) -> Non
     w.copy_(torch.randn(w.shape, generator=generator, device=w.device) * std)
 
 
+def mlp_axes(gated: bool = True):
+    """Logical axes of :class:`MLP`'s parameters (for placement)."""
+    ax = {
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+    }
+    if gated:
+        ax["w_gate"] = ("embed", "mlp")
+    return ax
+
+
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, *, gated: bool = True,
                  dtype=torch.float32, device=None):

@@ -1,7 +1,7 @@
 """Routed Mixture-of-Experts with capacity-based dispatch: the port of
-``repro/layers/moe.py`` at one device (``moe_apply_local``; the
-expert-parallel ``moe_apply_sharded`` waits for the multi-device layer,
-ROADMAP item A11).
+``repro/layers/moe.py``'s ``moe_apply_local``, on one device or over a
+data-parallel group (the expert-parallel ``moe_apply_sharded``, experts
+over the ``model`` axis, waits for ROADMAP item A11.4).
 
 The reference computes MoE outside any Pallas kernel, as gathers and
 batched einsums, so the port is plain PyTorch (``torch.sort``, indexing,
@@ -22,6 +22,19 @@ batched einsums, so the port is plain PyTorch (``torch.sort``, indexing,
   adds: no atomics, so the result is bitwise repeatable on a card;
 * the Switch-style balance loss ``E · Σ_e mean(probs)_e · mean(onehot(top-1))_e``.
 
+Over a data-parallel ``group`` (each rank holds contiguous rows of the
+batch, rank-major) the layer computes what one device computes on the
+whole batch, as the reference's GSPMD step does on a ``model = 1`` mesh:
+the capacity comes from the global token count; an assignment's slot is
+its position among its expert's assignments in global token order — its
+local position plus the assignments of the lower ranks to that expert,
+the exclusive prefix of one ``all_gather`` of each rank's per-expert
+counts, so ties still go by token order; the balance loss takes the
+router statistics of the whole batch, summed by a differentiable
+all-reduce, so that its gradient reaches every rank's router.  Each rank
+computes its own tokens' outputs.  Without a group, or with a group of
+one, no collective is launched and the code is the one-device path.
+
 Weights keep the JAX layouts: ``w_router`` (d_model, E), kept in fp32
 in a bf16 model as the reference keeps it, ``w_gate`` / ``w_up``
 (E, d_model, F), ``w_down`` (E, F, d_model).
@@ -29,9 +42,11 @@ in a bf16 model as the reference keeps it, ``w_gate`` / ``w_up``
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple, Tuple
+import warnings
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -40,10 +55,39 @@ from .mlp import init_normal_
 PARAM_NAMES = ("w_router", "w_gate", "w_up", "w_down")
 
 
-def _route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int, renormalize: bool = True
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def moe_axes():
+    """Logical axes of :class:`MoE`'s parameters (for placement)."""
+    return {
+        "w_router": ("embed", "expert_router"),
+        "w_gate": ("expert", "embed", "expert_mlp"),
+        "w_up": ("expert", "embed", "expert_mlp"),
+        "w_down": ("expert", "expert_mlp", "embed"),
+    }
+
+
+def _spread(group) -> Optional[object]:
+    """``group`` where it spans more than one rank, else ``None``."""
+    return group if group is not None and dist.get_world_size(group) > 1 else None
+
+
+def _summed(t: torch.Tensor, group, grad: bool = False) -> torch.Tensor:
+    """``t`` summed over ``group``; with ``grad``, differentiably (the
+    gradient of each rank's share is the sum of every rank's gradient)."""
+    if grad:
+        import torch.distributed.nn.functional as dist_fn
+        with warnings.catch_warnings():       # deprecated, but still the autograd one
+            warnings.simplefilter("ignore", FutureWarning)
+            return dist_fn.all_reduce(t, group=group)
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int, renormalize: bool = True,
+           group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xf (N, D) -> (weights (N, k) fp32, expert ids (N, k) int64, aux loss
-    0-d fp32): the reference's ``_route``."""
+    0-d fp32): the reference's ``_route``, with the balance loss's router
+    statistics over every rank of ``group``'s tokens."""
     probs = torch.softmax(xf.to(torch.float32) @ w_router, dim=-1)
     # a stable descending sort keeps the lower index first among equal
     # probabilities, as jax.lax.top_k does
@@ -52,8 +96,14 @@ def _route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int, renormalize: bo
     if renormalize:
         topw = topw / torch.clamp(topw.sum(dim=-1, keepdim=True), min=1e-9)
     n_experts = w_router.shape[1]
-    me = probs.mean(dim=0)
-    ce = F.one_hot(topi[:, 0], n_experts).to(torch.float32).mean(dim=0)
+    group = _spread(group)
+    if group is None:
+        me = probs.mean(dim=0)
+        ce = F.one_hot(topi[:, 0], n_experts).to(torch.float32).mean(dim=0)
+    else:
+        n = _summed(torch.tensor(float(xf.shape[0]), device=xf.device), group)
+        me = _summed(probs.sum(dim=0), group, grad=True) / n
+        ce = _summed(F.one_hot(topi[:, 0], n_experts).to(torch.float32).sum(dim=0), group) / n
     return topw, topi, n_experts * (me * ce).sum()
 
 
@@ -63,30 +113,35 @@ class Plan(NamedTuple):
     order: torch.Tensor     # (N·k,) flat assignment index, in dispatch order
     expert: torch.Tensor    # (N·k,) expert id
     token: torch.Tensor     # (N·k,) token of the assignment
-    slot: torch.Tensor      # (N·k,) position in its expert's segment
+    slot: torch.Tensor      # (N·k,) position in its expert's segment here
     valid: torch.Tensor     # (N·k,) kept: within the capacity
 
 
-def _plan(topi: torch.Tensor, capacity: int) -> Plan:
+def _plan(topi: torch.Tensor, capacity: int, before: Optional[torch.Tensor] = None) -> Plan:
     """The reference's dispatch plan for ids ``topi`` (N, k): which
-    assignments its capacity keeps, and where they go."""
+    assignments its capacity keeps, and where they go.  ``before`` (E,)
+    counts each expert's assignments of tokens that precede these (the
+    lower ranks' of a data-parallel group): they come first in the
+    expert's segment."""
     N, k = topi.shape
     flat_e = topi.reshape(N * k)
     order = torch.sort(flat_e, stable=True).indices
     s_e = flat_e[order]
     first = torch.searchsorted(s_e, s_e, side="left")
     pos = torch.arange(N * k, device=topi.device) - first
-    return Plan(order, s_e, torch.div(order, k, rounding_mode="floor"), pos, pos < capacity)
+    kept = pos < capacity if before is None else before[s_e] + pos < capacity
+    return Plan(order, s_e, torch.div(order, k, rounding_mode="floor"), pos, kept)
 
 
-def _dispatch_compute(xf, topw, topi, w_gate, w_up, w_down, capacity: int) -> torch.Tensor:
+def _dispatch_compute(xf, topw, topi, w_gate, w_up, w_down, capacity: int,
+                      before: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sort-based capacity dispatch to the experts ``w_*`` (E, D, F) /
     (E, F, D): their (N, D) contribution for ``xf`` (N, D), ``topw``
-    (N, k) in xf's dtype and ``topi`` (N, k)."""
+    (N, k) in xf's dtype and ``topi`` (N, k); ``before`` as :func:`_plan`'s."""
     N, D = xf.shape
     k = topi.shape[1]
     E = w_gate.shape[0]
-    p = _plan(topi, capacity)
+    p = _plan(topi, capacity, before)
     # pack into (E + 1, C, D); dropped assignments land, as zeros, in the
     # overflow row, which is discarded
     be = torch.where(p.valid, p.expert, E)
@@ -115,17 +170,36 @@ def moe_capacity(n_tokens: int, top_k: int, n_experts: int, capacity_factor: flo
     return max(min_capacity, int(math.ceil(n_tokens * top_k * capacity_factor / n_experts)))
 
 
+def _lower_ranks_counts(topi: torch.Tensor, n_experts: int, group
+                        ) -> Tuple[torch.Tensor, int]:
+    """(each expert's assignments on the lower ranks of ``group``, (E,);
+    the group's token count), from one ``all_gather`` of every rank's
+    per-expert counts."""
+    counts = torch.bincount(topi.reshape(-1), minlength=n_experts)
+    every = [torch.empty_like(counts) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, counts, group=group)
+    rank = dist.get_rank(group)
+    before = torch.stack(every[:rank]).sum(dim=0) if rank else torch.zeros_like(counts)
+    return before, int(sum(int(c.sum()) for c in every)) // topi.shape[1]
+
+
 def moe_apply_local(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
                     capacity_factor: float = 1.25, min_capacity: int = 4,
-                    renormalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device routed MoE: x (B, S, D) -> (out (B, S, D), aux loss).
-    The capacity comes from this call's own token count B·S."""
+                    renormalize: bool = True, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed MoE: x (B, S, D) -> (out (B, S, D), aux loss).  The capacity
+    comes from this call's token count B·S, or with a data-parallel
+    ``group`` (x holds this rank's rows, rank-major) from the group's,
+    with slots in global token order and the balance loss of the whole
+    batch (see the module docstring)."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    topw, topi, aux = _route(xf, params["w_router"], top_k, renormalize)
-    C = moe_capacity(B * S, top_k, params["w_gate"].shape[0], capacity_factor, min_capacity)
+    E = params["w_gate"].shape[0]
+    group = _spread(group)
+    topw, topi, aux = _route(xf, params["w_router"], top_k, renormalize, group=group)
+    before, n_tokens = (None, B * S) if group is None else _lower_ranks_counts(topi, E, group)
+    C = moe_capacity(n_tokens, top_k, E, capacity_factor, min_capacity)
     out = _dispatch_compute(xf, topw.to(xf.dtype), topi, params["w_gate"], params["w_up"],
-                            params["w_down"], C)
+                            params["w_down"], C, before)
     return out.reshape(B, S, D), aux
 
 
@@ -183,6 +257,6 @@ class MoE(nn.Module):
         return {name: getattr(self, name) for name in PARAM_NAMES}
 
     def forward(self, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-                renormalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                renormalize: bool = True, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         return moe_apply_local(self.params(), x, top_k=top_k, capacity_factor=capacity_factor,
-                               renormalize=renormalize)
+                               renormalize=renormalize, group=group)

@@ -14,6 +14,11 @@ from torch import nn
 from ..kernels import ops
 
 
+def rmsnorm_axes():
+    """Logical axes of :class:`RMSNorm`'s parameters (for placement)."""
+    return {"scale": ("embed",)}
+
+
 class RMSNorm(nn.Module):
     """``x · (1/√(mean(x²) + eps)) · scale`` over the last dim; ``scale``
     is ``(d,)`` in the parameter dtype, cast to fp32 for the multiply."""

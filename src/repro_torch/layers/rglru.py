@@ -69,6 +69,22 @@ def conv_step(hist: torch.Tensor, u: torch.Tensor, w: torch.Tensor, b: torch.Ten
     return out + b, full[:, -(K - 1):]
 
 
+def rglru_axes():
+    """Logical axes of :class:`RGLRU`'s parameters (for placement)."""
+    return {
+        "w_x": ("embed", "rnn"),
+        "w_gate": ("embed", "rnn"),
+        "conv_w": (None, "rnn"),
+        "conv_b": ("rnn",),
+        "lam": ("rnn",),
+        "w_r": ("rnn",),
+        "b_r": ("rnn",),
+        "w_i": ("rnn",),
+        "b_i": ("rnn",),
+        "w_out": ("rnn", "embed"),
+    }
+
+
 class RGLRU(nn.Module):
     def __init__(self, d_model: int, rnn_width: int, *, conv_width: int = 4,
                  dtype=torch.float32, device=None):

@@ -45,6 +45,20 @@ def split_in(proj: torch.Tensor, d_inner: int, d_state: int):
     return z, xc, B, C, dt
 
 
+def ssd_axes():
+    """Logical axes of :class:`SSD`'s parameters (for placement)."""
+    return {
+        "w_in": ("embed", "ssm_inproj"),
+        "conv_w": (None, "ssm_conv"),
+        "conv_b": ("ssm_conv",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": {"scale": ("ssm_inner",)},
+        "w_out": ("ssm_inner", "embed"),
+    }
+
+
 class SSD(nn.Module):
     def __init__(self, d_model: int, *, expand: int = 2, headdim: int = 64,
                  d_state: int = 128, conv_width: int = 4, dtype=torch.float32, device=None):

@@ -24,12 +24,13 @@ uint16 bit patterns, marked, so that nothing needs ``ml_dtypes``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .lm import LM
+if TYPE_CHECKING:
+    from .lm import LM, LMConfig
 
 
 def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -40,20 +41,82 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
-def flat_jax_params(model: LM, tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """The JAX tree's leaves under the port's parameter names."""
-    period = len(model.cfg.block_pattern)
+def _layer_slice(leaf: Any, s: int) -> Any:
+    arr = leaf if isinstance(leaf, torch.Tensor) else np.asanyarray(leaf)
+    return arr[s]
+
+
+def port_names(cfg: "LMConfig", tree: Dict[str, Any],
+               take: Callable[[Any, int], Any] = _layer_slice) -> Dict[str, Any]:
+    """A tree in the JAX model's layout, keyed by the port's parameter
+    names: leaf ``<name>`` of scan group ``b<i>`` becomes
+    ``blocks.<s·period + i>.<name>`` as ``take(leaf, s)`` for each of the
+    ``n_super`` steps ``s`` (by default the leaf's slice ``s`` of its
+    leading axis), tail block ``j`` becomes ``blocks.<n_super·period + j>``
+    and the top-level leaves keep their names.  The layout of any
+    per-parameter tree (values, gradients, logical axes, partition
+    specs) maps so."""
+    period = len(cfg.block_pattern)
     flat = dict(_flatten({k: v for k, v in tree.items() if k not in ("scan", "tail")}))
     for i in range(period if "scan" in tree else 0):
         for name, leaf in _flatten(tree["scan"][f"b{i}"]):
-            arr = leaf if isinstance(leaf, torch.Tensor) else np.asanyarray(leaf)
-            for s in range(arr.shape[0]):
-                flat[f"blocks.{s * period + i}.{name}"] = arr[s]
-    first_tail = model.cfg.n_super * period
+            for s in range(cfg.n_super):
+                flat[f"blocks.{s * period + i}.{name}"] = take(leaf, s)
+    first_tail = cfg.n_super * period
     for j, block in enumerate(tree.get("tail", [])):
         for name, leaf in _flatten(block):
             flat[f"blocks.{first_tail + j}.{name}"] = leaf
     return flat
+
+
+def jax_layout(cfg: "LMConfig", named: Mapping[str, Any], stack: Callable[[List[Any]], Any],
+               leaf: Callable[[Any], Any] = lambda x: x) -> Dict[str, Any]:
+    """The inverse of :func:`port_names`: per-parameter values ``named``
+    (port names) in the JAX model's layout — ``scan["b<i>"]`` leaves made
+    by ``stack`` of the ``n_super`` layers' values in order, ``tail`` a
+    list of blocks, every other value through ``leaf``."""
+    period = len(cfg.block_pattern)
+    n_scan = cfg.n_super * period
+    top: Dict[str, Any] = {}
+    per_block: Dict[int, Dict[str, Any]] = {}
+
+    def put(tree: Dict[str, Any], path: str, value) -> None:
+        *keys, last = path.split(".")
+        for key in keys:
+            tree = tree.setdefault(key, {})
+        tree[last] = value
+
+    for name, value in named.items():
+        if name.startswith("blocks."):
+            _, layer, rest = name.split(".", 2)
+            put(per_block.setdefault(int(layer), {}), rest, value)
+        else:
+            put(top, name, leaf(value))
+
+    def stacked(trees):
+        if isinstance(trees[0], dict):
+            return {key: stacked([tr[key] for tr in trees]) for key in trees[0]}
+        return stack(trees)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return {key: leaves(sub) for key, sub in tree.items()}
+        return leaf(tree)
+
+    out: Dict[str, Any] = {k: v for k, v in top.items() if k == "embed"}
+    if n_scan:
+        out["scan"] = {f"b{i}": stacked([per_block[s * period + i]
+                                         for s in range(cfg.n_super)])
+                       for i in range(period)}
+    if cfg.n_layers > n_scan:
+        out["tail"] = [leaves(per_block[j]) for j in range(n_scan, cfg.n_layers)]
+    out.update({k: v for k, v in top.items() if k != "embed"})
+    return out
+
+
+def flat_jax_params(model: LM, tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX tree's leaves under the port's parameter names."""
+    return port_names(model.cfg, tree)
 
 
 @torch.no_grad()
@@ -108,40 +171,6 @@ def to_jax_tree(model: LM, tensors: Optional[Mapping[str, torch.Tensor]] = None
     axis, ``tail`` a list of blocks.  The inverse of
     :func:`flat_jax_params`."""
     named = dict(model.named_parameters()) if tensors is None else dict(tensors)
-    period = len(model.cfg.block_pattern)
-    n_scan = model.cfg.n_super * period
-    top: Dict[str, Any] = {}
-    per_block: Dict[int, Dict[str, Any]] = {}
-
-    def put(tree: Dict[str, Any], path: str, leaf) -> None:
-        *keys, last = path.split(".")
-        for key in keys:
-            tree = tree.setdefault(key, {})
-        tree[last] = leaf
-
-    for name, t in named.items():
-        if name.startswith("blocks."):
-            _, layer, rest = name.split(".", 2)
-            put(per_block.setdefault(int(layer), {}), rest, t)
-        else:
-            put(top, name, host_leaf(t))
-
-    def stacked(trees):
-        if isinstance(trees[0], dict):
-            return {key: stacked([tr[key] for tr in trees]) for key in trees[0]}
-        return host_leaf(torch.stack([t.detach().to("cpu") for t in trees]))
-
-    def leaves(tree):
-        if isinstance(tree, dict):
-            return {key: leaves(sub) for key, sub in tree.items()}
-        return host_leaf(tree)
-
-    out: Dict[str, Any] = {k: v for k, v in top.items() if k == "embed"}
-    if n_scan:
-        out["scan"] = {f"b{i}": stacked([per_block[s * period + i]
-                                         for s in range(model.cfg.n_super)])
-                       for i in range(period)}
-    if len(model.blocks) > n_scan:
-        out["tail"] = [leaves(per_block[j]) for j in range(n_scan, len(model.blocks))]
-    out.update({k: v for k, v in top.items() if k != "embed"})
-    return out
+    return jax_layout(model.cfg, named, leaf=host_leaf,
+                      stack=lambda ts: host_leaf(torch.stack([t.detach().to("cpu")
+                                                              for t in ts])))

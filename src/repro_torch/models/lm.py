@@ -21,6 +21,14 @@ prefill scans run the port's hand-written kernels on a CUDA card (see
 ``layers/norms.py``, ``layers/attention.py``, ``layers/ssd.py`` and
 ``layers/rglru.py``); the experts are plain PyTorch, as the reference's
 are jnp (``layers/moe.py``).
+
+:func:`param_axes` gives each parameter's logical axes, keyed by the
+port's parameter names, for the sharding rules of
+:mod:`repro_torch.distributed.sharding`.  A forward or :func:`loss_fn`
+given a ``data_group`` (a data-parallel process group whose ranks hold
+contiguous rows of one batch) computes the one-device function of the
+whole batch: the MoE blocks route over the group (``layers/moe.py``) and
+the loss divides by the group's mask sum.
 """
 from __future__ import annotations
 
@@ -28,17 +36,19 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..algorithms.common import resolve_device
-from ..layers.attention import Attention, init_kv_cache
-from ..layers.mlp import MLP, init_normal_
-from ..layers.moe import MoE
-from ..layers.norms import RMSNorm
-from ..layers.rglru import RGLRU, init_rglru_cache
-from ..layers.ssd import SSD, init_ssd_cache
+from ..layers.attention import Attention, attention_axes, init_kv_cache
+from ..layers.mlp import MLP, init_normal_, mlp_axes
+from ..layers.moe import MoE, moe_axes
+from ..layers.norms import RMSNorm, rmsnorm_axes
+from ..layers.rglru import RGLRU, init_rglru_cache, rglru_axes
+from ..layers.ssd import SSD, init_ssd_cache, ssd_axes
+from .convert import port_names
 
 ATTENTION_BLOCKS = ("dense", "local_attn", "moe")
 BLOCK_TYPES = ATTENTION_BLOCKS + ("ssd", "rglru")
@@ -99,7 +109,8 @@ class LMConfig:
     attn_chunk: int = 1024
     scan_layers: bool = True
     unroll_scans: bool = False
-    # distribution hints (the multi-device layer, ROADMAP item A11)
+    # distribution hints (repro_torch.distributed; the expert-parallel MoE
+    # and the shard_map TP blocks they steer are ROADMAP items A11.4, A11.3)
     moe_ff_shard_axis: Optional[str] = "data"
     tp_block: str = "gspmd"          # "gspmd" | "shard_map"
     attn_scores_bf16: bool = False
@@ -177,21 +188,9 @@ class Block(nn.Module):
 
     def init_cache(self, batch: int, cache_len: int, device) -> dict:
         """An empty decode cache of this layer's type (the JAX shapes)."""
-        cfg = self.cfg
-        if self.btype == "ssd":
-            return init_ssd_cache(batch, cfg.d_model, expand=cfg.ssm_expand,
-                                  headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
-                                  conv_width=cfg.conv_width, dtype=cfg.compute_dtype,
-                                  device=device)
-        if self.btype == "rglru":
-            return init_rglru_cache(batch, cfg.rnn_width or cfg.d_model,
-                                    conv_width=cfg.conv_width, dtype=cfg.compute_dtype,
-                                    device=device)
-        if self.btype == "local_attn":
-            cache_len = min(cache_len, cfg.local_window)
-        return init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.hd, cfg.cache_dtype, device)
+        return _init_block_cache(self.cfg, self.btype, batch, cache_len, device)
 
-    def forward(self, x, *, cache, pos_offset, make_cache_len):
+    def forward(self, x, *, cache, pos_offset, make_cache_len, data_group=None):
         """(x, new cache, the balance loss of a ``moe`` block or ``None``)."""
         cfg = self.cfg
         if self.btype == "ssd":
@@ -216,10 +215,72 @@ class Block(nn.Module):
             return x + self.mlp(self.ln2(x)), new_cache, None
         h = self.ln2(x)
         y, aux = self.moe(h, top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor,
-                          renormalize=cfg.moe_renormalize)
+                          renormalize=cfg.moe_renormalize, group=data_group)
         if cfg.n_shared_experts:
             y = y + self.shared(h)
         return x + y, new_cache, aux
+
+
+def _init_block_cache(cfg: LMConfig, btype: str, batch: int, cache_len: int, device) -> dict:
+    if btype == "ssd":
+        return init_ssd_cache(batch, cfg.d_model, expand=cfg.ssm_expand,
+                              headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                              conv_width=cfg.conv_width, dtype=cfg.compute_dtype, device=device)
+    if btype == "rglru":
+        return init_rglru_cache(batch, cfg.rnn_width or cfg.d_model, conv_width=cfg.conv_width,
+                                dtype=cfg.compute_dtype, device=device)
+    if btype == "local_attn":
+        cache_len = min(cache_len, cfg.local_window)
+    return init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.hd, cfg.cache_dtype, device)
+
+
+def init_caches(cfg: LMConfig, batch: int, cache_len: int, device) -> List[dict]:
+    """Empty decode caches of ``cfg``, one per layer in layer order, on
+    ``device`` (``"meta"`` for shapes alone): what :meth:`LM.init_caches`
+    gives, without a model."""
+    return [_init_block_cache(cfg, t, batch, cache_len, device) for t in cfg.layer_types]
+
+
+def _block_axes(cfg: LMConfig, btype: str) -> Dict:
+    if btype in ("dense", "local_attn"):
+        return {"ln1": rmsnorm_axes(), "attn": attention_axes(cfg.qk_norm),
+                "ln2": rmsnorm_axes(), "mlp": mlp_axes(cfg.mlp_gated)}
+    if btype == "moe":
+        ax = {"ln1": rmsnorm_axes(), "attn": attention_axes(cfg.qk_norm),
+              "ln2": rmsnorm_axes(), "moe": moe_axes()}
+        if cfg.n_shared_experts:
+            ax["shared"] = mlp_axes()
+        return ax
+    if btype == "ssd":
+        return {"ln1": rmsnorm_axes(), "ssd": ssd_axes()}
+    if btype == "rglru":
+        return {"ln1": rmsnorm_axes(), "rec": rglru_axes(),
+                "ln2": rmsnorm_axes(), "mlp": mlp_axes(cfg.mlp_gated)}
+    raise ValueError(btype)
+
+
+def _super_axes(cfg: LMConfig) -> Dict:
+    return {f"b{i}": _block_axes(cfg, t) for i, t in enumerate(cfg.block_pattern)}
+
+
+def param_axes(cfg: LMConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each parameter's logical axis names (a tuple, one per dim), keyed
+    by the port's parameter names (``LM.named_parameters()``).  The
+    reference's tree, mapped by :func:`~repro_torch.models.convert.port_names`;
+    where its scan groups carry a leading ``"layers"`` axis, each of the
+    port's blocks is one layer, so that entry drops."""
+    ax: Dict[str, Any] = {}
+    if cfg.input_mode in ("tokens", "prefix_embeds"):
+        ax["embed"] = ("vocab", "embed")
+    if cfg.n_super > 0:
+        ax["scan"] = _super_axes(cfg)
+    tail_types = cfg.layer_types[cfg.n_super * len(cfg.block_pattern):]
+    if tail_types:
+        ax["tail"] = [_block_axes(cfg, t) for t in tail_types]
+    ax["final_norm"] = rmsnorm_axes()
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    return port_names(cfg, ax, take=lambda axes, s: axes)
 
 
 class LM(nn.Module):
@@ -253,7 +314,7 @@ class LM(nn.Module):
         """Empty decode caches, one per layer in layer order: KV caches
         (``dense`` and ``moe``; ring caches of ``local_window`` slots for
         ``local_attn``), SSD and RG-LRU states with their conv histories."""
-        return [blk.init_cache(batch, cache_len, self.device) for blk in self.blocks]
+        return init_caches(self.cfg, batch, cache_len, self.device)
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
@@ -275,7 +336,7 @@ class LM(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], caches: Optional[List[dict]] = None,
                 pos_offset: int = 0, make_cache_len: Optional[int] = None,
                 last_only: bool = False, remat: Optional[str] = None,
-                return_aux: bool = False) -> Tuple:
+                return_aux: bool = False, data_group=None) -> Tuple:
         """Returns (logits fp32 (B, S, V), new caches or None), and with
         ``return_aux=True`` also the summed balance loss of the ``moe``
         blocks (0-d fp32; zero without one), as the reference's triple.
@@ -291,7 +352,11 @@ class LM(nn.Module):
         backward), ``"dots"`` keeps the matmul outputs and recomputes the
         rest (``checkpoint_dots``), ``"none"`` keeps everything.  It
         changes memory, not the numbers.  Serving passes ``"none"``, as
-        the reference's prefill and decode steps do."""
+        the reference's prefill and decode steps do.
+
+        ``data_group``: ``batch`` holds this rank's rows of a batch split
+        over the group, and the MoE blocks route over the whole batch
+        (see the module docstring)."""
         remat = self.cfg.remat if remat is None else remat
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
@@ -304,11 +369,11 @@ class LM(nn.Module):
             cache = caches[i] if caches is not None else None
             if remat == "none":
                 x, nc, aux = blk(x, cache=cache, pos_offset=pos_offset,
-                                 make_cache_len=make_cache_len)
+                                 make_cache_len=make_cache_len, data_group=data_group)
             else:
                 x, nc, aux = checkpoint(
                     blk, x, cache=None, pos_offset=pos_offset, make_cache_len=None,
-                    use_reentrant=False,
+                    data_group=data_group, use_reentrant=False,
                     **({"context_fn": _save_dots} if remat == "dots" else {}))
             new_caches.append(nc)
             if aux is not None:
@@ -348,17 +413,33 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *, aux_weight: float = 0.01,
-            remat: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            remat: Optional[str] = None, data_group=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked next-token cross entropy, as ``repro.models.lm.loss_fn``:
     ``batch`` carries ``targets`` (B, S) and ``loss_mask`` (B, S) aligned
     with the model's output positions.  Returns ``(total, {"loss", "aux",
     "tokens"})`` with ``total = loss + aux_weight · aux``; ``aux`` is the
-    summed balance loss of the ``moe`` blocks (a 0-d zero without one)."""
-    logits, _, aux = model(batch, remat=remat, return_aux=True)
+    summed balance loss of the ``moe`` blocks (a 0-d zero without one).
+
+    With a ``data_group`` of R ranks, ``batch`` is this rank's rows: the
+    denominator is the group's mask sum (all-reduced before dividing), the
+    metrics are the whole batch's, and ``total`` is this rank's share —
+    its rows' cross entropy over that denominator plus ``aux_weight ·
+    aux / R`` — so that the gradients summed over the group are the
+    whole batch's."""
+    logits, _, aux = model(batch, remat=remat, return_aux=True, data_group=data_group)
     mask = batch["loss_mask"].to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
     nll = (logz - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = nll.sum() / denom
-    return loss + aux_weight * aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}
+    if data_group is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = nll.sum() / denom
+        return loss + aux_weight * aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}
+    tokens = mask.sum()
+    dist.all_reduce(tokens, group=data_group)
+    share = nll.sum() / torch.clamp(tokens, min=1.0)
+    loss = share.detach().clone()
+    dist.all_reduce(loss, group=data_group)
+    total = share + aux_weight * aux / dist.get_world_size(data_group)
+    return total, {"loss": loss, "aux": aux, "tokens": tokens}

@@ -61,12 +61,18 @@ def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
     return lr
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float
+def sum_of_squares(grads: Tensors) -> torch.Tensor:
+    """Σ g² over every element of every gradient, in fp32."""
+    return sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads.values())
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        sumsq: Callable[[Tensors], torch.Tensor] = sum_of_squares
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """(grads scaled to a global norm of at most ``max_norm``, each in its
-    own dtype; the norm before scaling, 0-d fp32)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads.values()))
+    own dtype; the norm before scaling, 0-d fp32).  ``sumsq`` gives the
+    squared norm (a sharded caller sums its shards over the mesh)."""
+    norm = torch.sqrt(sumsq(grads))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {n: (g.to(torch.float32) * scale).to(g.dtype) for n, g in grads.items()}, norm
 
@@ -84,12 +90,15 @@ def adamw(lr: Union[Callable, float], b1: float = 0.9, b2: float = 0.95, eps: fl
         )
 
     @torch.no_grad()
-    def update(grads: Tensors, state: AdamWState, params: Tensors) -> torch.Tensor:
+    def update(grads: Tensors, state: AdamWState, params: Tensors,
+               sumsq: Callable[[Tensors], torch.Tensor] = sum_of_squares) -> torch.Tensor:
         """One step: updates ``params`` and ``state`` in place; returns the
-        gradients' global norm before clipping (0 without clipping)."""
+        gradients' global norm before clipping (0 without clipping).
+        ``params``, ``grads`` and the moments may be one rank's shards of
+        sharded tensors, with ``sumsq`` the global squared norm."""
         gnorm = torch.zeros((), dtype=torch.float32)
         if max_grad_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm, sumsq)
         state.count.add_(1)
         t = state.count.to(torch.float32)
         bc1 = 1.0 - b1 ** t

@@ -69,7 +69,8 @@ def test_port_files_exist():
                  "core/futures.py", "core/dag.py", "core/collectives.py",
                  "cluster/__init__.py", "cluster/chaos.py", "cluster/protocol.py",
                  "cluster/peer.py", "cluster/agent.py", "cluster/channel.py",
-                 "cluster/eventloop.py", "cluster/cluster.py"):
+                 "cluster/eventloop.py", "cluster/cluster.py", "configs/shapes.py",
+                 "launch/mesh.py", "distributed/sharding.py"):
         assert want in names
     examples = {os.path.basename(p) for p in _port_files() if p.startswith(EXAMPLES)}
     assert examples == {"quickstart_torch.py", "kmeans_pipeline_torch.py",
