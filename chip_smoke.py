@@ -125,13 +125,40 @@ failure raises (the script then exits non-zero without a result):
              loss within 1e-5; ``serve_batch(mesh=)`` at phase serve's
              settings gives phase serve's tokens with its launch counts;
              the two runs' step seconds and tokens/s on one line beside
-             nvidia-smi's name and power limit; the group destroyed.
+             nvidia-smi's name and power limit; the group destroyed;
+20. tp_ep  — the tensor- and expert-parallel layers at full width, bf16,
+             BATCH x PROMPT_LEN tokens.  (a) On an NCCL group of one rank
+             and its (1, 1) mesh, called directly (at one model rank the
+             model routes to none of them, as the reference's does not):
+             the TP attention and MLP sublayers at granite-3-2b's width
+             (d 2048, GQA 32 / 8 x 64, d_ff 8192), the TP RG-LRU and
+             local-attention sublayers at recurrentgemma-9b's (d 4096,
+             rnn 4096, MQA 16 x 256, window 2048), forward and backward,
+             and ``moe_apply_sharded`` at deepseek-moe-16b's layer (64
+             experts x 1408, top-6, d 2048) twice: each sublayer's output
+             bitwise the plain layers' (``Attention``, ``MLP``,
+             ``RGLRU``), the gradients of its input and weights within
+             TP_GRAD_STEPS bf16 steps; the MoE bitwise ``moe_apply_local``
+             and bitwise across its two calls; launches exactly rmsnorm 4,
+             flash_attention 2, rglru_scan 1; flash and rglru_scan also
+             held against their plain versions at the shapes two and four
+             model ranks give them; each sublayer's forward time (CUDA
+             events, plain and TP in turns) beside the plain layers'.  (b) Two spawned ranks sharing the card over a
+             gloo group (CUDA tensors) and a (1, 2) mesh built here:
+             ``train_loop(mesh=)`` with ``tp_block="shard_map"`` on
+             granite-3-2b (4 of 40 layers: TP sublayers) and
+             deepseek-moe-16b (2 of 28 layers: TP attention, the experts
+             over the two ranks), 4 steps each, against the same 4 steps
+             at world size 1 on the card: the ranks' losses equal, within
+             TP_EP_LOSS_ATOL of one rank's, launches exactly phase
+             train's count per step on each rank; step seconds and
+             nvidia-smi's name and power limit printed.
 
 Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5, 7, 8, 10 and 11-19, by phase; times measured in
+counted during phases 4, 5, 7, 8, 10 and 11-20, by phase; times measured in
 phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
@@ -157,11 +184,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
-PEAK_FP32_FLOPS = 67e12        # fp32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores
-PEAK_TF32_FLOPS = 495e12       # TF32 on the tensor cores
-PEAK_BYTES_PER_S = 3.35e12     # HBM3
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit: the port's
+# one copy of the peaks (its roofline divides by them too)
+from repro_torch.launch.mesh import HBM_BYTES_PER_S as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS  # noqa: E402,F401
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 
 SEED = 0
@@ -285,6 +312,23 @@ def device_ms(fn, reps: int, warmup: int = 2, tries: int = 5, cold: bool = False
               f"{ {key[:60]: n for key, (_, n) in table.items()} }", file=sys.stderr)
     raise RuntimeError(f"torch.profiler lost events in {tries} windows of {reps} calls: "
                        f"{ {key[:60]: n for key, (_, n) in table.items()} }")
+
+
+def event_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Milliseconds of one call of ``fn`` on the card: CUDA events around
+    ``reps`` calls after ``warmup``.  For a call of many kernels (a
+    sublayer with its all-reduce), whose profiler windows lost events in
+    a whole run on the H100 (the same counts short five tries running)."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -1383,6 +1427,305 @@ def mesh_phase(ph, ops, lm, train, serve, cfg, cuda, served_tokens) -> dict:
     return {k: counts[k] + serve_counts[k] for k in counts}
 
 
+# phase tp_ep
+TP_EP_TRAIN = (("granite-3-2b", 4), ("deepseek-moe-16b", 2))   # part (b): (arch, layers kept)
+TP_EP_STEPS = 4
+TP_EP_RANKS = 2
+# part (b): the losses of two TP ranks sharing the card against one
+# rank's, bf16 at full width.  The sliced products round their partial
+# sums to bf16 before the all-reduce adds them, so the two runs differ
+# by bf16 rounding from the first step on, and AdamW's first updates
+# (about lr · sign(g)) move noise-level gradient elements either way;
+# deepseek's router then picks some near-tied experts apart.  Summed over
+# 4096 tokens a step, that moves the loss by far less than this limit,
+# while a wrong sum (a partial counted twice or left out) moves it by
+# whole units: the readings are in PERF.md.
+TP_EP_LOSS_ATOL = 0.02
+# part (a): at one rank each sublayer computes its plain layers' ops on
+# whole slices, so its gradients should be the layers' bit for bit; held
+# within two bf16 steps of each leaf's largest magnitude
+TP_GRAD_STEPS = 2.0
+TP_EP_TIMEOUT = 900.0
+
+
+def sublayer_grads(fn, x, cot, params) -> tuple:
+    """(out, x's gradient, {name: gradient}) of ``fn(x)`` under the
+    cotangent ``cot``."""
+    for p in params.values():
+        p.grad = None
+    xi = x.detach().clone().requires_grad_()
+    out = fn(xi)
+    out.backward(cot)
+    grads = {n: p.grad.clone() for n, p in params.items() if p.grad is not None}
+    for p in params.values():
+        p.grad = None
+    return out.detach(), xi.grad, grads
+
+
+def max_err_in_steps(got, want) -> float:
+    """The largest |got - want| in bf16 steps of want's largest magnitude."""
+    scale = float(want.abs().max().float())
+    return float((got.float() - want.float()).abs().max()) / (scale * BF16_STEP) if scale else 0.0
+
+
+def tp_ep_rank(rank: int, world: int, store: str, out_dir: str, jobs) -> None:
+    """One rank of part (b): ``train_loop(mesh=)`` of each job on a
+    (1, ``world``) mesh of gloo ranks that share the one card; saves its
+    losses, step seconds and launch counts (or its traceback)."""
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    try:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cuda = torch.device("cuda", 0)
+        torch.cuda.set_device(cuda)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        out = {}
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(world).reshape(1, world),
+                              mesh_dim_names=("data", "model"))
+            for arch, layers in jobs:
+                cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                          tp_block="shard_map")
+                ops.reset_launch_counts()
+                run = train.train_loop(cfg, mesh=mesh, steps=TP_EP_STEPS, batch=BATCH,
+                                       seq=PROMPT_LEN, lr=1e-3, warmup=2, seed=SEED,
+                                       log_every=0, device=cuda)
+                out[arch] = {"losses": run["losses"], "aux": run["aux"],
+                             "step_seconds": run["step_seconds"],
+                             "launches": ops.launch_counts(),
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        torch.save({"ok": out}, path)
+    except BaseException:
+        import traceback
+        torch.save({"error": traceback.format_exc()}, path)
+        raise
+
+
+def tp_ep_ranks(jobs) -> list:
+    """Part (b)'s ranks, spawned, and their results by rank; the first
+    failing rank's traceback raises."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out_dir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="chip_smoke_tp_ep_")
+    try:
+        procs = [ctx.Process(target=tp_ep_rank,
+                             args=(r, TP_EP_RANKS, os.path.join(out_dir, "store"), out_dir, jobs))
+                 for r in range(TP_EP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_EP_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results = []
+        for r, p in enumerate(procs):
+            path = os.path.join(out_dir, f"rank{r}.pt")
+            got = torch.load(path, weights_only=False) if os.path.exists(path) else None
+            if got is None or "error" in got:
+                raise RuntimeError(f"tp_ep rank {r} failed (exit {p.exitcode}):\n"
+                                   f"{got['error'] if got else 'no result'}")
+            results.append(got["ok"])
+        return results
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def tp_ep_phase(ph, ops, lm, train, get_config, cuda) -> dict:
+    """Phase tp_ep: the TP sublayers and the expert-parallel MoE at full
+    width, (a) at world size 1 against the plain layers and (b) on two
+    gloo ranks sharing the card against one rank (see the module
+    docstring).  Fills ``ph.info`` and returns the phase's launch counts:
+    part (a)'s sublayer calls and both ranks' training."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.layers import moe, tp_block
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=cuda)
+    bf16 = torch.bfloat16
+    try:
+        mesh = make_local_mesh()
+        group, data_group = mesh.get_group("model"), mesh.get_group("data")
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(SEED)
+
+        def block(cfg, btype):
+            blk = lm.Block(cfg, btype, device=cuda)
+            blk.init_weights(gen)
+            with torch.no_grad():          # norm scales off their ones
+                for n, p in blk.named_parameters():
+                    if n.endswith("scale"):
+                        p.add_(0.1 * torch.randn(p.shape, generator=gen, device=cuda).to(p.dtype))
+            return blk
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=cuda).to(bf16)
+
+        granite, rg = get_config("granite-3-2b"), get_config("recurrentgemma-9b")
+        g_blk, r_rec, r_att = block(granite, "dense"), block(rg, "rglru"), block(rg, "local_attn")
+        xg, xr = rand(BATCH, PROMPT_LEN, granite.d_model), rand(BATCH, PROMPT_LEN, rg.d_model)
+        cg, cr = rand(*xg.shape), rand(*xr.shape)
+        w = rg.local_window
+        # (name, block, x, cotangent, the TP sublayer, the plain layers it slices)
+        cases = [
+            ("granite_attn", g_blk, xg, cg,
+             lambda x: tp_block.tp_attn_sublayer(g_blk.ln1, g_blk.attn, x, cfg=granite,
+                                                 group=group),
+             lambda x: x + g_blk.attn(g_blk.ln1(x))[0]),
+            ("granite_mlp", g_blk, xg, cg,
+             lambda x: tp_block.tp_mlp_sublayer(g_blk.ln2, g_blk.mlp, x, group=group),
+             lambda x: x + g_blk.mlp(g_blk.ln2(x))),
+            ("recurrentgemma_rglru", r_rec, xr, cr,
+             lambda x: tp_block.tp_rglru_sublayer(r_rec.ln1, r_rec.rec, x, group=group),
+             lambda x: x + r_rec.rec(r_rec.ln1(x))[0]),
+            ("recurrentgemma_local_attn", r_att, xr, cr,
+             lambda x: tp_block.tp_attn_sublayer(r_att.ln1, r_att.attn, x, cfg=rg, group=group,
+                                                 window=w),
+             lambda x: x + r_att.attn(r_att.ln1(x), window=w)[0]),
+        ]
+        ds = get_config("deepseek-moe-16b")
+        experts = moe.MoE(ds.d_model, ds.d_ff_expert, ds.n_experts, dtype=bf16, device=cuda)
+        experts.init_weights(gen)
+        h = rand(BATCH, PROMPT_LEN, ds.d_model)
+        kw = dict(top_k=ds.top_k, capacity_factor=ds.moe_capacity_factor,
+                  renormalize=ds.moe_renormalize)
+
+        def sharded():
+            with torch.no_grad():
+                return moe.moe_apply_sharded(experts.params(), h, model_group=group,
+                                             data_group=data_group, **kw)
+
+        # the kernels at the shapes the TP path gives them on two and four
+        # model ranks, against their plain versions (not counted): flash
+        # with a rank's q heads per kv group (granite 16 / 4, deepseek
+        # 8 / 8) and after recurrentgemma's replicated-K/V gather (8 and 4
+        # heads, d 256, window 2048); rglru_scan on half of its 4096 width
+        from repro_torch.kernels import flash_attention as fa_k
+        from repro_torch.kernels import rglru_scan as rg_k
+        sliced = {}
+        for name, (H, K, d, window) in {"granite_tp2": (16, 4, 64, None),
+                                        "deepseek_tp2": (8, 8, 128, None),
+                                        "recurrentgemma_tp2_gathered": (8, 8, 256, w),
+                                        "recurrentgemma_tp4_gathered": (4, 4, 256, w)}.items():
+            q, k, v = (rand(BATCH, PROMPT_LEN, n, d).transpose(1, 2) for n in (H, K, K))
+            sliced[name] = close_in_dtype(
+                fa_k.flash_attention_cuda(q, k, v, causal=True, window=window),
+                fa_k.flash_attention_plain(q, k, v, causal=True, window=window), name)
+        la = -torch.nn.functional.softplus(
+            torch.randn((BATCH, PROMPT_LEN, rg.rnn_width // 2), generator=gen, device=cuda))
+        b = torch.randn(la.shape, generator=gen, device=cuda)
+        y, h_last = rg_k.rglru_scan_cuda(la, b)
+        want_y, want_h = rg_k.rglru_scan_plain(la, b)
+        sliced["rglru_half_width"] = close_in_dtype(y, want_y, "rglru_scan at R/2")
+        close_in_dtype(h_last, want_h, "rglru_scan h_T at R/2")
+        del q, k, v, la, b, y, h_last, want_y, want_h
+
+        # the path: every TP sublayer's forward and backward, and the
+        # expert-parallel MoE twice, counted
+        ops.reset_launch_counts()
+        tp_runs = {name: sublayer_grads(tp, x, c, dict(blk.named_parameters()))
+                   for name, blk, x, c, tp, _ in cases}
+        ep_runs = [sharded(), sharded()]
+        counts_a = ops.launch_counts()
+        want_a = only(ops, rmsnorm=4, flash_attention=2, rglru_scan=1)
+        assert counts_a == want_a, (counts_a, want_a)
+
+        report = {}
+        for name, blk, x, c, tp, plain in cases:
+            params = dict(blk.named_parameters())
+            out, gx, grads = tp_runs[name]
+            p_out, p_gx, p_grads = sublayer_grads(plain, x, c, params)
+            assert torch.isfinite(out.float()).all(), name
+            assert torch.equal(out, p_out), f"{name}: the sublayer's output is not the layer's"
+            errs = {"x": max_err_in_steps(gx, p_gx)}
+            assert set(grads) == set(p_grads), (name, set(grads) ^ set(p_grads))
+            errs.update({n: max_err_in_steps(grads[n], g) for n, g in p_grads.items()})
+            worst = max(errs, key=errs.get)
+            assert errs[worst] <= TP_GRAD_STEPS, (name, worst, errs[worst])
+            with torch.no_grad():          # in turns: plain, TP, TP, plain
+                t = [event_ms(lambda: f(x)) for f in (plain, tp, tp, plain)]
+            report[name] = {"grad_err_bf16_steps": errs[worst], "worst_leaf": worst,
+                            "event_ms": t[1:3], "plain_event_ms": [t[0], t[3]]}
+        (out1, aux1), (out2, aux2) = ep_runs
+        with torch.no_grad():
+            out_l, aux_l = moe.moe_apply_local(experts.params(), h, **kw)
+        assert torch.equal(out1, out2) and torch.equal(aux1, aux2), "EP forward not repeatable"
+        assert torch.equal(out1, out_l) and torch.equal(aux1, aux_l), \
+            "the expert-parallel MoE at one rank is not moe_apply_local"
+        with torch.no_grad():
+            def local():
+                return moe.moe_apply_local(experts.params(), h, **kw)
+            t = [event_ms(f) for f in (local, sharded, sharded, local)]
+        report["deepseek_moe"] = {"event_ms": t[1:3], "plain_event_ms": [t[0], t[3]],
+                                  "aux": float(aux1)}
+        del g_blk, r_rec, r_att, experts, tp_runs, ep_runs, cases
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+    torch.cuda.empty_cache()
+    ph.info.update(sublayers=report, sliced_kernel_max_abs_err=sliced, launches_a=counts_a)
+    emit({"tp_ep_sublayers": report, "nvidia_smi": nvidia_smi()})
+
+    # part (b): world size 1 first, then the two ranks
+    plain_runs = {}
+    for arch, layers in TP_EP_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        plain_runs[arch] = train.train_loop(cfg, steps=TP_EP_STEPS, batch=BATCH, seq=PROMPT_LEN,
+                                            lr=1e-3, warmup=2, seed=SEED, log_every=0,
+                                            device=cuda)
+        torch.cuda.empty_cache()
+    ranks = tp_ep_ranks(TP_EP_TRAIN)
+    counts_b = only(ops)
+    runs = {}
+    for arch, layers in TP_EP_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        want = {k: TP_EP_STEPS * n for k, n in train_launches(ops, cfg).items()}
+        plain = np.array(plain_runs[arch]["losses"])
+        for r, res in enumerate(ranks):
+            got = res[arch]
+            assert got["launches"] == want, (arch, r, got["launches"], want)
+            counts_b = {k: counts_b[k] + n for k, n in got["launches"].items()}
+            assert got["losses"] == ranks[0][arch]["losses"], (arch, "the ranks disagree")
+        losses = np.array(ranks[0][arch]["losses"])
+        assert losses.shape == (TP_EP_STEPS,) and np.isfinite(losses).all(), (arch, losses)
+        diff = float(np.abs(losses - plain).max())
+        assert diff <= TP_EP_LOSS_ATOL, (arch, losses.tolist(), plain.tolist())
+        if "moe" in cfg.block_pattern:
+            assert (np.array(ranks[0][arch]["aux"]) > 0).all(), arch
+        steady = float(np.median(ranks[0][arch]["step_seconds"][1:]))
+        runs[arch] = {"layers": layers, "losses": losses.tolist(), "plain_losses": plain.tolist(),
+                      "max_loss_diff": diff, "step_seconds": ranks[0][arch]["step_seconds"],
+                      "plain_step_seconds": plain_runs[arch]["step_seconds"],
+                      "steady_step_s": steady,
+                      "plain_steady_step_s": float(np.median(
+                          plain_runs[arch]["step_seconds"][1:])),
+                      "peak_gb_per_rank": [res[arch]["peak_gb"] for res in ranks],
+                      "launches_per_rank": ranks[0][arch]["launches"]}
+    ph.info.update(train=runs, launches_b=counts_b)
+    emit({"tp_ep_train": runs, "nvidia_smi": nvidia_smi()})
+    return {k: counts_a[k] + counts_b[k] for k in counts_a}
+
+
 # phases simulate, process and dashboard
 SIM_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
 PROJECTION_FACTOR = 2.0    # the 1-worker projection against the measured 1-worker wall
@@ -1560,7 +1903,6 @@ def main(argv) -> int:
     # GEMMs under torch.use_deterministic_algorithms, which needs it; set
     # before the first cuBLAS call, and inherited by spawned workers
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.algorithms import kmeans, knn, linreg
     from repro_torch.algorithms.common import make_blobs
     from repro_torch.core import api
@@ -2072,6 +2414,9 @@ def main(argv) -> int:
     with Phase("mesh") as ph:
         by_phase["mesh"] = mesh_phase(ph, ops, lm, train, serve, get_config("qwen3-0.6b"), cuda,
                                       served_tokens)
+
+    with Phase("tp_ep") as ph:
+        by_phase["tp_ep"] = tp_ep_phase(ph, ops, lm, train, get_config, cuda)
 
     for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
         launches[name] = sum(counts[name] for counts in by_phase.values())

@@ -28,20 +28,25 @@ and FSDP storage:
 * each rank computes on its rows of the batch (dim 0 over ``data`` in
   contiguous blocks, as :func:`batch_pspecs` places it); microbatch i is
   the i-th contiguous slice of every data shard; the loss divides by the
-  global mask sum, and the MoE blocks route over the data group (global
+  global mask sum;
+* with ``model = 1`` the MoE blocks route over the data group (global
   capacity, global token order, global balance loss, ``layers/moe.py``),
   so the step equals the one-device step on the whole batch, its rows in
   that microbatch order;
-* the gradients are summed over ``data``, then the compression round
-  trip runs on them, then each rank updates its local shards, with the
-  gradient norm (and so the clipping) reduced over all ranks;
-* the ``model`` axis is storage only: compute is replicated across it,
-  which equals the reference's GSPMD function for every non-MoE config.
-  Two cases the reference computes with other layers are refused, never
-  computed differently: an MoE block with ``model > 1`` (the reference's
-  expert-parallel ``moe_apply_sharded``, ROADMAP A11.4) and
-  ``tp_block="shard_map"`` where the reference's ``use_tp`` holds (its
-  shard_map TP sublayers, ROADMAP A11.3).
+* with ``model > 1`` the model routes as the reference's does over that
+  axis (``models/lm.py``): every MoE block runs the expert-parallel
+  ``moe_apply_sharded`` (each data shard routes its own tokens with its
+  own capacity and balance loss), and with ``tp_block="shard_map"`` the
+  training forward runs the Megatron TP sublayers
+  (``layers/tp_block.py``).  Otherwise compute is replicated across
+  ``model``, which is the reference's GSPMD function;
+* the gradients are summed over ``data``, and those that a model rank
+  holds only in part (:func:`repro_torch.models.lm.partial_over_model`:
+  the TP sublayers' and the routed experts' parameters) also over
+  ``model`` — every other parameter's gradient is already whole on each
+  model rank; then the compression round trip runs on them, then each
+  rank updates its local shards, with the gradient norm (and so the
+  clipping) reduced over all ranks.
 
 The prefill and decode steps take the global batch too and compute this
 rank's rows with the model's full parameters; their caches hold this
@@ -56,21 +61,21 @@ import torch
 import torch.distributed as dist
 
 from ..models.convert import jax_layout
-from ..models.lm import LM, loss_fn, param_axes
+from ..models.lm import LM, loss_fn, param_axes, partial_over_model
 from ..optim.adamw import AdamWState, Optimizer
 from ..optim.compress import compressed_gradients
 from .sharding import (P, ShardingRules, batch_pspecs, default_rules, param_pspecs,
                        to_placements, to_shardings)
 
 
-def _grads(model: LM, batch: Dict[str, torch.Tensor], data_group=None):
+def _grads(model: LM, batch: Dict[str, torch.Tensor], data_group=None, model_group=None):
     """(metrics of ``loss_fn``, {name: gradient}) of one forward and
     backward; parameters that get no gradient get zeros, as JAX's
     ``value_and_grad`` gives them."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    total, metrics = loss_fn(model, batch, data_group=data_group)
+    total, metrics = loss_fn(model, batch, data_group=data_group, model_group=model_group)
     total.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in params.items()}
@@ -80,13 +85,13 @@ def _grads(model: LM, batch: Dict[str, torch.Tensor], data_group=None):
 
 
 def _accumulated(model: LM, batch: Dict[str, torch.Tensor], microbatches: int,
-                 data_group=None):
+                 data_group=None, model_group=None):
     """(metrics, gradients) of ``batch``: :func:`_grads`, or with
     ``microbatches > 1`` its contiguous slices' gradients summed in fp32
     buffers (not yet divided by the count) and their loss and aux
     averaged."""
     if microbatches == 1:
-        return _grads(model, batch, data_group)
+        return _grads(model, batch, data_group, model_group)
     B = next(iter(batch.values())).shape[0]
     mb = B // microbatches
     if mb * microbatches != B:
@@ -95,7 +100,8 @@ def _accumulated(model: LM, batch: Dict[str, torch.Tensor], microbatches: int,
             for n, p in model.named_parameters()}
     lsum = asum = 0.0
     for i in range(microbatches):
-        m, g = _grads(model, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}, data_group)
+        m, g = _grads(model, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}, data_group,
+                      model_group)
         for n, gi in g.items():
             gsum[n] += gi.to(torch.float32)
         lsum = lsum + m["loss"].detach()
@@ -171,21 +177,10 @@ def _owns(dt) -> bool:
     return all(c == 0 for c, pl in zip(coord, dt.placements) if pl.is_replicate())
 
 
-def _check_supported(cfg, mesh, training: bool) -> None:
-    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
-    if tp > 1 and "moe" in cfg.block_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: an MoE block over a mesh with model={tp} needs the expert-parallel "
-            "moe_apply_sharded, which is not ported yet (ROADMAP A11.4)")
-    if training and tp > 1 and cfg.tp_block == "shard_map":
-        for t in set(cfg.block_pattern):
-            if (t in ("dense", "local_attn", "moe") and cfg.n_heads % tp == 0) or (
-                    t == "rglru" and (cfg.rnn_width or cfg.d_model) % tp == 0
-                    and cfg.d_ff % tp == 0):
-                raise NotImplementedError(
-                    f"{cfg.name}: tp_block='shard_map' over model={tp} runs the shard_map "
-                    "TP sublayers (layers/tp_block.py), which are not ported yet "
-                    "(ROADMAP A11.3)")
+def _model_group(mesh):
+    """The mesh's ``model`` group where that axis has more than one rank,
+    else ``None`` (compute replicated, as without a mesh)."""
+    return mesh.get_group("model") if mesh.size(mesh.mesh_dim_names.index("model")) > 1 else None
 
 
 def _rows(batch: Dict[str, torch.Tensor], mesh, rules: ShardingRules):
@@ -254,16 +249,8 @@ def make_train_step(optimizer: Optimizer, *, mesh=None, rules: Optional[Sharding
     rules = rules or default_rules(mesh)
 
     def sharded_step(model: LM, state: ShardedState, batch: Dict[str, torch.Tensor]):
-        _check_supported(model.cfg, mesh, training=True)
-        local, group = _rows(batch, mesh, rules)
-        if group is None and mesh.size(mesh.mesh_dim_names.index("data")) > 1:
-            raise ValueError(f"batch {next(iter(batch.values())).shape[0]} does not divide "
-                             f"over the data axis of {mesh}")
-        group = group if group is not None else mesh.get_group("data")
         gather_params(model, state)
-        metrics, grads = _accumulated(model, local, microbatches, group)
-        for g in grads.values():            # summed over the data ranks
-            dist.all_reduce(g, group=group)
+        metrics, grads = mesh_gradients(model, batch, mesh, rules, microbatches)
         if microbatches > 1:
             grads = {n: g / microbatches for n, g in grads.items()}
         if grad_compress and grad_compress != "none":
@@ -290,6 +277,32 @@ def make_train_step(optimizer: Optimizer, *, mesh=None, rules: Optional[Sharding
     return sharded_step
 
 
+def mesh_gradients(model: LM, batch: Dict[str, torch.Tensor], mesh,
+                   rules: Optional[ShardingRules] = None, microbatches: int = 1):
+    """(metrics, {name: gradient}) of ``model``'s parameters (the whole
+    parameters, the same on every rank) on the global ``batch`` over
+    ``mesh``: this rank's rows, every gradient summed over ``data``, and
+    those a model rank holds only in part
+    (:func:`~repro_torch.models.lm.partial_over_model`) also over
+    ``model``, so that each rank holds the whole batch's gradients (with
+    ``microbatches > 1`` the fp32 sums over the microbatches, not yet
+    divided by their count).  The train step's gradients."""
+    rules = rules or default_rules(mesh)
+    local, group = _rows(batch, mesh, rules)
+    if group is None and mesh.size(mesh.mesh_dim_names.index("data")) > 1:
+        raise ValueError(f"batch {next(iter(batch.values())).shape[0]} does not divide "
+                         f"over the data axis of {mesh}")
+    group = group if group is not None else mesh.get_group("data")
+    model_group = _model_group(mesh)
+    metrics, grads = _accumulated(model, local, microbatches, group, model_group)
+    partial = partial_over_model(model, dist.get_world_size(model_group)) if model_group else ()
+    for n, g in grads.items():
+        dist.all_reduce(g, group=group)              # summed over the data ranks
+        if n in partial:
+            dist.all_reduce(g, group=model_group)    # and over the model ranks
+    return metrics, grads
+
+
 def make_prefill_step(*, cache_len: int, mesh=None, rules: Optional[ShardingRules] = None
                       ) -> Callable:
     """``prefill(model, batch) -> (last-position logits (B, 1, V) fp32,
@@ -299,12 +312,12 @@ def make_prefill_step(*, cache_len: int, mesh=None, rules: Optional[ShardingRule
 
     @torch.no_grad()
     def prefill(model: LM, batch: Dict[str, torch.Tensor]):
-        group = None
+        group = model_group = None
         if mesh is not None:
-            _check_supported(model.cfg, mesh, training=False)
             batch, group = _rows(batch, mesh, rules)
+            model_group = _model_group(mesh)
         return model(batch, make_cache_len=cache_len, last_only=True, remat="none",
-                     data_group=group)
+                     data_group=group, model_group=model_group)
 
     return prefill
 
@@ -318,11 +331,12 @@ def make_decode_step(*, mesh=None, rules: Optional[ShardingRules] = None) -> Cal
 
     @torch.no_grad()
     def decode(model: LM, batch: Dict[str, torch.Tensor], caches, pos: int):
-        group = None
+        group = model_group = None
         if mesh is not None:
-            _check_supported(model.cfg, mesh, training=False)
             batch, group = _rows(batch, mesh, rules)
-        return model(batch, caches=caches, pos_offset=pos, remat="none", data_group=group)
+            model_group = _model_group(mesh)
+        return model(batch, caches=caches, pos_offset=pos, remat="none", data_group=group,
+                     model_group=model_group)
 
     return decode
 

@@ -3,8 +3,12 @@
 Each op takes the device of its tensors as the only switch: tensors on
 the CPU go to the kernel's plain PyTorch version (that is how the CPU
 tests run), tensors on a CUDA device go to the hand-written kernel —
-which launches or raises; there is no fallback.  Mixed devices raise,
-and so does a DTensor: the kernels take plain tensors through ctypes, so
+which launches or raises; there is no fallback.  Tensors on the ``meta``
+device (shapes and dtypes, no storage: ``launch/dryrun.py`` counts a
+step's FLOPs and bytes on them) take the plain version too — for the
+model kernels in the forward of the card's autograd Function (below) —
+so that a meta tensor never reaches a kernel.  Mixed devices raise, and
+so does a DTensor: the kernels take plain tensors through ctypes, so
 a caller over a device mesh gathers its shards first
 (``distributed/steps.py``) — nothing converts a DTensor here.
 
@@ -54,10 +58,17 @@ def _device_type(*tensors: torch.Tensor) -> str:
         raise TypeError("a DTensor reached a kernel op: the kernels take plain tensors; "
                         "gather the shards first (full_tensor) or pass the local shard")
     kinds = {t.device.type for t in tensors}
-    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda", "meta"}:
         raise ValueError(f"tensors on devices {sorted(str(t.device) for t in tensors)}: "
-                         f"expected all on the CPU or all on one CUDA device")
+                         f"expected all on the CPU, all on one CUDA device or all on meta")
     return kinds.pop()
+
+
+def _plain(*tensors: torch.Tensor) -> bool:
+    """Whether ``knn_topk`` / ``kmeans_assign`` take their plain version:
+    tensors on the CPU or on the meta device; ``False`` on one CUDA
+    device, where the kernel launches."""
+    return _device_type(*tensors) in ("cpu", "meta")
 
 
 class KernelFunction(torch.autograd.Function):
@@ -95,7 +106,7 @@ def knn_topk(test_x, train_x, train_y, *, k: int = 5):
     """(dists (m, k), labels (m, k) int32) of the k nearest training rows;
     not differentiable."""
     _build.refuse_grad("knn_topk", test_x, train_x)
-    if _device_type(test_x, train_x, train_y) == "cpu":
+    if _plain(test_x, train_x, train_y):
         return _knn.knn_topk_plain(test_x, train_x, train_y, k)
     return _knn.knn_topk_cuda(test_x, train_x, train_y, k)
 
@@ -104,25 +115,50 @@ def kmeans_assign(x, centroids):
     """(sums (k, d), counts (k,) int32, sse 0-d) of one fragment; not
     differentiable."""
     _build.refuse_grad("kmeans_assign", x, centroids)
-    if _device_type(x, centroids) == "cpu":
+    if _plain(x, centroids):
         return _kmeans.kmeans_assign_plain(x, centroids)
     return _kmeans.kmeans_assign_cuda(x, centroids)
 
 
+meta_hook: Optional[Callable] = None   # a dry run's view of the kernels' meta stand-ins
+
+
+def _meta_forward(plain_fn: Callable, *inputs):
+    """The meta device's stand-in for a kernel's forward: its plain
+    version, through :data:`meta_hook` (``hook(fn, inputs)``) where one is
+    set (``launch/dryrun.py`` counts its inputs and outputs as the
+    kernel's traffic, not the plain version's temporaries)."""
+    if meta_hook is None:
+        return plain_fn(*inputs)
+    return meta_hook(plain_fn, inputs)
+
+
+def _model_kernel(cuda_fn: Callable, plain_fn: Callable, *inputs):
+    """The device switch of the four model kernels: on the CPU the plain
+    version, under autograd; on a CUDA card the kernel's forward and the
+    plain version's backward (:class:`KernelFunction`); on the meta device
+    the same Function with the plain version standing in for the
+    kernel's forward, so that a dry run holds and recomputes what the
+    card does, and never reaches a kernel."""
+    dev = _device_type(*(t for t in inputs if t is not None))
+    if dev == "cpu":
+        return plain_fn(*inputs)
+    if dev == "meta":
+        return KernelFunction.apply(functools.partial(_meta_forward, plain_fn), plain_fn,
+                                    *inputs)
+    return KernelFunction.apply(cuda_fn, plain_fn, *inputs)
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """``x · (1/√(mean(x²) + eps)) · scale`` over the last dim, in x's dtype."""
-    if _device_type(x, scale) == "cpu":
-        return _rms.rmsnorm_plain(x, scale, eps)
-    return KernelFunction.apply(functools.partial(_rms.rmsnorm_cuda, eps=eps),
-                                functools.partial(_rms.rmsnorm_plain, eps=eps), x, scale)
+    return _model_kernel(functools.partial(_rms.rmsnorm_cuda, eps=eps),
+                         functools.partial(_rms.rmsnorm_plain, eps=eps), x, scale)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     """q (B, H, Sq, d), k/v (B, K, Skv, d) -> (B, H, Sq, d); masks count
     positions from 0 in q and k."""
-    if _device_type(q, k, v) == "cpu":
-        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
-    return KernelFunction.apply(
+    return _model_kernel(
         functools.partial(_flash.flash_attention_cuda, causal=causal, window=window),
         functools.partial(_flash.flash_attention_plain, causal=causal, window=window), q, k, v)
 
@@ -130,21 +166,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
 def rglru_scan(log_a, b, h0=None):
     """(y (B, S, R) in b's dtype, h_T (B, R) fp32) of
     ``h_t = exp(log_a_t)·h_{t−1} + b_t`` from ``h0`` (zeros if None)."""
-    tensors = (log_a, b) if h0 is None else (log_a, b, h0)
-    if _device_type(*tensors) == "cpu":
-        return _rglru.rglru_scan_plain(log_a, b, h0)
-    return KernelFunction.apply(_rglru.rglru_scan_cuda, _rglru.rglru_scan_plain, log_a, b, h0)
+    return _model_kernel(_rglru.rglru_scan_cuda, _rglru.rglru_scan_plain, log_a, b, h0)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """(y (B, S, H, P) fp32, final state (B, H, P, N) fp32) of the Mamba-2
     SSD scan from a zero state; ``chunk`` is the plain version's chunk
     length (the function does not depend on it)."""
-    if _device_type(x, dt, A, Bm, Cm) == "cpu":
-        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
-    return KernelFunction.apply(_ssd.ssd_scan_cuda,
-                                functools.partial(_ssd.ssd_scan_plain, chunk=chunk),
-                                x, dt, A, Bm, Cm)
+    return _model_kernel(_ssd.ssd_scan_cuda, functools.partial(_ssd.ssd_scan_plain, chunk=chunk),
+                         x, dt, A, Bm, Cm)
 
 
 def launch_counts() -> Dict[str, int]:

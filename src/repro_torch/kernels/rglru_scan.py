@@ -42,9 +42,17 @@ def _check_shapes(log_a, b, h0) -> None:
 
 def rglru_scan_plain(log_a: torch.Tensor, b: torch.Tensor,
                      h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (y (B, S, R) in b's dtype, h_T (B, R) fp32)."""
+    """Plain PyTorch version: (y (B, S, R) in b's dtype, h_T (B, R) fp32).
+    On the meta device, which holds shapes only, the loop over time would
+    compute nothing but them: the outputs' shapes come directly, still
+    joined to the inputs for autograd (a dry run's backward reaches the
+    gates through them)."""
     _check_shapes(log_a, b, h0)
     Bsz, S, R = b.shape
+    if b.device.type == "meta":
+        y = log_a.to(torch.float32) + b.to(torch.float32)
+        h = y[:, -1] if h0 is None else y[:, -1] + h0.to(torch.float32)
+        return y.to(b.dtype), h
     h = (torch.zeros((Bsz, R), dtype=torch.float32, device=b.device) if h0 is None
          else h0.to(torch.float32))
     a = torch.exp(log_a.to(torch.float32))

@@ -1,7 +1,7 @@
 """Routed Mixture-of-Experts with capacity-based dispatch: the port of
 ``repro/layers/moe.py``'s ``moe_apply_local``, on one device or over a
-data-parallel group (the expert-parallel ``moe_apply_sharded``, experts
-over the ``model`` axis, waits for ROADMAP item A11.4).
+data-parallel group, and of its expert-parallel ``moe_apply_sharded``
+(experts over the mesh's ``model`` axis).
 
 The reference computes MoE outside any Pallas kernel, as gathers and
 batched einsums, so the port is plain PyTorch (``torch.sort``, indexing,
@@ -35,6 +35,14 @@ all-reduce, so that its gradient reaches every rank's router.  Each rank
 computes its own tokens' outputs.  Without a group, or with a group of
 one, no collective is launched and the code is the one-device path.
 
+Over a mesh with ``model > 1``, :func:`moe_apply_sharded` is the
+reference's expert-parallel layer: each model rank dispatches to its
+slice of the experts (the plan's expert offset, other slices'
+assignments in the overflow bucket), the partial outputs are summed over
+``model``, and each data shard routes its own tokens with its own
+capacity and balance loss.  At one model rank it computes exactly what
+:func:`moe_apply_local` computes.
+
 Weights keep the JAX layouts: ``w_router`` (d_model, E), kept in fp32
 in a bf16 model as the reference keeps it, ``w_gate`` / ``w_up``
 (E, d_model, F), ``w_down`` (E, F, d_model).
@@ -51,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .mlp import init_normal_
+from .tp_block import copy_to_group, sum_over_group
 
 PARAM_NAMES = ("w_router", "w_gate", "w_up", "w_down")
 
@@ -109,41 +118,57 @@ def _route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int, renormalize: bo
 
 class Plan(NamedTuple):
     """Where each of the N·k token-expert assignments goes, in dispatch
-    order (a stable sort of the expert ids)."""
+    order (a stable sort of the local expert ids)."""
     order: torch.Tensor     # (N·k,) flat assignment index, in dispatch order
-    expert: torch.Tensor    # (N·k,) expert id
+    expert: torch.Tensor    # (N·k,) local expert id; E_l (the overflow bucket) off the slice
     token: torch.Tensor     # (N·k,) token of the assignment
     slot: torch.Tensor      # (N·k,) position in its expert's segment here
-    valid: torch.Tensor     # (N·k,) kept: within the capacity
+    valid: torch.Tensor     # (N·k,) kept: on the slice and within the capacity
 
 
-def _plan(topi: torch.Tensor, capacity: int, before: Optional[torch.Tensor] = None) -> Plan:
+def _plan(topi: torch.Tensor, capacity: int, before: Optional[torch.Tensor] = None,
+          local: Optional[Tuple[int, int]] = None) -> Plan:
     """The reference's dispatch plan for ids ``topi`` (N, k): which
     assignments its capacity keeps, and where they go.  ``before`` (E,)
     counts each expert's assignments of tokens that precede these (the
     lower ranks' of a data-parallel group): they come first in the
-    expert's segment."""
+    expert's segment.  ``local`` = (expert offset, E_l): only the experts
+    ``[offset, offset + E_l)`` are dispatched here, as local ids; every
+    other assignment goes to the overflow bucket ``E_l`` and is never
+    kept.  Without ``local`` every expert is local and the bucket stays
+    empty."""
     N, k = topi.shape
     flat_e = topi.reshape(N * k)
+    if local is not None:
+        off, n_local = local
+        mine = (flat_e >= off) & (flat_e < off + n_local)
+        flat_e = torch.where(mine, flat_e - off, n_local)
     order = torch.sort(flat_e, stable=True).indices
     s_e = flat_e[order]
     first = torch.searchsorted(s_e, s_e, side="left")
     pos = torch.arange(N * k, device=topi.device) - first
     kept = pos < capacity if before is None else before[s_e] + pos < capacity
+    if local is not None:
+        kept = kept & (s_e < local[1])
     return Plan(order, s_e, torch.div(order, k, rounding_mode="floor"), pos, kept)
 
 
 def _dispatch_compute(xf, topw, topi, w_gate, w_up, w_down, capacity: int,
-                      before: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sort-based capacity dispatch to the experts ``w_*`` (E, D, F) /
-    (E, F, D): their (N, D) contribution for ``xf`` (N, D), ``topw``
-    (N, k) in xf's dtype and ``topi`` (N, k); ``before`` as :func:`_plan`'s."""
+                      before: Optional[torch.Tensor] = None,
+                      expert_offset: Optional[int] = None) -> torch.Tensor:
+    """Sort-based capacity dispatch to the experts ``w_*`` (E_l, D, F) /
+    (E_l, F, D): their (N, D) contribution for ``xf`` (N, D), ``topw``
+    (N, k) in xf's dtype and ``topi`` (N, k) of global ids; ``before`` as
+    :func:`_plan`'s.  With ``expert_offset`` the weights are the experts
+    ``[expert_offset, expert_offset + E_l)`` of a larger set, and the
+    other experts' assignments contribute nothing (the reference's local
+    slice); without it they are every expert."""
     N, D = xf.shape
     k = topi.shape[1]
     E = w_gate.shape[0]
-    p = _plan(topi, capacity, before)
-    # pack into (E + 1, C, D); dropped assignments land, as zeros, in the
-    # overflow row, which is discarded
+    p = _plan(topi, capacity, before, None if expert_offset is None else (expert_offset, E))
+    # pack into (E + 1, C, D); dropped and off-slice assignments land, as
+    # zeros, in the overflow row, which is discarded
     be = torch.where(p.valid, p.expert, E)
     bp = torch.where(p.valid, p.slot, 0)
     rows = torch.where(p.valid[:, None], xf[p.token], 0.0)
@@ -151,7 +176,7 @@ def _dispatch_compute(xf, topw, topi, w_gate, w_up, w_down, capacity: int,
     dt = xf.dtype
     h = F.silu(torch.bmm(buf, w_gate.to(dt))) * torch.bmm(buf, w_up.to(dt))
     y = torch.bmm(h, w_down.to(dt))
-    y_rows = y[p.expert, bp]                                  # garbage where dropped
+    y_rows = y[p.expert.clamp(max=E - 1), bp]                 # garbage where not kept
     s_w = topw.reshape(N * k)[p.order]
     contrib = torch.where(p.valid, s_w, 0.0)[:, None].to(dt) * y_rows
     # each token's k contributions in dispatch order, i.e. ascending expert
@@ -174,13 +199,17 @@ def _lower_ranks_counts(topi: torch.Tensor, n_experts: int, group
                         ) -> Tuple[torch.Tensor, int]:
     """(each expert's assignments on the lower ranks of ``group``, (E,);
     the group's token count), from one ``all_gather`` of every rank's
-    per-expert counts."""
-    counts = torch.bincount(topi.reshape(-1), minlength=n_experts)
+    per-expert counts.  Every rank holds as many rows as this one (the
+    steps split a batch over the data ranks only where it divides), so
+    the token count needs no read of the counts."""
+    flat = topi.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))           # bincount, which has no meta version
     every = [torch.empty_like(counts) for _ in range(dist.get_world_size(group))]
     dist.all_gather(every, counts, group=group)
     rank = dist.get_rank(group)
     before = torch.stack(every[:rank]).sum(dim=0) if rank else torch.zeros_like(counts)
-    return before, int(sum(int(c.sum()) for c in every)) // topi.shape[1]
+    return before, topi.shape[0] * len(every)
 
 
 def moe_apply_local(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
@@ -200,6 +229,61 @@ def moe_apply_local(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, top_
     C = moe_capacity(n_tokens, top_k, E, capacity_factor, min_capacity)
     out = _dispatch_compute(xf, topw.to(xf.dtype), topi, params["w_gate"], params["w_up"],
                             params["w_down"], C, before)
+    return out.reshape(B, S, D), aux
+
+
+def moe_apply_sharded(params: Mapping[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
+                      model_group, data_group=None, capacity_factor: float = 1.25,
+                      min_capacity: int = 4, renormalize: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE: the port of the reference's ``moe_apply_sharded``
+    (``repro/layers/moe.py:145-203``).  x (B, S, D) holds this rank's rows,
+    the same on every rank of ``model_group`` (the mesh's ``model`` axis,
+    the reference's ``model_axis``); ``data_group`` is the mesh's ``data``
+    axis over which the rows are split (``None``: not split).  Returns
+    (out (B, S, D), aux loss).
+
+    Each rank routes its rows (replicated over ``model_group``) and
+    dispatches only to its slice of experts ``[rank·E_l, (rank+1)·E_l)``,
+    ``E_l = E / ep``, cut from the gathered whole weights; the other
+    slices' assignments go to the overflow bucket.  The partial outputs
+    are summed over ``model_group`` (``tp_block.sum_over_group``), and the
+    router's weights and the tokens enter the dispatch through
+    ``tp_block.copy_to_group``, so that the router, the norm before it and
+    everything upstream get their whole gradient on every rank while each
+    rank's gradient of the expert weights is its slice's (the step sums
+    those over ``model``).  The reference's semantics, which differ from
+    :func:`moe_apply_local` over a data group:
+
+    * the capacity comes from this rank's token count B·S, with the
+      global expert count;
+    * each data shard routes its own tokens (no lower-rank counts);
+    * the balance loss is each shard's own, averaged over ``data_group``
+      (the reference's ``pmean``).
+
+    The reference also shards each expert's d_ff over ``ff_shard_axis``
+    and all-gathers it inside the layer; in the port that axis is
+    storage only (the steps gather every weight whole before compute),
+    so the layer takes no such argument.  ``E % ep != 0`` raises, as in
+    the reference."""
+    n_experts = params["w_gate"].shape[0]
+    ep, rank = dist.get_world_size(model_group), dist.get_rank(model_group)
+    if n_experts % ep:
+        raise ValueError(f"{n_experts} experts not divisible by EP={ep}")
+    n_local = n_experts // ep
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    topw, topi, aux = _route(xf, params["w_router"], top_k, renormalize)
+    C = moe_capacity(B * S, top_k, n_experts, capacity_factor, min_capacity)
+    mine = slice(rank * n_local, (rank + 1) * n_local)
+    out = _dispatch_compute(copy_to_group(xf, model_group),
+                            copy_to_group(topw, model_group).to(xf.dtype), topi,
+                            params["w_gate"][mine], params["w_up"][mine], params["w_down"][mine],
+                            C, expert_offset=mine.start)
+    out = sum_over_group(out, model_group)
+    data_group = _spread(data_group)
+    if data_group is not None:
+        aux = _summed(aux, data_group, grad=True) / dist.get_world_size(data_group)
     return out.reshape(B, S, D), aux
 
 

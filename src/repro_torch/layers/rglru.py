@@ -85,6 +85,20 @@ def rglru_axes():
     }
 
 
+def rglru_gates(u: torch.Tensor, lam: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
+                w_i: torch.Tensor, b_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log a, b) in fp32 for u (B, S, R) and the per-channel gate vectors
+    (R,): every op is elementwise over R, so a slice of the channels takes
+    the same slice of each vector (``layers/tp_block.py``)."""
+    uf = u.to(torch.float32)
+    r = torch.sigmoid(uf * w_r + b_r)
+    i = torch.sigmoid(uf * w_i + b_i)
+    log_a = -_C * F.softplus(lam) * r
+    # sqrt(1 - a^2) computed stably via expm1: 1 - exp(2 log a)
+    beta = torch.sqrt(torch.clamp(-torch.expm1(2.0 * log_a), min=1e-12))
+    return log_a, beta * (i * uf)
+
+
 class RGLRU(nn.Module):
     def __init__(self, d_model: int, rnn_width: int, *, conv_width: int = 4,
                  dtype=torch.float32, device=None):
@@ -123,13 +137,7 @@ class RGLRU(nn.Module):
     def gates(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(log a, b) in fp32 for u (B, S, R): the recurrence is
         ``h_t = exp(log a_t)·h_{t-1} + b_t``."""
-        uf = u.to(torch.float32)
-        r = torch.sigmoid(uf * self.w_r + self.b_r)
-        i = torch.sigmoid(uf * self.w_i + self.b_i)
-        log_a = -_C * F.softplus(self.lam) * r
-        # sqrt(1 - a^2) computed stably via expm1: 1 - exp(2 log a)
-        beta = torch.sqrt(torch.clamp(-torch.expm1(2.0 * log_a), min=1e-12))
-        return log_a, beta * (i * uf)
+        return rglru_gates(u, self.lam, self.w_r, self.b_r, self.w_i, self.b_i)
 
     def scan(self, u: torch.Tensor, h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -28,7 +28,14 @@ port's parameter names, for the sharding rules of
 given a ``data_group`` (a data-parallel process group whose ranks hold
 contiguous rows of one batch) computes the one-device function of the
 whole batch: the MoE blocks route over the group (``layers/moe.py``) and
-the loss divides by the group's mask sum.
+the loss divides by the group's mask sum.  Given also a ``model_group``
+(the mesh's ``model`` axis, over which the rows are the same), the blocks
+route as the reference's do over a mesh with ``model > 1``: a cache-free
+forward with ``tp_block="shard_map"`` runs the TP sublayers
+(``layers/tp_block.py``) where :func:`tp_routes` says so, and every
+``moe`` block runs the expert-parallel ``moe_apply_sharded`` (training,
+prefill and decode).  :func:`partial_over_model` names the parameters
+whose gradient one model rank holds only in part.
 """
 from __future__ import annotations
 
@@ -44,10 +51,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..algorithms.common import resolve_device
 from ..layers.attention import Attention, attention_axes, init_kv_cache
 from ..layers.mlp import MLP, init_normal_, mlp_axes
-from ..layers.moe import MoE, moe_axes
+from ..layers.moe import MoE, moe_apply_sharded, moe_axes
 from ..layers.norms import RMSNorm, rmsnorm_axes
 from ..layers.rglru import RGLRU, init_rglru_cache, rglru_axes
 from ..layers.ssd import SSD, init_ssd_cache, ssd_axes
+from ..layers.tp_block import tp_attn_sublayer, tp_mlp_sublayer, tp_rglru_sublayer
 from .convert import port_names
 
 ATTENTION_BLOCKS = ("dense", "local_attn", "moe")
@@ -109,8 +117,9 @@ class LMConfig:
     attn_chunk: int = 1024
     scan_layers: bool = True
     unroll_scans: bool = False
-    # distribution hints (repro_torch.distributed; the expert-parallel MoE
-    # and the shard_map TP blocks they steer are ROADMAP items A11.4, A11.3)
+    # distribution hints (repro_torch.distributed): the MoE's d_ff storage
+    # axis, and "shard_map" routes the training forward over a model axis
+    # through the TP sublayers (layers/tp_block.py)
     moe_ff_shard_axis: Optional[str] = "data"
     tp_block: str = "gspmd"          # "gspmd" | "shard_map"
     attn_scores_bf16: bool = False
@@ -190,16 +199,32 @@ class Block(nn.Module):
         """An empty decode cache of this layer's type (the JAX shapes)."""
         return _init_block_cache(self.cfg, self.btype, batch, cache_len, device)
 
-    def forward(self, x, *, cache, pos_offset, make_cache_len, data_group=None):
-        """(x, new cache, the balance loss of a ``moe`` block or ``None``)."""
+    def forward(self, x, *, cache, pos_offset, make_cache_len, data_group=None,
+                model_group=None):
+        """(x, new cache, the balance loss of a ``moe`` block or ``None``).
+        ``model_group``: the mesh's ``model`` axis, routing as the
+        reference's ``_apply_block`` does over it (see the module
+        docstring)."""
         cfg = self.cfg
+        tp = dist.get_world_size(model_group) if model_group is not None else 1
         if self.btype == "ssd":
             y, new_cache = self.ssd(self.ln1(x), chunk=cfg.ssm_chunk, cache=cache,
                                     make_cache=make_cache_len is not None)
             return x + y, new_cache, None
+        cache_free = cache is None and make_cache_len is None
+        mix_tp, mlp_tp = tp_routes(cfg, self.btype, tp) if cache_free else (False, False)
+        new_cache = None
         if self.btype == "rglru":
-            y, new_cache = self.rec(self.ln1(x), cache=cache,
-                                    make_cache=make_cache_len is not None)
+            if mix_tp:
+                x = tp_rglru_sublayer(self.ln1, self.rec, x, group=model_group)
+            else:
+                y, new_cache = self.rec(self.ln1(x), cache=cache,
+                                        make_cache=make_cache_len is not None)
+                x = x + y
+        elif mix_tp:
+            x = tp_attn_sublayer(self.ln1, self.attn, x, cfg=cfg, group=model_group,
+                                 window=cfg.local_window if self.btype == "local_attn" else None,
+                                 pos_offset=pos_offset)
         else:
             window = cfg.local_window if self.btype == "local_attn" else None
             mcl = make_cache_len
@@ -210,15 +235,68 @@ class Block(nn.Module):
                 make_cache_len=mcl, cache_dtype=cfg.cache_dtype, impl=cfg.attn_impl,
                 chunk=cfg.attn_chunk,
                 scores_dtype=torch.bfloat16 if cfg.attn_scores_bf16 else torch.float32)
-        x = x + y
+            x = x + y
         if self.btype != "moe":
+            if mlp_tp:
+                return tp_mlp_sublayer(self.ln2, self.mlp, x, group=model_group), None, None
             return x + self.mlp(self.ln2(x)), new_cache, None
         h = self.ln2(x)
-        y, aux = self.moe(h, top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor,
-                          renormalize=cfg.moe_renormalize, group=data_group)
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor,
+                  renormalize=cfg.moe_renormalize)
+        if tp > 1:
+            y, aux = moe_apply_sharded(self.moe.params(), h, model_group=model_group,
+                                       data_group=data_group, **kw)
+        else:
+            y, aux = self.moe(h, group=data_group, **kw)
         if cfg.n_shared_experts:
             y = y + self.shared(h)
         return x + y, new_cache, aux
+
+
+def tp_routes(cfg: LMConfig, btype: str, tp: int) -> Tuple[bool, bool]:
+    """(the block's attention or RG-LRU runs as a TP sublayer, its MLP
+    does) in a cache-free forward over a ``model`` axis of ``tp`` ranks:
+    the reference's conditions (``repro/models/lm.py:269-284``, ``:326-334``).
+    Attention blocks need ``tp_block == "shard_map"``, ``tp > 1`` and
+    ``n_heads % tp == 0``; their MLP follows where ``d_ff % tp == 0`` (a
+    ``moe`` block has none).  ``rglru`` blocks need ``rnn_width % tp == 0``
+    and ``d_ff % tp == 0``, and then run both."""
+    if cfg.tp_block != "shard_map" or tp <= 1:
+        return False, False
+    if btype in ATTENTION_BLOCKS:
+        attn = cfg.n_heads % tp == 0
+        return attn, attn and btype != "moe" and cfg.d_ff % tp == 0
+    if btype == "rglru":
+        both = (cfg.rnn_width or cfg.d_model) % tp == 0 and cfg.d_ff % tp == 0
+        return both, both
+    return False, False
+
+
+def partial_over_model(model: "LM", tp: int) -> set:
+    """The names of the parameters whose gradient one rank of a ``model``
+    axis of ``tp`` ranks holds only in part, in a training forward: the
+    TP sublayers' parameters (sliced weights, and the norm scales, q/k
+    norms and replicated K/V that each rank differentiates through its
+    own slice; :func:`tp_routes`) and the routed experts' weights under
+    expert parallelism (``tp > 1``).  The step sums their gradients over
+    ``model``.  Every other parameter — the embedding, the final norm and
+    head, a sublayer that falls back to the replicated layers, the MoE
+    router, its norm and the shared experts — gets its whole gradient on
+    every model rank (the cotangents that leave a sublayer or the expert
+    dispatch are summed by ``tp_block.copy_to_group``)."""
+    names: set = set()
+    if tp <= 1:
+        return names
+    for i, blk in enumerate(model.blocks):
+        mix, mlp = tp_routes(model.cfg, blk.btype, tp)
+        parts = ((["ln1", "attn" if blk.btype in ATTENTION_BLOCKS else "rec"] if mix else [])
+                 + (["ln2", "mlp"] if mlp else []))
+        for part in parts:
+            names.update(n for n, _ in getattr(blk, part).named_parameters(
+                prefix=f"blocks.{i}.{part}"))
+        if blk.btype == "moe":
+            names.update(f"blocks.{i}.moe.{w}" for w in ("w_gate", "w_up", "w_down"))
+    return names
 
 
 def _init_block_cache(cfg: LMConfig, btype: str, batch: int, cache_len: int, device) -> dict:
@@ -336,7 +414,7 @@ class LM(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], caches: Optional[List[dict]] = None,
                 pos_offset: int = 0, make_cache_len: Optional[int] = None,
                 last_only: bool = False, remat: Optional[str] = None,
-                return_aux: bool = False, data_group=None) -> Tuple:
+                return_aux: bool = False, data_group=None, model_group=None) -> Tuple:
         """Returns (logits fp32 (B, S, V), new caches or None), and with
         ``return_aux=True`` also the summed balance loss of the ``moe``
         blocks (0-d fp32; zero without one), as the reference's triple.
@@ -356,7 +434,9 @@ class LM(nn.Module):
 
         ``data_group``: ``batch`` holds this rank's rows of a batch split
         over the group, and the MoE blocks route over the whole batch
-        (see the module docstring)."""
+        (see the module docstring).  ``model_group``: the mesh's ``model``
+        axis, over which the TP sublayers and the expert-parallel MoE
+        split their work."""
         remat = self.cfg.remat if remat is None else remat
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
@@ -369,11 +449,12 @@ class LM(nn.Module):
             cache = caches[i] if caches is not None else None
             if remat == "none":
                 x, nc, aux = blk(x, cache=cache, pos_offset=pos_offset,
-                                 make_cache_len=make_cache_len, data_group=data_group)
+                                 make_cache_len=make_cache_len, data_group=data_group,
+                                 model_group=model_group)
             else:
                 x, nc, aux = checkpoint(
                     blk, x, cache=None, pos_offset=pos_offset, make_cache_len=None,
-                    data_group=data_group, use_reentrant=False,
+                    data_group=data_group, model_group=model_group, use_reentrant=False,
                     **({"context_fn": _save_dots} if remat == "dots" else {}))
             new_caches.append(nc)
             if aux is not None:
@@ -413,7 +494,7 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> LM:
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *, aux_weight: float = 0.01,
-            remat: Optional[str] = None, data_group=None
+            remat: Optional[str] = None, data_group=None, model_group=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked next-token cross entropy, as ``repro.models.lm.loss_fn``:
     ``batch`` carries ``targets`` (B, S) and ``loss_mask`` (B, S) aligned
@@ -426,8 +507,11 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], *, aux_weight: float = 0.
     metrics are the whole batch's, and ``total`` is this rank's share —
     its rows' cross entropy over that denominator plus ``aux_weight ·
     aux / R`` — so that the gradients summed over the group are the
-    whole batch's."""
-    logits, _, aux = model(batch, remat=remat, return_aux=True, data_group=data_group)
+    whole batch's.  ``model_group`` goes to the forward (the mesh's
+    ``model`` axis: its ranks hold the same rows, so it changes neither
+    the denominator nor the share)."""
+    logits, _, aux = model(batch, remat=remat, return_aux=True, data_group=data_group,
+                           model_group=model_group)
     mask = batch["loss_mask"].to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]

@@ -104,8 +104,8 @@ def microbatch_order(batch, data: int, microbatches: int):
     return {k: v[idx] for k, v in batch.items()}
 
 
-def model_of(arch, weights=None):
-    cfg = get_config(arch, reduced=True)
+def model_of(arch, weights=None, tp_block="gspmd"):
+    cfg = dataclasses.replace(get_config(arch, reduced=True), tp_block=tp_block)
     model = lm.init_params(cfg, seed=0, device="cpu")
     if weights is not None:
         with torch.no_grad():
@@ -115,13 +115,13 @@ def model_of(arch, weights=None):
 
 
 def one_step(arch, shape=None, *, batch=8, microbatches=2, grad_compress=None, weights=None,
-             order=None, eps=1e-8):
+             order=None, eps=1e-8, tp_block="gspmd"):
     """(metrics as floats, the parameters after one AdamW step: on rank 0
     only, on a mesh) of reduced ``arch`` from seed-0 weights (or ``weights``), on a mesh of
     ``shape`` or, without one, on one device with the batch's rows in
     ``order``'s microbatch order ((data, microbatches)).  ``eps`` is
-    AdamW's."""
-    model = model_of(arch, weights)
+    AdamW's; ``tp_block`` the config's."""
+    model = model_of(arch, weights, tp_block)
     opt = adamw(LR, eps=eps)
     b = train_batch(model.cfg, batch)
     if order is not None:
@@ -260,3 +260,77 @@ def elastic(ckpt_root, save_shape, restore_shapes, steps_total=3):
         save_checkpoint(os.path.join(ckpt_root, "plain"), train.state_tree(model, opt_state),
                         step)
     return out
+
+
+# ------------------------------------------------------ tensor parallelism
+def tp_config(arch, tp_block="shard_map"):
+    return dataclasses.replace(get_config(arch, reduced=True), tp_block=tp_block)
+
+
+def tp_batch(cfg, batch: int = 4, seed: int = 0):
+    """SMOKE ``train_4k`` rows, every position counted (the reference's
+    ``test_tp_shard_map_equals_gspmd`` batch)."""
+    shape = dataclasses.replace(SMOKE_SHAPES["train_4k"], batch=batch)
+    return make_batch(cfg, shape, seed=seed, device="cpu")["batch"]
+
+
+def tp_gradients(arch, shape=None, weights=None):
+    """(loss, {name: gradient}) of reduced ``arch`` with
+    ``tp_block="shard_map"`` on :func:`tp_batch`, from ``weights``: over a
+    mesh of ``shape`` through the train step's gradient path (rank 0's
+    gradients; the loss of every rank), or without one on one device (the
+    replicated model)."""
+    model = lm.LM(tp_config(arch), device="cpu")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(weights[n])
+    b = tp_batch(model.cfg)
+    if shape is None:
+        metrics, grads = steps._grads(model, b)
+    else:
+        metrics, grads = steps.mesh_gradients(model, b, mesh_of(shape))
+    keep = shape is None or rank0()
+    return (float(metrics["loss"].detach()),
+            {n: g.clone() for n, g in grads.items()} if keep else None)
+
+
+def tp_cases(cases):
+    return {key: tp_gradients(arch, shape, weights) for key, arch, shape, weights in cases}
+
+
+# ------------------------------------------------------ expert parallelism
+def moe_sharded(params, x, shape, capacity_factor, top_k, cotangent=None, repeats=1):
+    """``moe_apply_sharded`` of ``x`` (B, S, D) on a mesh of ``shape``:
+    each rank's rows (dim 0 split over ``data``), the outputs of
+    ``repeats`` calls, the aux, and with ``cotangent`` (the global
+    batch's) the gradients of ``<out, cotangent> + aux`` — the experts'
+    summed over ``model`` as the step sums them, x's this rank's rows."""
+    import torch.distributed as dist
+
+    from repro_torch.layers.moe import moe_apply_sharded
+    mesh = mesh_of(shape)
+    data = mesh.get_local_rank("data")
+    rows = x.chunk(shape[0], dim=0)[data]
+    p = {n: t.clone().requires_grad_(cotangent is not None) for n, t in params.items()}
+    xr = rows.clone().requires_grad_(cotangent is not None)
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, model_group=mesh.get_group("model"),
+              data_group=mesh.get_group("data"))
+    outs = [moe_apply_sharded(p, xr, **kw) for _ in range(repeats)]
+    out, aux = outs[0]
+    res = {"data": data, "outs": [o.detach() for o, _ in outs], "aux": float(aux)}
+    if cotangent is not None:
+        ((out * cotangent.chunk(shape[0], dim=0)[data]).sum() + aux).backward()
+        grads = {n: t.grad for n, t in p.items()}
+        for n in ("w_gate", "w_up", "w_down"):
+            dist.all_reduce(grads[n], group=mesh.get_group("model"))
+        res["grads"] = grads
+        res["x_grad"] = xr.grad
+    return res
+
+
+
+
+def call_all(calls):
+    """``{key: fn(*args, **kwargs)}`` of every (key, fn, args, kwargs) in
+    ``calls``, on every rank."""
+    return {key: fn(*args, **kw) for key, fn, args, kw in calls}

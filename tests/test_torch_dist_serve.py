@@ -7,7 +7,8 @@ world size.  Serving: reduced configs from seed-0 weights, 4 prompts of
 world size 1, and the prefill step's and a decode step's logits,
 gathered over the data ranks, are within 1e-5 of world size 1's (fp32;
 the MoE model routes over the data group, so it drops and orders as one
-device does).  Elastic restore (the port of the reference's
+device does; over a (1, 4) mesh it runs the expert-parallel layer, two
+experts a rank, whose one data shard routes the whole batch).  Elastic restore (the port of the reference's
 ``test_elastic_checkpoint_restore_across_meshes`` at world size 4 in
 place of 8): ``train_loop`` on a (2, 2) mesh checkpoints after step 2;
 launches on (4, 1) and (1, 4) restore it and run step 3, whose loss is
@@ -26,7 +27,7 @@ pytest.importorskip("jax")
 import _torch_dist_jobs as jobs  # noqa: E402
 
 MOE = "deepseek-moe-16b"
-SERVE = [("qwen3-0.6b", (2, 1)), (MOE, (2, 1)), ("qwen3-0.6b", (2, 2))]
+SERVE = [("qwen3-0.6b", (2, 1)), (MOE, (2, 1)), ("qwen3-0.6b", (2, 2)), (MOE, (1, 4))]
 RESTORE = [(4, 1), (1, 4)]
 
 
@@ -46,7 +47,7 @@ def ws2():
 def ws4(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("elastic"))
     serve, elastic, plain = jobs.run_world(4, jobs.in_order, [
-        (jobs.serve_cases, ([((a, s), a, s) for a, s in SERVE if s == (2, 2)],)),
+        (jobs.serve_cases, ([((a, s), a, s) for a, s in SERVE if s != (2, 1)],)),
         (jobs.elastic, (root, (2, 2), RESTORE)),
         (jobs.spread, ([("one", jobs.plain_run, (os.path.join(root, "one"),), {})],))])[0]
     return serve, elastic, root, plain["one"]

@@ -13,8 +13,14 @@ grad-norm within 1e-5 relative (fp32 sums in another order), every
 parameter after the step within 1e-4 (measured up to 1.6e-5).  The
 reference's ``make_train_step`` runs on a (2, 1) mesh with Auto axes in
 a subprocess with two forced host devices, from the same JAX weights and
-batch; there AdamW's eps is 1e-3 (see ``REF_EPS``).  Refusals and the
-DTensor guard run in-process under a fake process group.
+batch; there AdamW's eps is 1e-3 (see ``REF_EPS``).  Over a ``model``
+axis of 2 or 4 the steps run the Megatron TP sublayers
+(``tp_block="shard_map"``: reduced granite-3-2b and recurrentgemma-9b on
+(2, 2) and (1, 4)) and the expert-parallel MoE (deepseek-moe-16b
+reduced, TP attention too, on (1, 4), where one data shard makes its
+capacity and balance loss the whole batch's): each step equals the
+one-device step as above.  The DTensor guard runs in-process under a
+fake process group.
 """
 import os
 import subprocess
@@ -36,6 +42,10 @@ DENSE = ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-9b"]
 MOE = "deepseek-moe-16b"
 WS2 = [(a, (2, 1)) for a in DENSE + [MOE]]
 WS4 = [(a, s) for a in DENSE for s in ((4, 1), (2, 2), (1, 4))] + [(MOE, (4, 1))]
+# tp_block="shard_map" over a model axis: the TP sublayers, and with the
+# MoE the expert-parallel layer
+TP = [(a, s) for a in ("granite-3-2b", "recurrentgemma-9b") for s in ((2, 2), (1, 4))] + [
+    (MOE, (1, 4))]
 REFERENCE = ["qwen3-0.6b", MOE]
 # AdamW's first step moves each element by lr · g / (|g| + eps): at eps
 # 1e-8 an element whose gradient is at rounding-noise level moves by up
@@ -128,9 +138,12 @@ def ws2(tmp_path_factory):
 def ws4():
     data = sorted({(a, s[0]) for a, s in WS4})
     plain = [((a, d), jobs.one_step, (a,), {"order": (d, 2)}) for a, d in data]
-    results = jobs.run_world(4, jobs.in_order, [
-        (jobs.train_cases, ([(("a", a, s), a, s, {}) for a, s in WS4],)),
-        (jobs.spread, (plain,))])
+    plain += [(("tp", a, d), jobs.one_step, (a,), {"order": (d, 2), "eps": REF_EPS})
+              for a, d in sorted({(a, s[0]) for a, s in TP})]
+    cases = [(("a", a, s), a, s, {}) for a, s in WS4]
+    cases += [(("tp", a, s), a, s, {"tp_block": "shard_map", "eps": REF_EPS}) for a, s in TP]
+    results = jobs.run_world(4, jobs.in_order, [(jobs.train_cases, (cases,)),
+                                                (jobs.spread, (plain,))])
     return [r[0] for r in results], jobs.merged(r[1] for r in results)
 
 
@@ -166,6 +179,23 @@ def test_step_on_four_ranks_equals_world_size_1(ws4, arch, shape):
     _close(results[0][("a", arch, shape)], plain[(arch, shape[0])], (arch, shape))
 
 
+@pytest.mark.parametrize("arch,shape", TP, ids=[f"{a}-{s[0]}x{s[1]}" for a, s in TP])
+def test_tensor_parallel_step_equals_world_size_1(ws4, arch, shape):
+    """A train step with ``tp_block="shard_map"`` over ``model`` (the TP
+    sublayers; for the MoE also the expert-parallel layer): every rank
+    agrees, and the step equals the one-device step (metrics 1e-5
+    relative, parameters 1e-4), AdamW's eps at ``REF_EPS`` on both sides:
+    the sliced products sum their partials in another order, and at eps
+    1e-8 a gradient element at rounding-noise level moves its parameter
+    by up to lr either way (one element of 65,920 in granite's embed,
+    2.5e-4; one of 16,384 in deepseek's wv, 1.1e-4; metrics equal)."""
+    results, plain = ws4
+    _every_rank_agrees(results, ("tp", arch, shape))
+    _close(results[0][("tp", arch, shape)], plain[("tp", arch, shape[0])], (arch, shape, "tp"))
+    if arch == MOE:
+        assert results[0][("tp", arch, shape)][0]["aux"] > 0
+
+
 def test_int8_compressed_step_on_two_ranks_equals_world_size_1(ws2):
     """The compression round trip runs on the gradients summed over the
     data ranks: the same step as one device's (the port of the
@@ -199,7 +229,7 @@ def test_step_on_two_ranks_matches_the_reference_mesh_step(ws2, arch):
     _close(results[0][("b", arch)], (want_metrics, want_params), (arch, "reference"))
 
 
-# --------------------------------------------------- refusals, no fallback
+# ------------------------------------------------------------ no fallback
 @pytest.fixture
 def fake_world():
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -208,33 +238,6 @@ def fake_world():
         yield
     finally:
         dist.destroy_process_group()
-
-
-def test_refusals_name_the_roadmap_items(fake_world):
-    """What the reference computes with layers the port has not ported
-    raises — an MoE block over ``model > 1`` (its ``moe_apply_sharded``)
-    and ``tp_block="shard_map"`` where its TP sublayers would run — and
-    is never computed another way."""
-    import dataclasses
-
-    from repro_torch.distributed import steps
-    from repro_torch.models import lm
-    from repro_torch.optim.adamw import adamw
-    opt = adamw(1e-3)
-    for shape in ((2, 2), (1, 4)):
-        mesh = jobs.mesh_of(shape)
-        moe = jobs.model_of(MOE)
-        batch = jobs.train_batch(moe.cfg, 8)
-        with pytest.raises(NotImplementedError, match="A11.4"):
-            steps.make_train_step(opt, mesh=mesh)(moe, steps.shard_state(moe, opt, mesh), batch)
-        with pytest.raises(NotImplementedError, match="A11.4"):
-            steps.make_prefill_step(cache_len=40, mesh=mesh)(moe, {"tokens": batch["tokens"]})
-        cfg = dataclasses.replace(jobs.get_config("qwen3-0.6b", reduced=True),
-                                  tp_block="shard_map")
-        dense = lm.init_params(cfg, seed=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="A11.3"):
-            steps.make_train_step(opt, mesh=mesh)(dense, steps.shard_state(dense, opt, mesh),
-                                                  jobs.train_batch(cfg, 8))
 
 
 def test_a_dtensor_never_reaches_a_kernel(fake_world):

@@ -70,7 +70,8 @@ def test_port_files_exist():
                  "cluster/__init__.py", "cluster/chaos.py", "cluster/protocol.py",
                  "cluster/peer.py", "cluster/agent.py", "cluster/channel.py",
                  "cluster/eventloop.py", "cluster/cluster.py", "configs/shapes.py",
-                 "launch/mesh.py", "distributed/sharding.py"):
+                 "launch/mesh.py", "distributed/sharding.py", "layers/tp_block.py",
+                 "distributed/analysis.py", "launch/dryrun.py"):
         assert want in names
     examples = {os.path.basename(p) for p in _port_files() if p.startswith(EXAMPLES)}
     assert examples == {"quickstart_torch.py", "kmeans_pipeline_torch.py",
@@ -167,6 +168,8 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "import repro_torch.checkpoint, repro_torch.distributed\n"
         "import repro_torch.cluster, repro_torch.cluster.agent\n"
         "import repro_torch.cluster.eventloop, repro_torch.cluster.channel\n"
+        "import repro_torch.layers.tp_block, repro_torch.distributed.analysis\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
         "import torch\n"
         "assert not torch.cuda.is_initialized()\n"
         "from repro_torch.kernels import _build\n"
