@@ -32,9 +32,12 @@ failure raises (the script then exits non-zero without a result):
              equal across two launches; then timed beside its bound, its
              plain version and (where one exists) the one PyTorch call
              that computes the same function.  ``kmeans_assign`` and
-             ``knn_topk`` are also checked and timed at shapes past their
-             tensor-core routes (their rows' ``wide_shapes``: the wide
-             CUDA routes), and each row names the route it took;
+             ``knn_topk`` are also checked (integer inputs bitwise,
+             random ones within tolerance, two launches bitwise) and
+             timed at shapes past their tensor-core routes (their rows'
+             ``wide_shapes``: the depth-streamed wide CUDA routes) and at
+             each route's edges, k and d one either side (``edge_pairs``),
+             and each row names the route it took;
 4. knn     — run_knn on 2M x 50 training rows, 50k test rows;
 5. kmeans  — run_kmeans on 8M x 50 points, k=16, 10 iterations, twice;
 6. linreg  — run_linreg on 2M x 100 rows;
@@ -71,17 +74,27 @@ failure raises (the script then exits non-zero without a result):
              KNN_frag completion the tracer records in that run; after
              runtime_stop no agent process, pool worker or segment an
              agent reported is left;
-11. serve  — serve_batch on qwen3-0.6b at full width (28 layers, d 1024,
+11. wide   — run_knn on 500k x 384 training rows, 20k test rows, k 50
+             (16 fragments x 4 test blocks) and run_kmeans on 1M x 384
+             points, k 100, 5 iterations, twice: both past the tensor-core
+             routes; held as phases 4 and 5 hold theirs (>= 999/1000
+             sampled predictions equal a float64 oracle; SSE
+             non-increasing, two runs bitwise equal), launches exactly the
+             runs' tasks; one KNN_frag and one partial_sum at those
+             shapes held against the plain version on the runs' data
+             (near-ties scaled to the data's norms) and on tied integers
+             (bitwise), two launches bitwise, then their device time;
+12. serve  — serve_batch on qwen3-0.6b at full width (28 layers, d 1024,
              bf16, random weights from seed 0): 8 prompts of 512 tokens,
              32 generated tokens each, twice; then one cache-free forward
              over prompt + generated tokens, held against the served
              logits (replayed) and against two controls;
-12. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
+13. serve_ssd    — the same on mamba2-780m at full width (48 SSD layers,
              d 1536, 48 heads x 64, state 128, bf16), one control;
-13. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
+14. serve_hybrid — the same on recurrentgemma-9b at full width (38 layers =
              12 x (rglru, rglru, local_attn) + 2 rglru, d 4096, MQA with
              head dim 256, window 2048, bf16, 9.6B parameters), one control;
-14. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
+15. serve_moe — the same on deepseek-moe-16b at full width (28 layers,
              d 2048, MHA 16 x 128, 64 routed experts of width 1408, top-6,
              2 shared, vocab 102,400, bf16, 16.9B parameters), one
              control; the full-forward comparison and its control run at
@@ -93,7 +106,7 @@ failure raises (the script then exits non-zero without a result):
              full forward; the share
              of assignments dropped in the served prefill and decode is
              recorded;
-15. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
+16. train_parity — ``train_loop`` on the reduced qwen3, mamba2,
              recurrentgemma, deepseek-moe and qwen3-moe configs (fp32), 4
              steps on the card and on the CPU from the same
              ``init_params`` weights and batches: the losses agree within
@@ -101,17 +114,17 @@ failure raises (the script then exits non-zero without a result):
              checkpoint saved at step 2 by the runtime's
              ``checkpoint_save`` task restores into a fresh model on the
              card, which continues as the uninterrupted run did;
-16. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
+17. train  — ``train_loop`` on qwen3-0.6b at full width (bf16, remat
              "full"), batch 8 x 512 tokens, 10 steps: finite losses, the
              first within 1.0 of ln(vocab), exact launch counts, the loss
              on the first batch lower after the ten steps; one more step
              must lower the loss on its batch, and one under the profiler
              gives the device's idle share;
-17. train_ssd — the same on mamba2-780m at full width;
-18. train_moe — the same on deepseek-moe-16b at full width, its depth cut
+18. train_ssd — the same on mamba2-780m at full width;
+19. train_moe — the same on deepseek-moe-16b at full width, its depth cut
              to 4 of 28 layers (at full depth, bf16 weights and gradients
              and fp32 moments need ~200 GB);
-19. mesh   — the multi-device layer at world size 1: an NCCL process group
+20. mesh   — the multi-device layer at world size 1: an NCCL process group
              of one rank on the card and ``make_local_mesh()``'s (1, 1)
              DeviceMesh; ``train_loop(mesh=)`` on qwen3-0.6b at full width
              (parameters and moments stored as DTensors, gathered for
@@ -126,7 +139,7 @@ failure raises (the script then exits non-zero without a result):
              settings gives phase serve's tokens with its launch counts;
              the two runs' step seconds and tokens/s on one line beside
              nvidia-smi's name and power limit; the group destroyed;
-20. tp_ep  — the tensor- and expert-parallel layers at full width, bf16,
+21. tp_ep  — the tensor- and expert-parallel layers at full width, bf16,
              BATCH x PROMPT_LEN tokens.  (a) On an NCCL group of one rank
              and its (1, 1) mesh, called directly (at one model rank the
              model routes to none of them, as the reference's does not):
@@ -158,7 +171,7 @@ Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5, 7, 8, 10 and 11-20, by phase; times measured in
+counted during phases 4, 5, 7, 8, 10, 11 and 12-21, by phase; times measured in
 phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
@@ -192,7 +205,7 @@ from repro_torch.launch.mesh import PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_TF32_
 BF16_STEP = 2.0 ** -7          # one bf16 rounding step, relative
 
 SEED = 0
-# served vs full-forward logits, per served model (phases 10-13): logits
+# served vs full-forward logits, per served model (phases 12-15): logits
 # are rounded to bf16 and the two paths (prefill + decode, one cache-free
 # forward) round differently in every layer.  Each limit sits between the
 # sound reading and a decode fed the wrong tokens (the lagged control,
@@ -444,7 +457,10 @@ TENSOR_CORE_KERNELS = [(f"flash_fwd_bf16_tc<{d}>", rf"flash_fwd_bf16_tcILi{d}E")
                        for mt in (1, 2, 4) for ntw in (1, 2, 4)] + \
                       [(f"ssd_chunk_bf16_tc<{nk},{int(al)}>",
                         rf"ssd_chunk_bf16_tcILi{nk}ELb{int(al)}E")
-                       for nk in (1, 2, 4, 8) for al in (True, False)]
+                       for nk in (1, 2, 4, 8) for al in (True, False)] + \
+                      [("knn_wide_topk", r"knn_wide_topk")] + \
+                      [(f"kmeans_wide_partials<{nt}>", rf"kmeans_wide_partialsILi{nt}E")
+                       for nt in range(2, 17, 2)]
 
 
 def check_tensor_core_build(log: str, lib_path: str) -> dict:
@@ -490,74 +506,97 @@ def bitwise_equal(a, b) -> bool:
 
 
 # ------------------------------------------------------------------ kernels
-def check_knn(knn_k, gen, cuda):
-    """knn_topk kernel vs its plain version; returns the kernels-line row."""
+def knn_tied(gen, cuda, m, n, d, dup=None, same=None):
+    """Integer-valued inputs: every distance is exact, and ``dup``
+    duplicated training rows (with other labels; n / 5 unless given) and
+    ``same`` test rows equal to training rows (m / 6) make ties
+    everywhere."""
     def ints(shape):
         return torch.from_numpy(gen.integers(-3, 4, size=shape).astype(np.float32)).to(cuda)
 
-    # integer-valued inputs: every distance is exact, and duplicated
-    # training rows (with other labels) and test rows equal to training
-    # rows make ties everywhere
-    m, n, d = 300, 1000, 50
+    dup = n // 5 if dup is None else dup
+    same = m // 6 if same is None else same
     train = ints((n, d))
-    train[500:700] = train[0:200]
+    train[n // 2:n // 2 + dup] = train[0:dup]
     test = ints((m, d))
-    test[:50] = train[100:150]
+    test[:same] = train[n // 10:n // 10 + same]
     labels = torch.from_numpy(gen.integers(0, 4, size=n).astype(np.int32)).to(cuda)
-    # k past the register lists: the wide route, ties and all
+    return test, train, labels
+
+
+def knn_exact_case(knn_k, gen, cuda, m, n, d, k, **ties) -> None:
+    """Tied integer inputs: two launches bitwise equal, and bitwise the
+    plain version's result."""
+    test, train, labels = knn_tied(gen, cuda, m, n, d, **ties)
+    got = knn_k.knn_topk_cuda(test, train, labels, k)
+    assert bitwise_equal(got, knn_k.knn_topk_cuda(test, train, labels, k)), \
+        f"knn_topk: two launches differ on integer inputs {(m, n, d, k)}"
+    assert bitwise_equal(got, knn_k.knn_topk_plain(test, train, labels, k)), \
+        f"knn_topk integer case {(m, n, d, k)} differs"
+
+
+def knn_against_plain(knn_k, test, train, labels, k, cuda, far=False) -> float:
+    """Two launches bitwise equal; distances within rtol 1e-5 / atol 1e-3
+    of the plain version's, labels equal wherever the order is not
+    decided by a near-tie: neighbours whose distances lie within 1e-3,
+    or with ``far`` (data far from the origin, where the fp32 rounding of
+    |x|^2 and |y|^2 alone passes 1e-3) within twice the distance
+    tolerance.  Returns the largest error."""
+    m, n = test.shape[0], train.shape[0]
+    got = knn_k.knn_topk_cuda(test, train, labels, k)
+    again = knn_k.knn_topk_cuda(test, train, labels, k)
+    assert bitwise_equal(got, again), "knn_topk: two launches differ"
+    kk = min(k + 1, n)
+    want_d, want_l = knn_k.knn_topk_plain(test, train, labels, kk)
+    torch.testing.assert_close(got[0], want_d[:, :k], rtol=1e-5, atol=1e-3)
+    # labels must agree wherever the order is not decided by a near-tie
+    gap = want_d[:, 1:] - want_d[:, :-1]                     # (m, kk-1)
+    tie = 2 * (1e-3 + 1e-5 * want_d[:, 1:].abs()) if far else 1e-3
+    sep = torch.ones((m, kk + 1), dtype=torch.bool, device=cuda)
+    sep[:, 1:kk] = gap > tie        # sep[:, i]: clear gap before position i
+    isolated = sep[:, :k] & sep[:, 1:k + 1]
+    assert torch.equal(got[1][isolated], want_l[:, :k][isolated]), \
+        "knn_topk labels differ away from near-ties"
+    return (got[0] - want_d[:, :k]).abs().max().item()
+
+
+def check_knn(knn_k, gen, cuda):
+    """knn_topk kernel vs its plain version; returns the kernels-line row."""
+    def exact_case(m, n, d, k, **ties):
+        knn_exact_case(knn_k, gen, cuda, m, n, d, k, **ties)
+
+    # k past the register lists (the wide route), ties and all
     for k in (1, 5, 16, 32, 33, 100, 257):
-        got = knn_k.knn_topk_cuda(test, train, labels, k)
-        want = knn_k.knn_topk_plain(test, train, labels, k)
-        assert bitwise_equal(got, want), f"knn_topk integer case k={k} differs"
+        exact_case(300, 1000, 50, k)
     # d past the tile's shared memory: the wide route
-    for d, k in ((273, 5), (1024, 40)):
-        tr = ints((700, d))
-        tr[400:600] = tr[0:200]
-        te = ints((150, d))
-        te[:50] = tr[100:150]
-        lab = labels[:700].contiguous()
-        got = knn_k.knn_topk_cuda(te, tr, lab, k)
-        assert bitwise_equal(got, knn_k.knn_topk_plain(te, tr, lab, k)), \
-            f"knn_topk integer case d={d} differs"
+    for d, k in ((273, 5), (1024, 40), (1024, 257)):
+        exact_case(150, 700, d, k, dup=200, same=50)
+    exact_case(70, 9000, 7, 1000)               # lists in global scratch
+    exact_case(40, 300, 5, 300)                 # k = n
 
     def normal_case(m, n, d, k):
         test = torch.from_numpy(gen.standard_normal((m, d)).astype(np.float32)).to(cuda)
         train = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(cuda)
         labels = torch.from_numpy(gen.integers(0, 4, size=n).astype(np.int32)).to(cuda)
-        got = knn_k.knn_topk_cuda(test, train, labels, k)
-        again = knn_k.knn_topk_cuda(test, train, labels, k)
-        assert bitwise_equal(got, again), "knn_topk: two launches differ"
-        kk = min(k + 1, n)
-        want_d, want_l = knn_k.knn_topk_plain(test, train, labels, kk)
-        torch.testing.assert_close(got[0], want_d[:, :k], rtol=1e-5, atol=1e-3)
-        # labels must agree wherever the order is not decided by a near-tie
-        gap = want_d[:, 1:] - want_d[:, :-1]                     # (m, kk-1)
-        sep = torch.ones((m, kk + 1), dtype=torch.bool, device=cuda)
-        sep[:, 1:kk] = gap > 1e-3       # sep[:, i]: clear gap before position i
-        isolated = sep[:, :k] & sep[:, 1:k + 1]
-        assert torch.equal(got[1][isolated], want_l[:, :k][isolated]), \
-            "knn_topk labels differ away from near-ties"
-        return test, train, labels, (got[0] - want_d[:, :k]).abs().max().item()
+        return test, train, labels, knn_against_plain(knn_k, test, train, labels, k, cuda)
 
     normal_case(1037, 10013, 50, 5)             # ragged m and n
     normal_case(129, 3, 50, 3)                  # k > fragment rows: the caller passes n
     normal_case(77, 5000, 13, 20)               # d not a multiple of 4, K=32 list
     normal_case(300, 9000, 20, 100)             # the wide route: k past the lists,
     normal_case(200, 3000, 300, 5)              # d past the tile,
-    normal_case(70, 9000, 7, 1000)              # k past a training chunk
+    normal_case(70, 9000, 7, 1000)              # lists in global scratch
 
     def timed(m, n, d, k):
+        exact_case(m, n, d, k)
         test, train, labels, err = normal_case(m, n, d, k)
         t = times(lambda: knn_k.knn_topk_cuda(test, train, labels, k),
                   lambda: knn_k.knn_topk_plain(test, train, labels, k), reps=10, plain_reps=3)
         nbytes = 4.0 * (m * d + n * d + n) + 8.0 * m * k
         fp32_cores = bound(2.0 * m * n * d, nbytes)
-        cuda_route = knn_k.route(k, d)
-        if cuda_route == "tensor_cores":    # three TF32 products per pair
-            bound_ms, bound_by = bound(3 * 2.0 * m * n * d, nbytes, PEAK_TF32_FLOPS)
-        else:                               # fp32 FMAs on the CUDA cores
-            bound_ms, bound_by = fp32_cores
-        return {"shape": {"m": m, "n": n, "d": d, "k": k}, "cuda_route": cuda_route,
+        # both routes: three TF32 products per pair on the tensor cores
+        bound_ms, bound_by = bound(3 * 2.0 * m * n * d, nbytes, PEAK_TF32_FLOPS)
+        return {"shape": {"m": m, "n": n, "d": d, "k": k}, "cuda_route": knn_k.route(k, d),
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_ms_fp32_cores": fp32_cores[0]}
 
@@ -566,49 +605,85 @@ def check_knn(knn_k, gen, cuda):
     assert row["cuda_route"] == "tensor_cores", row["cuda_route"]
     row["wide_shapes"] = [timed(12_500, 125_000, 50, 33), timed(12_500, 125_000, 300, 5)]
     assert all(w["cuda_route"] == "wide" for w in row["wide_shapes"])
+    # the routes' edges, each pair timed in this run: k 32 | 33 at d 50, d 64 | 65 at
+    # k 5; and d 272 | 273, the edge of the tensor-core route's shared memory
+    row["edge_pairs"] = [[timed(12_500, 125_000, 50, 32), row["wide_shapes"][0]],
+                         [timed(12_500, 125_000, 64, 5), timed(12_500, 125_000, 65, 5)],
+                         [timed(12_500, 125_000, 272, 5), timed(12_500, 125_000, 273, 5)]]
+    assert [[w["cuda_route"] for w in pair] for pair in row["edge_pairs"]] == \
+        [["tensor_cores", "wide"]] * 2 + [["wide", "wide"]]
     return {"name": "knn_topk", "route": "cuda",
             "source": "src/repro_torch/csrc/knn_topk.cu",
             "replaces": "src/repro/kernels/knn_topk.py:86", **row}
 
 
-def check_kmeans(km_k, gen, cuda):
-    """kmeans_assign kernel vs its plain version; returns the kernels-line row."""
+def kmeans_exact_case(km_k, gen, cuda, n, d, k, sse_exact=True) -> None:
+    """Integer-valued inputs: dot products, |c|^2/2, sums and sse are
+    exact; half-integer scores make argmax ties common.  Two launches
+    bitwise equal and bitwise the plain version's result.  Where the sse
+    is far past 2^24 (|x - c|^2 ~ 200 a point at d 50) fp32 sums of
+    integers round by their order: there (``sse_exact`` False) the sse
+    is held to rtol 1e-6."""
     def ints(shape):
         return torch.from_numpy(gen.integers(-2, 3, size=shape).astype(np.float32)).to(cuda)
 
-    # integer-valued inputs: dot products, |c|^2/2, sums and sse are exact;
-    # half-integer scores make argmax ties common
-    # the last three past the tensor-core route: the wide route
+    x, c = ints((n, d)), ints((k, d))
+    got = km_k.kmeans_assign_cuda(x, c)
+    assert bitwise_equal(got, km_k.kmeans_assign_cuda(x, c)), \
+        f"kmeans_assign: two launches differ on integer inputs {(n, d, k)}"
+    want = km_k.kmeans_assign_plain(x, c)
+    exact = 3 if sse_exact else 2
+    assert bitwise_equal(got[:exact], want[:exact]), \
+        f"kmeans_assign integer case {(n, d, k)} differs"
+    if not sse_exact:
+        torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0.0)
+
+
+def kmeans_against_plain(km_k, x, c, far=False) -> tuple:
+    """The points whose two best centroids score within 1e-4 dropped
+    (there the fp32 rounding of two dot-product orders may decide), or
+    with ``far`` (data far from the origin, where the scores' rounding
+    passes 1e-4) within 1e-4 + 1e-5 |x| max|c|.
+    Then two launches bitwise equal, counts equal to the plain version's,
+    sums and sse within rtol 1e-5.  Returns (x kept, largest sums error)."""
+    half = x @ c.T - 0.5 * (c * c).sum(1)[None, :]
+    top2 = half.topk(2, dim=1).values
+    tie = 1e-4 + 1e-5 * x.norm(dim=1) * c.norm(dim=1).max() if far else 1e-4
+    x = x[(top2[:, 0] - top2[:, 1]) >= tie].contiguous()
+    got = km_k.kmeans_assign_cuda(x, c)
+    again = km_k.kmeans_assign_cuda(x, c)
+    assert bitwise_equal(got, again), "kmeans_assign: two launches differ"
+    sums, counts, sse = km_k.kmeans_assign_plain(x, c)
+    assert torch.equal(got[1], counts), "kmeans_assign counts differ"
+    torch.testing.assert_close(got[0], sums, rtol=1e-5,
+                               atol=1e-5 * sums.abs().max().item())
+    torch.testing.assert_close(got[2], sse, rtol=1e-5, atol=0.0)
+    return x, (got[0] - sums).abs().max().item()
+
+
+def check_kmeans(km_k, gen, cuda):
+    """kmeans_assign kernel vs its plain version; returns the kernels-line row."""
+    def exact_case(n, d, k, sse_exact=True):
+        kmeans_exact_case(km_k, gen, cuda, n, d, k, sse_exact)
+
+    # the last four past the tensor-core route: the wide route
     for n, d, k in ((5000, 50, 16), (1001, 13, 5), (5000, 50, 65), (3001, 257, 16),
-                    (20_000, 300, 1000)):
-        x, c = ints((n, d)), ints((k, d))
-        got = km_k.kmeans_assign_cuda(x, c)
-        want = km_k.kmeans_assign_plain(x, c)
-        assert bitwise_equal(got, want), f"kmeans_assign integer case {(n, d, k)} differs"
+                    (20_000, 300, 1000), (7000, 384, 100)):
+        exact_case(n, d, k)
 
     def normal_case(n, d, k):
         x = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(cuda)
         c = torch.from_numpy(gen.standard_normal((k, d)).astype(np.float32)).to(cuda)
-        # drop the points whose two best centroids score within 1e-4:
-        # there the fp32 rounding of two dot-product orders may decide
-        half = x @ c.T - 0.5 * (c * c).sum(1)[None, :]
-        top2 = half.topk(2, dim=1).values
-        x = x[(top2[:, 0] - top2[:, 1]) >= 1e-4].contiguous()
-        got = km_k.kmeans_assign_cuda(x, c)
-        again = km_k.kmeans_assign_cuda(x, c)
-        assert bitwise_equal(got, again), "kmeans_assign: two launches differ"
-        sums, counts, sse = km_k.kmeans_assign_plain(x, c)
-        assert torch.equal(got[1], counts), "kmeans_assign counts differ"
-        torch.testing.assert_close(got[0], sums, rtol=1e-5,
-                                   atol=1e-5 * sums.abs().max().item())
-        torch.testing.assert_close(got[2], sse, rtol=1e-5, atol=0.0)
-        return x, c, (got[0] - sums).abs().max().item()
+        x, err = kmeans_against_plain(km_k, x, c)
+        return x, c, err
 
     normal_case(1007, 13, 5)                    # ragged tile, k not a multiple of 4
     normal_case(100_003, 50, 16)
     normal_case(20_011, 300, 1000)              # the wide route, both past
 
     def timed(n, d, k, parent=False):
+        exact_case(10_000, d, k)              # sse below 2^24
+        exact_case(n, d, k, sse_exact=False)
         x, c, err = normal_case(n, d, k)
         n = x.shape[0]
         def run():
@@ -617,16 +692,23 @@ def check_kmeans(km_k, gen, cuda):
 
         t = with_parent("kmeans_assign", lambda m: m.kmeans_assign_cuda(x, c), run) \
             if parent else run()
-        bound_ms, bound_by = bound(2.0 * n * k * d + 3.0 * n * d,
-                                   4.0 * (n * d + 2 * k * d + k + 1))
+        nbytes = 4.0 * (n * d + 2 * k * d + k + 1)
+        # both routes: three TF32 products per score on the tensor cores
+        bound_ms, bound_by = bound(3 * 2.0 * n * k * d, nbytes, PEAK_TF32_FLOPS)
         return {"shape": {"n": n, "d": d, "k": k}, "cuda_route": km_k.route(k, d),
-                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms_fp32_cores": bound(2.0 * n * k * d + 3.0 * n * d, nbytes)[0]}
 
     # the path shape: one partial_sum task of phase 5, on the tensor cores
     row = timed(500_000, 50, 16, parent=True)
     assert row["cuda_route"] == "tensor_cores", row["cuda_route"]
     row["wide_shapes"] = [timed(500_000, 50, 65), timed(100_000, 257, 16)]
     assert all(w["cuda_route"] == "wide" for w in row["wide_shapes"])
+    # the routes' edges, each pair timed in this run: k 64 | 65 at d 50, d 256 | 257 at k 16
+    row["edge_pairs"] = [[timed(500_000, 50, 64), row["wide_shapes"][0]],
+                         [timed(100_000, 256, 16), row["wide_shapes"][1]]]
+    assert [[w["cuda_route"] for w in pair] for pair in row["edge_pairs"]] == \
+        [["tensor_cores", "wide"]] * 2
     return {"name": "kmeans_assign", "route": "cuda",
             "source": "src/repro_torch/csrc/kmeans_assign.cu",
             "replaces": "src/repro/kernels/kmeans_assign.py:65", **row}
@@ -989,6 +1071,87 @@ def knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, *, n_train, n_test
     top = knn_k.knn_topk_plain(sel, X, y, k, block_n=65536)
     want = knn.knn_classify(top, n_classes).cpu().numpy()
     return int((want == preds[idx]).sum())
+
+
+# phase wide: the two pipelines at sentence-embedding width, past both
+# routes' tensor-core limits (k > 32 and d > 64; k > 64 and d > 256)
+WIDE_KNN = dict(n_train=500_000, n_test=20_000, d=384, k=50, n_classes=4, train_fragments=16,
+                test_blocks=4)
+WIDE_KMEANS = dict(n_points=1_000_000, d=384, k=100, fragments=16, max_iters=5, tol=0.0)
+
+
+def wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda) -> dict:
+    """run_knn and run_kmeans at embedding width on the card, held as
+    phases knn and kmeans hold theirs; returns the runs' launch counts.
+    Then one KNN_frag and one partial_sum at the runs' shapes, each held
+    against its plain version and timed (those launches are not counted)."""
+    kc, mc = WIDE_KNN, WIDE_KMEANS
+    assert knn_k.route(kc["k"], kc["d"]) == "wide" and km_k.route(mc["k"], mc["d"]) == "wide"
+    ops.reset_launch_counts()
+    with api.runtime_start(n_workers=4, backend="thread") as rt:
+        t0 = time.perf_counter()
+        res = knn.run_knn(**kc, seed=SEED, device=cuda)
+        torch.cuda.synchronize()
+        knn_wall = time.perf_counter() - t0
+    knn_counts = ops.launch_counts()
+    assert knn_counts == only(ops, knn_topk=kc["train_fragments"] * kc["test_blocks"]), knn_counts
+    preds = res.predictions
+    assert preds.shape == (kc["n_test"],) and preds.min() >= 0 and preds.max() < kc["n_classes"]
+    agree = knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, **kc)
+    assert agree >= 999, f"only {agree}/1000 wide predictions agree with the fp64 oracle"
+
+    ops.reset_launch_counts()
+    walls = []
+    runs = []
+    for _ in range(2):
+        with api.runtime_start(n_workers=4, backend="thread"):
+            t0 = time.perf_counter()
+            runs.append(kmeans.run_kmeans(**mc, seed=SEED, device=cuda))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    km_counts = ops.launch_counts()
+    r1, r2 = runs
+    assert km_counts == only(ops, kmeans_assign=mc["fragments"] * (r1.iterations + r2.iterations)), \
+        km_counts
+    assert r1.iterations == mc["max_iters"] and r1.centroids.shape == (mc["k"], mc["d"])
+    assert np.isfinite(r1.centroids).all()
+    hist = r1.sse_history
+    assert len(hist) == mc["max_iters"] and all(np.isfinite(hist))
+    for a, b in zip(hist, hist[1:]):
+        assert b <= a * (1 + 1e-6), f"wide SSE rose from {a} to {b}"
+    assert r1.centroids.tobytes() == r2.centroids.tobytes(), \
+        "two wide K-means runs gave different centroids"
+    counts = {k: knn_counts[k] + km_counts[k] for k in ops.KERNELS}
+
+    # one task of each at the runs' shapes, held against its plain version
+    # on the runs' data and on tied integers, then timed; apart from the counts
+    gen = np.random.default_rng(SEED)
+    m = kc["n_test"] // kc["test_blocks"]
+    n = kc["n_train"] // kc["train_fragments"]
+    test = torch.from_numpy(make_blobs(10_000 + SEED, m, kc["d"], kc["n_classes"])[0]
+                            .astype(np.float32)).to(cuda)
+    X, y = make_blobs(SEED, n, kc["d"], kc["n_classes"])
+    train = torch.from_numpy(X.astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(y.astype(np.int32)).to(cuda)
+    frag_err = knn_against_plain(knn_k, test, train, labels, kc["k"], cuda, far=True)
+    knn_exact_case(knn_k, gen, cuda, m, n, kc["d"], kc["k"])
+    frag_ms = device_ms(lambda: knn_k.knn_topk_cuda(test, train, labels, kc["k"]), reps=5)
+    pts = torch.from_numpy(kmeans._np_fill_fragment(SEED, mc["n_points"] // mc["fragments"],
+                                                    mc["d"]).astype(np.float32)).to(cuda)
+    cents = torch.from_numpy(r1.centroids.astype(np.float32)).to(cuda)
+    kept, psum_err = kmeans_against_plain(km_k, pts, cents, far=True)
+    kmeans_exact_case(km_k, gen, cuda, 8000, mc["d"], mc["k"])          # sse below 2^24
+    kmeans_exact_case(km_k, gen, cuda, pts.shape[0], mc["d"], mc["k"], sse_exact=False)
+    psum_ms = device_ms(lambda: km_k.kmeans_assign_cuda(pts, cents), reps=10)
+    ph.info.update(knn_wall_s=knn_wall, knn_tasks=res.n_tasks, oracle_agree=agree,
+                   kmeans_walls_s=walls, kmeans_iterations=r1.iterations, sse_history=hist,
+                   launches=counts,
+                   knn_frag={"shape": {"m": m, "n": n, "d": kc["d"], "k": kc["k"]},
+                             "device_ms": frag_ms, "max_abs_err": frag_err},
+                   partial_sum={"shape": {"n": pts.shape[0], "d": mc["d"], "k": mc["k"]},
+                                "device_ms": psum_ms, "max_abs_err": psum_err,
+                                "points_held": kept.shape[0]})
+    return counts
 
 
 def only(ops, **nonzero) -> dict:
@@ -2322,10 +2485,13 @@ def main(argv) -> int:
         assert not stale, f"segments left in /dev/shm: {stale}"
         ph.info.update(segments_checked=len(segments), workers_checked=len(worker_pids))
 
+    with Phase("wide") as ph:
+        launches_wide = wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda)
+
     for name in ("knn_topk", "kmeans_assign"):
         pipeline_by_phase = {"knn" if name == "knn_topk" else "kmeans": launches[name],
                              "simulate": launches_sim[name], "process": launches_proc[name],
-                             "cluster": launches_cluster[name]}
+                             "cluster": launches_cluster[name], "wide": launches_wide[name]}
         launches[name] = sum(pipeline_by_phase.values())
         for row in rows:
             if row["name"] == name:

@@ -19,6 +19,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
+// 8 bytes global -> shared; zero-filled where !ok
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
 // 4 bytes global -> shared; zero-filled where !ok
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
@@ -104,78 +109,122 @@ __device__ inline void zero_shared(float* buf, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) buf[i] = 0.f;
 }
 
-// ------------------------------------------ fp32 dot-product tiles, any d
+// ------------------------------ depth-streamed 3xTF32 tiles, any depth d
 
-constexpr int kDotRows = 64;      // rows of A and of B in one tile
-constexpr int kDotDepth = 16;     // depth of one shared slice
-constexpr int kDotThreads = 256;  // threads of a block that calls dot_tile
+// The wide routes of knn_topk and kmeans_assign multiply a block's 16 x
+// (warps) rows of A by up to 128 rows of B over any depth d.  Neither
+// operand is held at full depth: fixed 32-deep slices of both go through
+// a ring of shared stages by cp.async, and each warp keeps its fp32
+// accumulators in registers across the whole depth, so shared memory does
+// not grow with d.  The products are 3xTF32 (x_lo y_hi + x_hi y_lo + x_hi
+// y_hi, split where the fragments are loaded), as in knn_chunk_topk.
+// The tensor cores add into their fp32 accumulator without rounding to
+// nearest (an mma's sum is cut toward zero), so an accumulator carried
+// through every step of a deep product drifts toward zero by about half
+// an ulp of itself a step: at d 384 on points ~80 from the origin that
+// raised kmeans' sse by 2.4e-5 relative.  Each 8-deep step therefore
+// gathers its three products in a fresh accumulator, whose ulps are those
+// of 8 terms, and adds it to the running one with an fp32 add.
 
-// One depth slice of each operand, transposed (stride 65: the stores of
-// a slice meet at most two lanes per bank), and the rows' squared norms.
-struct DotTileSmem {
-  float a[kDotDepth][kDotRows + 1];
-  float b[kDotDepth][kDotRows + 1];
-  float asq[kDotRows];
-  float bsq[kDotRows];
-};
+constexpr int kSliceDepth = 32;            // depth of one shared slice: 4 TF32 k-steps
+constexpr int kSliceLD = kSliceDepth + 4;  // its row stride in floats: 8 ldmatrix rows
+                                           // (144 bytes apart) meet distinct banks
 
-// The 64 x 64 dot products a_r . b_c of rows A[0..a_rows) and B[0..b_rows)
-// (row-major, d floats each) over any depth d, by fp32 FMAs in depth
-// order; shared memory holds one 16-deep slice of each, whatever d is.
-// Thread t of the 256 owns rows t / 16 + 16 i and columns t % 16 + 16 j
-// (i, j < 4) in acc; rows past a_rows / b_rows read as zero.  On return
-// s.asq[r] = |a_r|^2 and s.bsq[c] = |b_c|^2 (fmaf in depth order), visible
-// to every thread.  Every thread of the block must call it.
-__device__ inline void dot_tile(const float* __restrict__ A, int a_rows,
-                                const float* __restrict__ B, int b_rows, int d,
-                                DotTileSmem& s, float (&acc)[4][4]) {
-  const int t = threadIdx.x;
-  const int tr = t >> 4, tc = t & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float sq = 0.f;  // |a_t|^2 (t < 64) or |b_{t-64}|^2 (t < 128)
-  for (int j0 = 0; j0 < d; j0 += kDotDepth) {
-    __syncthreads();  // the previous slice (or the caller's reads of asq/bsq) is done
-#pragma unroll
-    for (int q = 0; q < kDotRows * kDotDepth / kDotThreads; ++q) {
-      const int e = t + kDotThreads * q;
-      const int r = e >> 4, jj = e & 15;
-      const bool in_d = j0 + jj < d;
-      s.a[jj][r] = r < a_rows && in_d ? A[static_cast<long>(r) * d + j0 + jj] : 0.f;
-      s.b[jj][r] = r < b_rows && in_d ? B[static_cast<long>(r) * d + j0 + jj] : 0.f;
+// Queue rows [0, cap) x depth [j0, j0 + 32) of a row-major (rows, d) fp32
+// matrix into a shared slice of row stride kSliceLD; rows past `rows` and
+// depth past d read as zero.  VEC floats go per copy (4, 2 or 1: d % VEC
+// == 0 and src 4 VEC bytes aligned); a thread's copies share one column,
+// so its addresses advance by a constant.  Every thread of the block
+// (THREADS of them) calls it with the same arguments.
+template <int THREADS, int VEC>
+__device__ __forceinline__ void issue_slice_vec(float* dst, int cap, const float* __restrict__ src,
+                                                int rows, int d, int j0) {
+  constexpr int kPer = kSliceDepth / VEC;  // copies per row
+  constexpr int kStep = THREADS / kPer;    // rows per pass of the block
+  const int r0 = static_cast<int>(threadIdx.x) / kPer;
+  const int c = (static_cast<int>(threadIdx.x) % kPer) * VEC;
+  const bool in_d = j0 + c < d;
+  const float* p = src + static_cast<long>(r0) * d + j0 + c;
+  uint32_t a = smem_addr(dst) + (r0 * kSliceLD + c) * 4;
+  for (int r = r0; r < cap; r += kStep) {
+    const bool ok = in_d && r < rows;
+    if (VEC == 4) {
+      cp_async16(a, ok ? p : src, ok);
+    } else if (VEC == 2) {
+      cp_async8(a, ok ? p : src, ok);
+    } else {
+      cp_async4(a, ok ? p : src, ok);
     }
-    __syncthreads();
-    if (t < 2 * kDotRows) {
-      const float* col = t < kDotRows ? &s.a[0][t] : &s.b[0][t - kDotRows];
+    p += static_cast<long>(kStep) * d;
+    a += kStep * kSliceLD * 4;
+  }
+}
+template <int THREADS>
+__device__ __forceinline__ void issue_slice(float* dst, int cap, const float* __restrict__ src,
+                                            int rows, int d, int j0, int vec) {
+  if (vec == 4) {
+    issue_slice_vec<THREADS, 4>(dst, cap, src, rows, d, j0);
+  } else if (vec == 2) {
+    issue_slice_vec<THREADS, 2>(dst, cap, src, rows, d, j0);
+  } else {
+    issue_slice_vec<THREADS, 1>(dst, cap, src, rows, d, j0);
+  }
+}
+
+// This lane's ldmatrix row address into a slice: for A, rows row0 .. row0
+// + 15 (lane l feeds row row0 + (l & 7) + 8 ((l >> 3) & 1) at column 4 (l
+// >> 4), giving a0..a3 of the m16 x k8 fragment); for B, the rows of n8
+// tiles 0 and 1 (lane l feeds row (l & 7) + 8 (l >> 4) at column 4 ((l >>
+// 3) & 1), giving b0, b1 of tile 0, then of tile 1).
+__device__ __forceinline__ uint32_t slice_a_addr(const float* slice, int row0) {
+  const int l = threadIdx.x & 31;
+  return smem_addr(slice + (row0 + (l & 7) + 8 * ((l >> 3) & 1)) * kSliceLD + 4 * (l >> 4));
+}
+__device__ __forceinline__ uint32_t slice_b_addr(const float* slice) {
+  const int l = threadIdx.x & 31;
+  return smem_addr(slice + ((l & 7) + 8 * (l >> 4)) * kSliceLD + 4 * ((l >> 3) & 1));
+}
+
+// acc[j] += A . B_j^T over the first `ksteps` 8-deep steps of one slice:
+// A the 16 rows at a_addr, B_j the 8 rows of n8 tile j at b_addr, j <
+// nt_active (even; the tiles past it are not touched).  3xTF32 per tile,
+// in the order x_lo y_hi, x_hi y_lo, x_hi y_hi, into a fresh accumulator
+// per step that an fp32 add carries into acc (see above).  Element e of acc[j] is
+// row g + 8 (e >> 1), column 8 j + 2 t4 + (e & 1) (g = lane / 4, t4 =
+// lane % 4).  With SQ, sq[0] and sq[1] gather the squares of the A values
+// this lane loads for rows g and g + 8 (a quad's four lanes hold a row).
+template <int NT, bool SQ>
+__device__ __forceinline__ void mma_slice_3xtf32(float (&acc)[NT][4], uint32_t a_addr,
+                                                 uint32_t b_addr, int ksteps, int nt_active,
+                                                 float (&sq)[2]) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t raw[4], ah[4], al[4];
+    ldsm_x4(raw, a_addr + 32 * ks);
 #pragma unroll
-      for (int jj = 0; jj < kDotDepth; ++jj) {
-        const float v = col[jj * (kDotRows + 1)];
-        sq = fmaf(v, v, sq);
+    for (int e = 0; e < 4; ++e) {
+      const float v = __uint_as_float(raw[e]);
+      if (SQ) sq[e & 1] = fmaf(v, v, sq[e & 1]);
+      split_tf32(v, ah[e], al[e]);
+    }
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      if (2 * jp < nt_active) {
+        uint32_t rb[4], bh[4], bl[4];
+        ldsm_x4(rb, b_addr + jp * 16 * kSliceLD * 4 + 32 * ks);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(rb[e]), bh[e], bl[e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float step[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(step, al, bh[2 * h], bh[2 * h + 1]);
+          mma_tf32(step, ah, bl[2 * h], bl[2 * h + 1]);
+          mma_tf32(step, ah, bh[2 * h], bh[2 * h + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[2 * jp + h][e] += step[e];
+        }
       }
     }
-#pragma unroll
-    for (int jj = 0; jj < kDotDepth; ++jj) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = s.a[jj][tr + 16 * i];
-        b[i] = s.b[jj][tc + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
   }
-  __syncthreads();  // every read of the last slice and of the old norms is done
-  if (t < kDotRows) {
-    s.asq[t] = sq;
-  } else if (t < 2 * kDotRows) {
-    s.bsq[t - kDotRows] = sq;
-  }
-  __syncthreads();
 }
 
 }  // namespace repro

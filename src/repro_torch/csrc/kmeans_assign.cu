@@ -62,23 +62,24 @@
 // The wide route (kmeans_wide_launch) takes every other k and d; the
 // wrapper picks the route by shape before launch (kmeans_assign.route)
 // and neither hands work to the other.  Both give the same function:
-//  * kernel 1 (kmeans_wide_assign): a block owns 64 points and walks the
-//    centroids in tiles of 64, each tile's scores x.c formed by fp32 FMAs
-//    in depth order over 16-deep slices of points and centroids staged
-//    in shared memory (repro::dot_tile: 8.8 KB whatever k and d are).  A
-//    thread keeps the first strict maximum of x.c - |c|^2/2 over its 4
-//    clusters in order, its 16 lanes merge by shuffles (lower index on
-//    ties), and a later tile replaces the running best only when strictly
-//    greater.  It writes each point's cluster and |x|^2 - 2 best.
-//  * kernel 2 (kmeans_wide_sums): the points are cut into S contiguous
-//    splits; thread (split, dim) adds its split's points in order into
-//    its own (cluster, dim) partials, and one thread per split counts (in
-//    integers) and adds the sse terms in order.  No atomics.
-//  * kmeans_reduce_blocks merges the S partials as above (split order per
-//    lane, then a fixed shuffle tree), so two launches are bitwise equal.
-// Scratch: 8 bytes per point, and S x (k*d + k + 1) partials with S chosen
-// from k*d so that they stay within 2^22 floats (16 MiB); where k*d + k + 1
-// alone exceeds that, S = 1, one partial the size of the outputs.
+//  * persistent blocks of 8 warps walk tiles of 128 points; the scores
+//    are 3xTF32 on the tensor cores over centroid tiles of 16 (k 65 pads
+//    to 80), in passes of up to 128 centroids, both operands streamed in
+//    32-deep slices through a ring of three shared stages (repro::
+//    issue_slice / mma_slice_3xtf32), fp32 accumulators in registers
+//    across the depth: shared memory does not grow with d.  The running
+//    argmax keeps the first strict maximum, lower index on ties, as above.
+//  * the sums: each tile's points sorted stably by cluster and each
+//    cluster's segment added in point order by one thread per (cluster,
+//    dim), on the CUDA cores: the tile's d adds per point and no one-hot
+//    products, whatever k is.  The partials are those of the in-order
+//    sums, bit for bit; counts are segment lengths, in integers.
+//  * per-block partials (in shared memory where k x d fits beside the
+//    ring, else in global scratch) reduced in block order by
+//    kmeans_reduce_blocks, as above.
+// Scratch: |c|^2/2 (k floats) and blocks x (k*d + k + 1) partials, the
+// blocks chosen so that the partials stay within 2^22 floats (16 MiB)
+// unless one alone is larger.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -442,95 +443,338 @@ __global__ void kmeans_reduce_blocks(const float* __restrict__ part_sums,
 
 // ----------------------------------------------------------- wide route
 
-// Kernel 1: 64 points per block against every centroid, 64 at a time.
-__global__ void __launch_bounds__(repro::kDotThreads)
-kmeans_wide_assign(const float* __restrict__ x, const float* __restrict__ c, int n, int k,
-                   int d, int* __restrict__ asg, float* __restrict__ err) {
-  __shared__ repro::DotTileSmem s;
-  __shared__ float xsq[repro::kDotRows];
-  const int t = threadIdx.x;
-  const int tr = t >> 4, tc = t & 15;
-  const long p0 = static_cast<long>(blockIdx.x) * repro::kDotRows;
-  const int rows = static_cast<int>(min(static_cast<long>(repro::kDotRows), n - p0));
-  float best[4];
-  int arg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    best[i] = -CUDART_INF_F;
-    arg[i] = 0;
-  }
-  for (int c0 = 0; c0 < k; c0 += repro::kDotRows) {
-    float acc[4][4];
-    repro::dot_tile(x + p0 * d, rows, c + static_cast<long>(c0) * d,
-                    min(repro::kDotRows, k - c0), d, s, acc);
-    if (c0 == 0 && t < repro::kDotRows) xsq[t] = s.asq[t];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // the thread's clusters in order, then its 16 lanes, lower index on ties
-      float lb = -CUDART_INF_F;
-      int la = 0x7fffffff;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = c0 + tc + 16 * j;
-        const float v = acc[i][j] - 0.5f * s.bsq[tc + 16 * j];
-        if (cl < k && v > lb) {
-          lb = v;
-          la = cl;
-        }
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, lb, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, la, off);
-        if (ob > lb || (ob == lb && oa < la)) {
-          lb = ob;
-          la = oa;
-        }
-      }
-      if (lb > best[i]) {  // strict: the earlier tile keeps a tie
-        best[i] = lb;
-        arg[i] = la;
-      }
-    }
-  }
-  __syncthreads();  // xsq is complete
-  if (tc == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tr + 16 * i;
-      if (r < rows) {
-        asg[p0 + r] = arg[i];
-        err[p0 + r] = xsq[r] - 2.f * best[i];
-      }
-    }
-  }
+constexpr int kWidePoints = 16 * kWarps;  // points per tile, 16 per warp
+constexpr int kWideStages = 3;            // slices in the ring
+
+// |c|^2 / 2 of every centroid, fmaf in column order as kmeans_tc_partials.
+__global__ void half_sqnorms(const float* __restrict__ c, int k, int d, float* __restrict__ hc) {
+  const int cl = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cl >= k) return;
+  const float* row = c + static_cast<long>(cl) * d;
+  float s = 0.f;
+  for (int j = 0; j < d; ++j) s = fmaf(row[j], row[j], s);
+  hc[cl] = 0.5f * s;
 }
 
-// Kernel 2: thread (split, dim j) adds the split's points in order into
-// the split's (cluster, j) partials; thread 0 of column block 0 counts and
-// adds the split's sse terms in order.
-__global__ void kmeans_wide_sums(const float* __restrict__ x, const int* __restrict__ asg,
-                                 const float* __restrict__ err, int n, int k, int d, int chunk,
-                                 float* __restrict__ part_sums, int* __restrict__ part_counts,
-                                 float* __restrict__ part_sse) {
-  const int split = blockIdx.x;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  const long p_begin = static_cast<long>(split) * chunk;
-  const long p_end = min(static_cast<long>(n), p_begin + chunk);
-  if (j < d) {
-    float* ps = part_sums + static_cast<long>(split) * k * d + j;
-    for (int cl = 0; cl < k; ++cl) ps[static_cast<long>(cl) * d] = 0.f;
-    for (long p = p_begin; p < p_end; ++p) ps[static_cast<long>(asg[p]) * d] += x[p * d + j];
-  }
-  if (blockIdx.y == 0 && threadIdx.x == 0) {
-    int* pc = part_counts + static_cast<long>(split) * k;
-    for (int cl = 0; cl < k; ++cl) pc[cl] = 0;
-    float e = 0.f;
-    for (long p = p_begin; p < p_end; ++p) {
-      pc[asg[p]] += 1;
-      e += err[p];
+// How many of a[0..len) (ascending) are smaller than key.
+__device__ __forceinline__ int count_below(const unsigned long long* a, int len,
+                                           unsigned long long key) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
-    part_sse[split] = e;
+  }
+  return lo;
+}
+
+// The wide route's persistent block: tiles blockIdx.x, blockIdx.x + grid,
+// ... of 128 points (16 per warp).  Each tile takes passes x slices steps
+// of assignment, then (d > 64) `slices` steps of sums, all through one
+// ring of three shared stages filled by cp.async.
+//  * Assignment: the tile's points times the centroids in passes of 8 NT
+//    (k rounded up to 16, at most 128: k 65 takes 80 columns, not 128),
+//    each pass over the whole depth in 32-deep slices of both operands,
+//    3xTF32 on the tensor cores (repro::mma_slice_3xtf32); a last, short
+//    pass multiplies only its 16-centroid tiles that hold a centroid.
+//    Up to 96 centroids a pass, two blocks share an SM; past that the
+//    accumulators take one SM's registers for one block.  The pass's |c|^2/2 ride in the stage of its last
+//    slice.  A lane keeps the first strict maximum of x.c - |c|^2/2 over
+//    its clusters in order, its quad merges by shuffles (lower index on
+//    ties), and a later pass replaces the running best only when strictly
+//    greater.  |x|^2 comes from the first pass's fragments.
+//  * Then the tile's points are sorted by cluster, stably (key cluster <<
+//    7 | point: four warps sort 32 keys each, then each key's place is its
+//    index plus the keys below it in the other three runs); counts add
+//    each cluster's segment length, in integers.
+//  * Sums: for each of the tile's slices one thread per (cluster, dim)
+//    adds the cluster's segment in point order into the block's partial,
+//    reading the points from shared memory: the partial sees the adds
+//    the in-order sums make, bit for bit, and no one-hot product is
+//    formed whatever k is.  Where the tile's slices all fit the ring (d
+//    <= 64) they are read there after the last assignment step, the
+//    next slice's copy waiting for them; else they stream in once more.
+//  * Partials (k x d sums, k counts) in shared memory where they fit
+//    (shared_partials), else the block's slice of global scratch.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 12 ? 2 : 1)
+kmeans_wide_partials(const float* __restrict__ x, const float* __restrict__ c,
+                     const float* __restrict__ hc, int n, int k, int d, int vec,
+                     int shared_partials, float* __restrict__ part_sums,
+                     int* __restrict__ part_counts, float* __restrict__ part_sse) {
+  constexpr int PW = 8 * NT;  // centroids per pass: k rounded up to 16, at most 128
+  constexpr int TP = kWidePoints;
+  constexpr int LD = repro::kSliceLD;
+  constexpr int nb = PW;      // centroid rows staged per pass
+  // a stage: a slice of the points, one of the pass's centroids, and the
+  // pass's |c|^2/2 (written with its last slice)
+  const int stage_floats = (TP + nb) * LD + nb;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(ring + kWideStages * stage_floats);
+  int* asg = reinterpret_cast<int*>(keys + TP);  // TP: cluster, k past the points
+  int* seg = asg + TP;                           // TP + 1: segment starts, then the end
+  int* wseg = seg + TP + 4;                      // 4: heads per sorting warp
+  float* red = reinterpret_cast<float*>(wseg + 4);   // kWarps: sse per warp
+  const long kd = static_cast<long>(k) * d;
+  float* S = shared_partials ? red + kWarps : part_sums + blockIdx.x * kd;
+  int* C = shared_partials ? reinterpret_cast<int*>(red + kWarps + kd)
+                           : part_counts + static_cast<long>(blockIdx.x) * k;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  for (long i = tid; i < kd; i += kThreads) S[i] = 0.f;
+  for (int i = tid; i < k; i += kThreads) C[i] = 0;
+
+  const int slices = (d + repro::kSliceDepth - 1) / repro::kSliceDepth;
+  const int passes = (k + PW - 1) / PW;
+  const int assign_steps = passes * slices;
+  // where a tile's slices all fit the ring (d <= 64), the sums read them
+  // there after the last assignment step; else they stream in once more
+  const bool in_ring = slices < kWideStages;
+  const int per_tile = assign_steps + (in_ring ? 0 : slices);
+  const int n_tiles = (n + TP - 1) / TP;
+  const int my_tiles = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int steps = my_tiles * per_tile;
+  auto issue = [&](int s) {
+    const int it = s / per_tile, r = s - it * per_tile;
+    const long p0 = static_cast<long>(blockIdx.x + it * gridDim.x) * TP;
+    float* st = ring + (s % kWideStages) * stage_floats;
+    const int pts = static_cast<int>(min(static_cast<long>(TP), n - p0));
+    if (r >= assign_steps) {   // a slice of the tile again, for the sums
+      repro::issue_slice<kThreads>(st, TP, x + p0 * d, pts, d,
+                                   (r - assign_steps) * repro::kSliceDepth, vec);
+      return;
+    }
+    const int pass = r / slices, q = r - pass * slices;
+    const int j0 = q * repro::kSliceDepth;
+    repro::issue_slice<kThreads>(st, TP, x + p0 * d, pts, d, j0, vec);
+    const int c0 = pass * PW;
+    const int pc = min(PW, k - c0);
+    repro::issue_slice<kThreads>(st + TP * LD, nb, c + static_cast<long>(c0) * d, pc, d, j0, vec);
+    if (q == slices - 1 && tid < nb) {
+      cp_async4(smem_addr(st + (TP + nb) * LD + tid), hc + (tid < pc ? c0 + tid : 0), tid < pc);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kWideStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+
+  const uint32_t a_off = repro::slice_a_addr(ring, 16 * warp) - smem_addr(ring);
+  const uint32_t b_off = repro::slice_b_addr(ring + TP * LD) - smem_addr(ring);
+  const int r_lo = 16 * warp + g, r_hi = r_lo + 8;   // this lane's points in the tile
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float sq[2] = {0.f, 0.f};
+  float best_lo = -CUDART_INF_F, best_hi = -CUDART_INF_F;
+  int arg_lo = 0, arg_hi = 0;
+  float sse = 0.f;   // this warp's (every lane holds it)
+  int ns = 0;        // the tile's segments
+
+  // the sums of slice q's dims, xs a stage holding the tile's slice q:
+  // each cluster's segment in point order, its values loaded 8 at a
+  // time, then added in order
+  auto add_slice = [&](const float* xs, int q) {
+    const int j0 = q * repro::kSliceDepth;
+    for (int item = tid; item < ns * 32; item += kThreads) {
+      const int si = item >> 5, jj = item & 31;
+      if (j0 + jj >= d) continue;
+      const int s0 = seg[si], s1 = seg[si + 1];
+      const long at = static_cast<long>(keys[s0] >> 7) * d + j0 + jj;
+      float a = S[at];
+      for (int i0 = s0; i0 < s1; i0 += 8) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          v[u] = i0 + u < s1 ? xs[static_cast<int>(keys[i0 + u] & 127) * LD + jj] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (i0 + u < s1) a += v[u];
+        }
+      }
+      S[at] = a;
+    }
+  };
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kWideStages - 2>();
+    __syncthreads();  // slice s landed; every warp is done with slice s - 1
+    const int it = s / per_tile, r = s - it * per_tile;
+    // a tile's last assignment step keeps its slices in the ring for the
+    // sums: the next issue waits for them
+    const bool keep = in_ring && r == assign_steps - 1;
+    if (!keep) {
+      if (s + kWideStages - 1 < steps) issue(s + kWideStages - 1);
+      cp_async_commit();
+    }
+    const float* stf = ring + (s % kWideStages) * stage_floats;
+
+    if (r >= assign_steps) {
+      add_slice(stf, r - assign_steps);
+      continue;
+    }
+
+    const int pass = r / slices, q = r - pass * slices;
+    const uint32_t st = smem_addr(stf);
+    const int ksteps = min(4, (d - q * repro::kSliceDepth + 7) / 8);
+    const int c0 = pass * PW;
+    const int nt_active = (min(PW, k - c0) + 15) / 16 * 2;
+    if (pass == 0) {
+      repro::mma_slice_3xtf32<NT, true>(acc, st + a_off, st + b_off, ksteps, nt_active, sq);
+    } else {
+      repro::mma_slice_3xtf32<NT, false>(acc, st + a_off, st + b_off, ksteps, nt_active, sq);
+    }
+    if (q != slices - 1) continue;
+
+    // the first strict maximum of the pass: a lane's clusters in order,
+    // then its quad, lower index on ties; then the running one
+    const float* hs = stf + (TP + nb) * LD;   // the pass's |c|^2 / 2
+    float lb_lo = -CUDART_INF_F, lb_hi = -CUDART_INF_F;
+    int la_lo = 0x7fffffff, la_hi = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = 8 * j + 2 * t4 + e;
+        if (c0 + cc < k) {
+          const float h = hs[cc];
+          const float v_lo = acc[j][e] - h, v_hi = acc[j][2 + e] - h;
+          if (v_lo > lb_lo) {
+            lb_lo = v_lo;
+            la_lo = c0 + cc;
+          }
+          if (v_hi > lb_hi) {
+            lb_hi = v_hi;
+            la_hi = c0 + cc;
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float ob_lo = __shfl_xor_sync(0xffffffffu, lb_lo, off);
+      const int oa_lo = __shfl_xor_sync(0xffffffffu, la_lo, off);
+      const float ob_hi = __shfl_xor_sync(0xffffffffu, lb_hi, off);
+      const int oa_hi = __shfl_xor_sync(0xffffffffu, la_hi, off);
+      if (ob_lo > lb_lo || (ob_lo == lb_lo && oa_lo < la_lo)) {
+        lb_lo = ob_lo;
+        la_lo = oa_lo;
+      }
+      if (ob_hi > lb_hi || (ob_hi == lb_hi && oa_hi < la_hi)) {
+        lb_hi = ob_hi;
+        la_hi = oa_hi;
+      }
+    }
+    if (lb_lo > best_lo) {  // strict: the earlier pass keeps a tie
+      best_lo = lb_lo;
+      arg_lo = la_lo;
+    }
+    if (lb_hi > best_hi) {
+      best_hi = lb_hi;
+      arg_hi = la_hi;
+    }
+    if (pass != passes - 1) continue;
+
+    // ---- the tile is assigned: its sse terms, then the sort by cluster
+    const long p0 = static_cast<long>(blockIdx.x + it * gridDim.x) * TP;
+    const int pts = static_cast<int>(min(static_cast<long>(TP), n - p0));
+    float q_lo = sq[0] + __shfl_xor_sync(0xffffffffu, sq[0], 1);
+    q_lo += __shfl_xor_sync(0xffffffffu, q_lo, 2);
+    float q_hi = sq[1] + __shfl_xor_sync(0xffffffffu, sq[1], 1);
+    q_hi += __shfl_xor_sync(0xffffffffu, q_hi, 2);
+    float e = 0.f;
+    if (t4 == 0) {
+      asg[r_lo] = r_lo < pts ? arg_lo : k;
+      asg[r_hi] = r_hi < pts ? arg_hi : k;
+      if (r_lo < pts) e += q_lo - 2.f * best_lo;
+      if (r_hi < pts) e += q_hi - 2.f * best_hi;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
+    sse += e;
+    sq[0] = sq[1] = 0.f;
+    best_lo = best_hi = -CUDART_INF_F;
+    arg_lo = arg_hi = 0;
+    __syncthreads();  // asg is complete; the last tile's sums are done
+
+    // stable sort by cluster: four runs of 32 keys, bitonic across lanes
+    unsigned long long key = 0;
+    if (tid < TP) {
+      key = static_cast<unsigned long long>(asg[tid]) << 7 | static_cast<unsigned>(tid);
+#pragma unroll
+      for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, stride);
+          const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+          key = keep_min ? (key < other ? key : other) : (key < other ? other : key);
+        }
+      }
+      keys[tid] = key;
+    }
+    __syncthreads();
+    int place = lane;
+    if (tid < TP) {
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        if (o != warp) place += count_below(keys + 32 * o, 32, key);
+    }
+    __syncthreads();  // every run is read
+    if (tid < TP) keys[place] = key;
+    __syncthreads();
+    // segment heads: the first key of each cluster
+    bool head = false;
+    unsigned heads = 0;
+    if (tid < TP) {
+      const int cl = static_cast<int>(keys[tid] >> 7);
+      head = cl < k && (tid == 0 || static_cast<int>(keys[tid - 1] >> 7) != cl);
+      heads = __ballot_sync(0xffffffffu, head);
+      if (lane == 0) wseg[warp] = __popc(heads);
+    }
+    __syncthreads();
+    if (tid < TP) {
+      int at = __popc(heads & ((1u << lane) - 1));
+      for (int o = 0; o < warp; ++o) at += wseg[o];
+      if (head) seg[at] = tid;
+      if (tid == 0) seg[wseg[0] + wseg[1] + wseg[2] + wseg[3]] = pts;
+    }
+    __syncthreads();
+    ns = wseg[0] + wseg[1] + wseg[2] + wseg[3];
+    for (int i = tid; i < ns; i += kThreads) {
+      C[keys[seg[i]] >> 7] += seg[i + 1] - seg[i];
+    }
+    if (keep) {
+      for (int q2 = 0; q2 < slices; ++q2) {
+        add_slice(ring + ((s - slices + 1 + q2) % kWideStages) * stage_floats, q2);
+      }
+      __syncthreads();  // the slices are read before the ring refills
+      if (s + kWideStages - 1 < steps) issue(s + kWideStages - 1);
+      cp_async_commit();
+    }
+  }
+
+  __syncthreads();
+  if (shared_partials) {
+    for (long i = tid; i < kd; i += kThreads) part_sums[blockIdx.x * kd + i] = S[i];
+    for (int i = tid; i < k; i += kThreads) part_counts[static_cast<long>(blockIdx.x) * k + i] = C[i];
+  }
+  if (lane == 0) red[warp] = sse;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += red[w];
+    part_sse[blockIdx.x] = t;
   }
 }
 
@@ -590,29 +834,43 @@ extern "C" int kmeans_assign_launch(const float* x, const float* c, int n, int k
   return cudaGetLastError();
 }
 
-// The wide route: any k >= 1 and d >= 1.  asg / err hold n ints / floats
-// of scratch, part_* splits x (k*d, k, 1); each split is `chunk`
-// contiguous points (the last may be short).  Returns a cudaError_t.
-extern "C" int kmeans_wide_launch(const float* x, const float* c, int n, int k, int d,
-                                  int splits, int chunk, int* asg, float* err, float* part_sums,
-                                  int* part_counts, float* part_sse, float* sums, int* counts,
-                                  float* sse, void* stream) {
+// The wide route: any k >= 1 and d >= 1.  `blocks` persistent blocks of
+// tiles of 128 points; `vec` floats per copy (4, 2 or 1; d % vec == 0, x
+// and c 4 vec bytes aligned); shared_partials: the partials live in the
+// block's shared memory (smem bytes in all).  Scratch: hc k floats, part_*
+// blocks x (k*d, k, 1).  Returns a cudaError_t.
+extern "C" int kmeans_wide_launch(const float* x, const float* c, int n, int k, int d, int vec,
+                                  int blocks, int shared_partials, int smem, float* hc,
+                                  float* part_sums, int* part_counts, float* part_sse,
+                                  float* sums, int* counts, float* sse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || k < 1 || d < 1 || splits < 1 || chunk < 1 ||
-      static_cast<long>(splits) * chunk < n) {
+  if (n < 1 || k < 1 || d < 1 || blocks < 1 || (vec != 1 && vec != 2 && vec != 4) ||
+      d % vec != 0 || static_cast<long>(blocks - 1) * kWidePoints >= n) {
     return cudaErrorInvalidValue;
   }
-  kmeans_wide_assign<<<(n + repro::kDotRows - 1) / repro::kDotRows, repro::kDotThreads, 0, s>>>(
-      x, c, n, k, d, asg, err);
-  cudaError_t err_ = cudaGetLastError();
-  if (err_ != cudaSuccess) return err_;
-  const int cols = d < 128 ? (d + 31) / 32 * 32 : 128;  // dims per block of kernel 2
-  kmeans_wide_sums<<<dim3(splits, (d + cols - 1) / cols), cols, 0, s>>>(
-      x, asg, err, n, k, d, chunk, part_sums, part_counts, part_sse);
-  err_ = cudaGetLastError();
-  if (err_ != cudaSuccess) return err_;
+  half_sqnorms<<<(k + 255) / 256, 256, 0, s>>>(c, k, d, hc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<blocks, kThreads, smem, s>>>(x, c, hc, n, k, d, vec, shared_partials, part_sums,
+                                          part_counts, part_sse);
+    return cudaGetLastError();
+  };
+  switch (k >= 128 ? 16 : (k + 15) / 16 * 2) {   // a pass's n8 tiles
+    case 2: err = run(kmeans_wide_partials<2>); break;
+    case 4: err = run(kmeans_wide_partials<4>); break;
+    case 6: err = run(kmeans_wide_partials<6>); break;
+    case 8: err = run(kmeans_wide_partials<8>); break;
+    case 10: err = run(kmeans_wide_partials<10>); break;
+    case 12: err = run(kmeans_wide_partials<12>); break;
+    case 14: err = run(kmeans_wide_partials<14>); break;
+    default: err = run(kmeans_wide_partials<16>); break;
+  }
+  if (err != cudaSuccess) return err;
   const long outputs = static_cast<long>(k) * d + k + 1;
   kmeans_reduce_blocks<<<static_cast<unsigned>((outputs + kWarps - 1) / kWarps), kThreads, 0, s>>>(
-      part_sums, part_counts, part_sse, splits, k, d, sums, counts, sse);
+      part_sums, part_counts, part_sse, blocks, k, d, sums, counts, sse);
   return cudaGetLastError();
 }

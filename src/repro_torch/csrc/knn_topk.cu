@@ -63,34 +63,42 @@
 //   small kernel merges the chunks in chunk order with the same strict
 //   insertion.  No atomics: the result is bitwise reproducible.
 // Limits of this route: k <= 32 (the register lists) and d <= 272 (the
-// block's shared memory grows with d).
+// block's shared memory grows with d).  The wrapper gives it d <= 64
+// only: past 64 the row stride grows from 68 to 76 floats, an SM holds one
+// block fewer, and the wide route is faster at every depth (PERF.md).
 //
 // The wide route (knn_wide_launch) takes every other k <= n and d; the
 // wrapper picks the route by shape before launch (knn_topk.route) and
-// neither hands work to the other.  Speed is not its goal: it exists so
-// that no k or d is refused.  Test rows go in groups of at most 8192 and
-// training rows in chunks of at most 4096, and per group and chunk:
-//  * knn_wide_dists writes the chunk's fp32 distances to global scratch,
-//    each 64 x 64 block of them from repro::dot_tile (fp32 FMAs in depth
-//    order over 16-deep shared slices: shared memory does not grow with
-//    d), dist = (|x|^2 - 2 x.y) + |y|^2 as above.
-//  * knn_wide_select, one block per test row, keeps the row's k best as
-//    64-bit keys, (order-preserving bits of the distance) << 32 | training
-//    index, sorted ascending in global memory.  Keys are unique and their
-//    order is the tie rule (equal distances: lower index first), so the k
-//    smallest keys are the answer whatever order they are found in.  The
-//    block gathers the chunk's keys below the row's k-th key into shared
-//    memory (32 KB), sorts them (bitonic), and merges them with the row's
-//    list: an element's place is its index in its own list plus the count
-//    of smaller keys in the other, found by binary search; places below k
-//    are written to the other of two lists.
-//  * knn_wide_finish decodes the final keys into distances and labels.
-// Scratch: groups x 4096 floats of distances (at most 128 MiB) and two
-// lists of m x k keys.  Integer-valued inputs give exact distances, so
+// neither hands work to the other.  It keeps the narrow route's fusion —
+// no distance matrix in device memory, one wave of resident blocks over
+// `splits` chunks of training rows, then a merge of the splits in split
+// order — and changes what grows with d and k:
+//  * depth: a block of 8 warps multiplies its 128 test rows by tiles of
+//    128 training rows in 3xTF32 on the tensor cores, both operands
+//    streamed in 32-deep slices through a ring of three shared stages
+//    (repro::issue_slice / mma_slice_3xtf32), fp32 accumulators in
+//    registers across the whole depth: shared memory does not grow with d.
+//  * k: each test row keeps its k best as sorted 64-bit keys, (order-
+//    preserving bits of the distance) << 32 | training index.  Keys are
+//    unique and their order is the tie rule (equal distances: lower index
+//    first), so the k smallest keys are the answer whatever order they
+//    are found in.  A row's k-th distance sits in a register as its
+//    threshold; a distance at or below it is appended to the row's buffer
+//    of 32 keys in shared memory, and buffers are merged into the lists
+//    by one lane per row (insert_keys), 16 rows side by side.  After the
+//    first tiles almost nothing passes the threshold, so merges are rare.
+//    The lists are in shared memory where k x 128 keys fit beside the
+//    ring (k <= 85), else in global scratch, which stays in L2.
+//  * knn_wide_merge merges the splits' lists per row (a warp per row) and
+//    decodes keys into distances and labels.
+// Scratch: |x|^2 and |y|^2 (m + n floats), splits x m x k keys, and 2 x m
+// x k keys for the merge.  Integer-valued inputs give exact distances, so
 // the result equals the plain version's bit for bit; two launches are
-// bitwise equal (no float atomics; the gather's order is undone by the sort).
+// bitwise equal (no float atomics; the buffers' order is undone by the
+// merges).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 
@@ -353,7 +361,13 @@ __global__ void knn_merge_chunks(const float* __restrict__ part_d,
 
 // ----------------------------------------------------------- wide route
 
-constexpr int kSelCap = 4096;  // keys a select block holds: the largest chunk
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideRows = 16 * kWideWarps;  // test rows per block, 16 per warp
+constexpr int kWideTile = 128;              // training rows per tile (16 n8 tiles)
+constexpr int kWideStages = 3;              // slices in the ring
+constexpr int kBufKeys = 32;                // candidates buffered per test row
+constexpr unsigned long long kNone = ~0ull;  // an empty list entry: after every key
 
 // Float bits that order as the floats do (negative values reversed).
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
@@ -363,30 +377,8 @@ __device__ __forceinline__ uint32_t ordered_bits(float f) {
 __device__ __forceinline__ float from_ordered_bits(uint32_t u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
-
-// Distances of test rows [0, rows) to training rows [0, cols), row-major
-// with stride ld, 64 x 64 per block.
-__global__ void __launch_bounds__(repro::kDotThreads)
-knn_wide_dists(const float* __restrict__ test, int rows, const float* __restrict__ train,
-               int cols, int d, float* __restrict__ dist, int ld) {
-  __shared__ repro::DotTileSmem s;
-  const int r0 = blockIdx.x * repro::kDotRows, c0 = blockIdx.y * repro::kDotRows;
-  float acc[4][4];
-  repro::dot_tile(test + static_cast<long>(r0) * d, min(repro::kDotRows, rows - r0),
-                  train + static_cast<long>(c0) * d, min(repro::kDotRows, cols - c0), d, s, acc);
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + tr + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tc + 16 * j;
-      if (r < rows && c < cols) {
-        dist[static_cast<long>(r) * ld + c] =
-            fmaf(-2.f, acc[i][j], s.asq[tr + 16 * i]) + s.bsq[tc + 16 * j];
-      }
-    }
-  }
+__device__ __forceinline__ unsigned long long make_key(float dist, int index) {
+  return static_cast<unsigned long long>(ordered_bits(dist)) << 32 | static_cast<uint32_t>(index);
 }
 
 // How many of a[0..len) (ascending) are smaller than key.
@@ -404,72 +396,238 @@ __device__ __forceinline__ int count_below(const unsigned long long* a, int len,
   return lo;
 }
 
-// One block per test row: merge the chunk's distances (training rows n0 +
-// [0, cols)) into the row's k best keys, best_in -> best_out.  On the
-// first chunk best_in is not read (every entry counts as ~0).
-__global__ void __launch_bounds__(256)
-knn_wide_select(const float* __restrict__ dist, int ld, int cols, int n0, int k, int first,
-                const unsigned long long* __restrict__ best_in,
-                unsigned long long* __restrict__ best_out) {
-  __shared__ unsigned long long buf[kSelCap];
-  __shared__ int count;
-  const int t = threadIdx.x;
-  const float* dr = dist + static_cast<long>(blockIdx.x) * ld;
-  const unsigned long long* in = best_in + static_cast<long>(blockIdx.x) * k;
-  unsigned long long* out = best_out + static_cast<long>(blockIdx.x) * k;
-  const unsigned long long none = ~0ull;
-  const unsigned long long kth = first ? none : in[k - 1];
-  if (t == 0) count = 0;
-  __syncthreads();
-  for (int i = t; i < cols; i += blockDim.x) {
-    const unsigned long long key =
-        static_cast<unsigned long long>(ordered_bits(dr[i])) << 32 | static_cast<uint32_t>(n0 + i);
-    if (key < kth) buf[atomicAdd(&count, 1)] = key;
-  }
-  __syncthreads();
-  const int c = count;
-  if (c == 0) {  // nothing enters: the list carries over
-    for (int i = t; i < k; i += blockDim.x) out[i] = in[i];
-    return;
-  }
-  int len = 1;
-  while (len < c) len <<= 1;
-  for (int i = c + t; i < len; i += blockDim.x) buf[i] = none;
-  __syncthreads();
-  for (int size = 2; size <= len; size <<= 1) {      // bitonic sort, ascending
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = t; i < len / 2; i += blockDim.x) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = buf[lo], b = buf[hi];
-        if ((a > b) == ((lo & size) == 0)) {
-          buf[lo] = b;
-          buf[hi] = a;
-        }
-      }
-      __syncthreads();
+// The row's threshold: the distance of its k-th key, +inf while the list
+// has fewer than k keys.
+__device__ __forceinline__ float list_threshold(const unsigned long long* list, int k) {
+  const unsigned long long kth = list[k - 1];
+  return kth == kNone ? CUDART_INF_F : from_ordered_bits(static_cast<uint32_t>(kth >> 32));
+}
+
+// One lane merges c buffered keys of its row into the row's ascending
+// list of k keys, keeping the k smallest: a key below the k-th goes to
+// its place (binary search), the entries above it move up one and the
+// last falls off.  Keys are unique (the training index is in them) and
+// their order is the tie rule, so the list does not depend on the order
+// the keys were buffered in.  The lanes of a warp merge their rows side
+// by side.
+__device__ __forceinline__ void insert_keys(const unsigned long long* buf, int c,
+                                            unsigned long long* list, int k) {
+  unsigned long long kth = list[k - 1];
+  for (int i = 0; i < c; ++i) {
+    const unsigned long long key = buf[i];
+    if (key >= kth) continue;
+    const int at = count_below(list, k - 1, key);
+    int j = k - 1;
+    for (; j - 4 >= at; j -= 4) {   // four moves per trip: their loads go together
+      const unsigned long long a = list[j - 1], b = list[j - 2], c2 = list[j - 3],
+                               d = list[j - 4];
+      list[j] = a;
+      list[j - 1] = b;
+      list[j - 2] = c2;
+      list[j - 3] = d;
     }
-  }
-  for (int i = t; i < k; i += blockDim.x) {
-    const unsigned long long a = first ? none : in[i];
-    const int at = i + count_below(buf, c, a);
-    if (at < k) out[at] = a;
-  }
-  for (int j = t; j < c; j += blockDim.x) {
-    const unsigned long long b = buf[j];
-    const int at = j + (first ? 0 : count_below(in, k, b));
-    if (at < k) out[at] = b;
+    for (; j > at; --j) list[j] = list[j - 1];
+    list[at] = key;
+    kth = list[k - 1];
   }
 }
 
-__global__ void knn_wide_finish(const unsigned long long* __restrict__ best, long total,
-                                const int* __restrict__ labels, float* __restrict__ out_d,
-                                int* __restrict__ out_l) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const unsigned long long key = best[i];
-  out_d[i] = from_ordered_bits(static_cast<uint32_t>(key >> 32));
-  out_l[i] = labels[static_cast<uint32_t>(key)];
+// The wide route's block: test rows row0 .. row0 + 127 against training
+// rows [n0, n1) of split blockIdx.y, in tiles of 128.  Each tile's 128 x
+// 128 cross terms come from the depth-streamed 3xTF32 product
+// (repro::mma_slice_3xtf32; warp w owns test rows 16 w .. 16 w + 15 and
+// all 128 columns, in registers); the tile's |y|^2 ride in the stage of
+// its last slice.  A lane then forms the distances of its 64 entries,
+// (|x|^2 - 2 x.y) + |y|^2 as knn_chunk_topk does, and tests each against
+// its row's threshold (the distance of the row's k-th key, in a register;
+// <= lets through every key that may enter).  The keys that pass are
+// appended to the row's buffer (kBufKeys slots in shared memory; a quad's
+// lanes find their slots by ballots, so nothing is atomic).  When a row's
+// buffer may overflow on the next n8 tile, or the chunk ends, lanes 0-15
+// of the warp merge its 16 rows' buffers into their lists (insert_keys)
+// and the thresholds are reloaded; before each new tile every warp does
+// so at once where a row of the block holds over half a buffer.  Lists:
+// k keys per row, in shared memory where the wrapper finds room
+// (lists_shared), else in `part`, global scratch that stays in L2.  At
+// the end each row's list goes to part[split].
+__global__ void __launch_bounds__(kWideThreads, 1)
+knn_wide_topk(const float* __restrict__ test, const float* __restrict__ train,
+              const float* __restrict__ test_sq, const float* __restrict__ train_sq, int m,
+              int n, int d, int k, int chunk, int vec, int lists_shared,
+              unsigned long long* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  // a stage: a slice of the test rows, one of the training tile, and the
+  // tile's |y|^2 (written with its last slice)
+  constexpr int stage_floats = (kWideRows + kWideTile) * repro::kSliceLD + kWideTile;
+  float* ring = reinterpret_cast<float*>(smem4);
+  unsigned long long* bufs = reinterpret_cast<unsigned long long*>(ring + kWideStages * stage_floats);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.x * kWideRows;
+  const int rows = min(kWideRows, m - row0);
+  const int n0 = blockIdx.y * chunk;
+  const int n1 = min(n, n0 + chunk);
+  unsigned long long* out = part + (static_cast<long>(blockIdx.y) * m + row0) * k;
+  unsigned long long* lists = lists_shared ? bufs + kWideRows * kBufKeys : out;
+  for (int i = tid; i < rows * k; i += kWideThreads) lists[i] = kNone;
+  __syncthreads();
+
+  const int slices = (d + repro::kSliceDepth - 1) / repro::kSliceDepth;
+  const int tiles = (n1 - n0 + kWideTile - 1) / kWideTile;
+  const int steps = tiles * slices;
+  auto issue = [&](int s) {
+    const int t = s / slices, q = s - t * slices;
+    float* st = ring + (s % kWideStages) * stage_floats;
+    const int j0 = q * repro::kSliceDepth;
+    repro::issue_slice<kWideThreads>(st, kWideRows, test + static_cast<long>(row0) * d, rows, d,
+                                     j0, vec);
+    const int c0 = n0 + t * kWideTile;
+    const int cols = min(kWideTile, n1 - c0);
+    repro::issue_slice<kWideThreads>(st + kWideRows * repro::kSliceLD, kWideTile,
+                                     train + static_cast<long>(c0) * d, cols, d, j0, vec);
+    float* yt = st + (kWideRows + kWideTile) * repro::kSliceLD;
+    if (q == slices - 1 && tid < kWideTile) {
+      repro::cp_async4(repro::smem_addr(yt + tid), train_sq + (tid < cols ? c0 + tid : 0),
+                       tid < cols);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kWideStages - 1; ++s) {
+    if (s < steps) issue(s);
+    repro::cp_async_commit();
+  }
+
+  // this lane's rows: lo = 16 warp + g, hi = lo + 8 (block-local)
+  const int r_lo = 16 * warp + g, r_hi = r_lo + 8;
+  const bool ok_lo = r_lo < rows, ok_hi = r_hi < rows;
+  const float xsq_lo = ok_lo ? test_sq[row0 + r_lo] : 0.f;
+  const float xsq_hi = ok_hi ? test_sq[row0 + r_hi] : 0.f;
+  unsigned long long* buf_lo = bufs + r_lo * kBufKeys;
+  unsigned long long* buf_hi = bufs + r_hi * kBufKeys;
+  float thr_lo = CUDART_INF_F, thr_hi = CUDART_INF_F;
+  int cnt_lo = 0, cnt_hi = 0;       // the same in the quad's four lanes
+  const unsigned quad = 0xfu << (lane & ~3);
+  const unsigned below = (1u << lane) - 1;
+
+  auto flush = [&]() {
+    // lane r < 16 merges the warp's row r: rows 0-7 are the quads' lo
+    // rows, 8-15 their hi rows
+    const int c_lo = __shfl_sync(0xffffffffu, cnt_lo, 4 * (lane & 7));
+    const int c_hi = __shfl_sync(0xffffffffu, cnt_hi, 4 * (lane & 7));
+    __syncwarp();   // the buffers' appends are visible
+    if (lane < 16) {
+      const int br = 16 * warp + lane;
+      insert_keys(bufs + br * kBufKeys, lane < 8 ? c_lo : c_hi, lists + static_cast<long>(br) * k,
+                  k);
+    }
+    __syncwarp();
+    cnt_lo = cnt_hi = 0;
+    if (ok_lo) thr_lo = list_threshold(lists + static_cast<long>(r_lo) * k, k);
+    if (ok_hi) thr_hi = list_threshold(lists + static_cast<long>(r_hi) * k, k);
+  };
+
+  const uint32_t a_off = repro::slice_a_addr(ring, 16 * warp) - repro::smem_addr(ring);
+  const uint32_t b_off = repro::slice_b_addr(ring + kWideRows * repro::kSliceLD) -
+                         repro::smem_addr(ring);
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float unused[2];
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = s / slices, q = s - t * slices;
+    repro::cp_async_wait<kWideStages - 2>();
+    // slice s landed; every warp is done with slice s - 1.  Before a new
+    // tile, every warp merges at once where a row of the block holds
+    // over half a buffer: the warps wait for each other at these
+    // barriers, so one warp's merge alone would hold up the other seven
+    if (q == 0 && t > 0) {
+      if (__syncthreads_or(cnt_lo > kBufKeys / 2 || cnt_hi > kBufKeys / 2)) flush();
+    } else {
+      __syncthreads();
+    }
+    if (s + kWideStages - 1 < steps) issue(s + kWideStages - 1);
+    repro::cp_async_commit();
+    const float* stf = ring + (s % kWideStages) * stage_floats;
+    const uint32_t st = repro::smem_addr(stf);
+    const int ksteps = min(4, (d - q * repro::kSliceDepth + 7) / 8);
+    repro::mma_slice_3xtf32<16, false>(acc, st + a_off, st + b_off, ksteps, 16, unused);
+    if (q != slices - 1) continue;
+
+    // the tile's distances against the thresholds, one n8 tile at a time
+    const int c0 = n0 + t * kWideTile;
+    const int cols = min(kWideTile, n1 - c0);
+    const float* yt = stf + (kWideRows + kWideTile) * repro::kSliceLD;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const bool in0 = col < cols, in1 = col + 1 < cols;
+      const float2 y = *reinterpret_cast<const float2*>(yt + col);
+      const float d0 = fmaf(-2.f, acc[j][0], xsq_lo) + y.x;
+      const float d1 = fmaf(-2.f, acc[j][1], xsq_lo) + y.y;
+      const float d2 = fmaf(-2.f, acc[j][2], xsq_hi) + y.x;
+      const float d3 = fmaf(-2.f, acc[j][3], xsq_hi) + y.y;
+      const bool p0 = ok_lo && in0 && d0 <= thr_lo;
+      const bool p1 = ok_lo && in1 && d1 <= thr_lo;
+      const bool p2 = ok_hi && in0 && d2 <= thr_hi;
+      const bool p3 = ok_hi && in1 && d3 <= thr_hi;
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      if (!__any_sync(0xffffffffu, p0 || p1 || p2 || p3)) continue;
+      const unsigned b0 = __ballot_sync(0xffffffffu, p0), b1 = __ballot_sync(0xffffffffu, p1);
+      const unsigned b2 = __ballot_sync(0xffffffffu, p2), b3 = __ballot_sync(0xffffffffu, p3);
+      const int at_lo = cnt_lo + __popc(b0 & quad & below) + __popc(b1 & quad & below);
+      if (p0) buf_lo[at_lo] = make_key(d0, c0 + col);
+      if (p1) buf_lo[at_lo + p0] = make_key(d1, c0 + col + 1);
+      const int at_hi = cnt_hi + __popc(b2 & quad & below) + __popc(b3 & quad & below);
+      if (p2) buf_hi[at_hi] = make_key(d2, c0 + col);
+      if (p3) buf_hi[at_hi + p2] = make_key(d3, c0 + col + 1);
+      cnt_lo += __popc(b0 & quad) + __popc(b1 & quad);
+      cnt_hi += __popc(b2 & quad) + __popc(b3 & quad);
+      // the next n8 tile adds at most 8 keys to a row
+      if (__any_sync(0xffffffffu, cnt_lo > kBufKeys - 8 || cnt_hi > kBufKeys - 8)) flush();
+    }
+  }
+  flush();
+  if (lists_shared) {
+    const long first = static_cast<long>(16 * warp) * k;
+    const long last = static_cast<long>(min(16 * warp + 16, rows)) * k;
+    for (long i = first + lane; i < last; i += 32) out[i] = lists[i];
+  }
+}
+
+// One warp per test row: the splits' lists merged in split order (each
+// pass keeps the k smallest of the running list and the next split's, by
+// place rule: a_i goes to i + (b's keys below it), b_i to i + (a's keys
+// below it), the places below k kept, between two scratch lists), then the
+// keys decoded into distances and the labels of their training rows.
+__global__ void knn_wide_merge(const unsigned long long* __restrict__ part, int m, int k,
+                               int splits, unsigned long long* __restrict__ tmp,
+                               const int* __restrict__ labels, float* __restrict__ out_d,
+                               int* __restrict__ out_l) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= m) return;
+  const unsigned long long* a = part + static_cast<long>(row) * k;
+  for (int s = 1; s < splits; ++s) {
+    const unsigned long long* b = part + (static_cast<long>(s) * m + row) * k;
+    unsigned long long* o = tmp + (static_cast<long>(s & 1) * m + row) * k;
+    for (int i = lane; i < k; i += 32) {
+      const unsigned long long ka = a[i], kb = b[i];
+      const int ta = i + count_below(b, k, ka), tb = i + count_below(a, k, kb);
+      if (ta < k) o[ta] = ka;
+      if (tb < k) o[tb] = kb;
+    }
+    __syncwarp();
+    a = o;
+  }
+  for (int i = lane; i < k; i += 32) {
+    const unsigned long long key = a[i];
+    out_d[static_cast<long>(row) * k + i] = from_ordered_bits(static_cast<uint32_t>(key >> 32));
+    out_l[static_cast<long>(row) * k + i] = labels[static_cast<uint32_t>(key)];
+  }
 }
 
 template <int K>
@@ -524,40 +682,37 @@ extern "C" int knn_topk_launch(const float* test, const float* train,
   }
 }
 
-// The wide route: any 1 <= k <= n and d >= 1.  Test rows go in groups of
-// `group` rows and training rows in chunks of `chunk` (<= 4096) rows;
-// dist holds group x chunk floats of scratch, best_a / best_b m x k keys
-// each.  Returns a cudaError_t.
+// The wide route: any 1 <= k <= n and d >= 1.  Training rows go in
+// `splits` chunks of `chunk` rows (whole tiles; grid.y), `vec` floats per
+// copy (4, 2 or 1; d % vec == 0, test and train 4 vec bytes aligned);
+// lists_shared: the rows' lists fit the block's shared memory (smem bytes
+// in all).  Scratch: test_sq m and train_sq n floats, part splits x m x k
+// keys, tmp 2 x m x k keys (read only when splits > 1).  Returns a
+// cudaError_t.
 extern "C" int knn_wide_launch(const float* test, const float* train, const int* labels,
-                               int m, int n, int d, int k, int group, int chunk, float* dist,
-                               unsigned long long* best_a, unsigned long long* best_b,
-                               float* out_d, int* out_l, void* stream) {
+                               int m, int n, int d, int k, int chunk, int splits, int vec,
+                               int lists_shared, int smem, float* test_sq, float* train_sq,
+                               unsigned long long* part, unsigned long long* tmp, float* out_d,
+                               int* out_l, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m < 1 || n < 1 || d < 1 || k < 1 || k > n || group < 1 || chunk < 1 ||
-      chunk > kSelCap) {
+  if (m < 1 || n < 1 || d < 1 || k < 1 || k > n || splits < 1 || chunk < 1 ||
+      chunk % kWideTile != 0 || static_cast<long>(splits) * chunk < n ||
+      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0) {
     return cudaErrorInvalidValue;
   }
-  constexpr int R = repro::kDotRows;
-  int lists = 0;  // chunks merged so far in the group: chunk q writes best_a when q is even
-  for (int g0 = 0; g0 < m; g0 += group) {
-    const int rows = m - g0 < group ? m - g0 : group;
-    lists = 0;
-    for (int n0 = 0; n0 < n; n0 += chunk, ++lists) {
-      const int cols = n - n0 < chunk ? n - n0 : chunk;
-      knn_wide_dists<<<dim3((rows + R - 1) / R, (cols + R - 1) / R), repro::kDotThreads, 0, s>>>(
-          test + static_cast<long>(g0) * d, rows, train + static_cast<long>(n0) * d, cols, d,
-          dist, chunk);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      unsigned long long* in = (lists % 2 == 0 ? best_b : best_a) + static_cast<long>(g0) * k;
-      unsigned long long* out = (lists % 2 == 0 ? best_a : best_b) + static_cast<long>(g0) * k;
-      knn_wide_select<<<rows, 256, 0, s>>>(dist, chunk, cols, n0, k, n0 == 0, in, out);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-  }
-  const long total = static_cast<long>(m) * k;
-  knn_wide_finish<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      lists % 2 == 1 ? best_a : best_b, total, labels, out_d, out_l);
+  cudaError_t err = cudaFuncSetAttribute(knn_wide_topk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  row_sqnorms<<<(m + 255) / 256, 256, 0, s>>>(test, m, d, test_sq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  row_sqnorms<<<(n + 255) / 256, 256, 0, s>>>(train, n, d, train_sq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  knn_wide_topk<<<dim3((m + kWideRows - 1) / kWideRows, splits), kWideThreads, smem, s>>>(
+      test, train, test_sq, train_sq, m, n, d, k, chunk, vec, lists_shared, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  knn_wide_merge<<<(m + 7) / 8, 256, 0, s>>>(part, m, k, splits, tmp, labels, out_d, out_l);
   return cudaGetLastError();
 }

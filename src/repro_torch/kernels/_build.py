@@ -41,10 +41,10 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P], _I),
     "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P], _I),
-    "kmeans_wide_launch": ([_P, _P, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
-    "knn_wide_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P], _I),
+    "kmeans_wide_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "knn_wide_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P], _I),
     "rmsnorm_launch": ([_P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P], _I),
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(_L), _I, _I, _I, _P], _I),
@@ -149,6 +149,16 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def copy_width(d: int, *tensors) -> int:
+    """Floats per ``cp.async`` copy of the wide routes' depth slices (see
+    ``repro::issue_slice`` in ``csrc/common.cuh``): 4 or 2 where every row
+    of d floats of each tensor starts 16 or 8 bytes aligned, else 1."""
+    for vec in (4, 2):
+        if d % vec == 0 and all(t.data_ptr() % (4 * vec) == 0 for t in tensors):
+            return vec
+    return 1
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -16,8 +16,10 @@ ties); the outputs are the per-cluster sums ``(k, d)``, the counts
   ``x·c`` in 3xTF32 (fp32-grade), the per-cluster sums as a one-hot
   contraction (each point split into TF32 hi + lo, within ~2⁻²² of
   fp32) — for k <= 64 and d <= 256; every other k and d take the wide
-  route (fp32 FMAs over centroid tiles, then per-split partials merged in
-  split order).  :func:`route` picks one by shape before launch, and a
+  route (the same 3xTF32 scores with both operands streamed in 32-deep
+  slices, over centroid tiles of 16; each tile's points sorted by
+  cluster and added in point order into per-block partials, merged in
+  block order).  :func:`route` picks one by shape before launch, and a
   route that fails raises: neither hands work to the other or to the
   plain version.  Both are deterministic (no float atomics) and take
   contiguous fp32 CUDA tensors; the wrapper raises on anything else.
@@ -40,8 +42,12 @@ _BLOCKS_PER_SM = 2    # persistent blocks per SM
 MAX_K = 64            # the tensor-core route's sums of one warp stay in
 MAX_D = 256           # registers: at most 4 x 16 clusters by 4 x 8 dims
 _SMEM_PER_SM = 233472  # shared memory of one Hopper SM
-WIDE_SMEM_BYTES = 2 * 16 * 65 * 4 + 2 * 64 * 4 + 64 * 4   # the wide route's
-#                     assign block (repro::DotTileSmem and |x|^2), any k, d
+_SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
+# the wide route (any k and d): tiles of 128 points, centroids in passes
+# of up to 128, 32-deep slices of both in a ring of 3 shared stages, the
+# tile's sort keys and segments, and the block's partials in shared
+# memory where they fit beside those
+WIDE_POINTS = 128       # kWidePoints in csrc/kmeans_assign.cu
 WIDE_SCRATCH_FLOATS = 1 << 22   # the wide route's partials, unless one is larger
 
 launches = 0          # kernel launches since the last reset (plain int)
@@ -111,20 +117,52 @@ def mma_chains(k: int, d: int) -> int:
 
 def route(k: int, d: int) -> str:
     """The CUDA route for k centroids of d dims: ``"tensor_cores"`` within
-    the tensor-core kernel's registers, else ``"wide"``."""
+    the tensor-core kernel's registers, else ``"wide"`` (the depth-streamed
+    route, any k and d)."""
     return "tensor_cores" if k <= MAX_K and d <= MAX_D else "wide"
 
 
-def wide_splits(n: int, k: int, d: int, sms: int) -> tuple:
-    """(splits, chunk) of the wide route: the points cut into ``splits``
-    contiguous runs of ``chunk`` (the last may be short), at least 128
-    points each, at most 8 per SM, and so that the partials (k*d + k + 1
-    floats per split) stay within ``WIDE_SCRATCH_FLOATS`` (one split where
-    a single partial is larger)."""
-    per_split = k * d + k + 1
-    splits = max(1, min(n // 128, 8 * sms, WIDE_SCRATCH_FLOATS // per_split))
-    chunk = math.ceil(n / splits)
-    return math.ceil(n / chunk), chunk
+def wide_pass(k: int) -> int:
+    """Centroids per pass of the wide route's scores (8 NT): k rounded up
+    to 16, at most 128."""
+    return min(128, -(-k // 16) * 16)
+
+
+def wide_blocks_per_sm(k: int) -> int:
+    """Wide-route blocks an SM holds by registers: two up to 96 centroids
+    a pass, one past that (its ``__launch_bounds__``)."""
+    return 2 if wide_pass(k) <= 96 else 1
+
+
+def wide_ring_bytes(k: int) -> int:
+    """The wide route's ring: 3 stages of a 32-deep slice of 128 points
+    and of one pass's centroid rows, row stride 36 floats, and those
+    centroids' |c|^2/2.  It does not depend on d."""
+    nb = wide_pass(k)
+    return 3 * ((WIDE_POINTS + nb) * 36 + nb) * 4
+
+
+def wide_smem(k: int, d: int) -> tuple:
+    """(dynamic shared memory of one wide-route block, whether the block's
+    partials — k x d sums, k counts — are in it): the ring, the tile's 128
+    sort keys and 272 ints of assignments, segments and sse slots, plus
+    the partials where they fit, else those stay in global scratch."""
+    base = wide_ring_bytes(k) + WIDE_POINTS * 8 + 272 * 4
+    with_partials = base + 4 * (k * d + k)
+    if with_partials <= _SMEM_LIMIT:
+        return with_partials, True
+    return base, False
+
+
+def wide_blocks(n: int, k: int, d: int, sms: int) -> int:
+    """Persistent blocks of the wide route: one per tile of 128 points at
+    most, as many as the SMs hold (by registers and shared memory), and
+    so that the partials (k*d + k + 1 floats per block) stay within
+    ``WIDE_SCRATCH_FLOATS`` (one block where one partial is larger)."""
+    per_sm = max(1, min(wide_blocks_per_sm(k), _SMEM_PER_SM // (wide_smem(k, d)[0] + 1024)))
+    per_block = k * d + k + 1
+    return max(1, min(math.ceil(n / WIDE_POINTS), per_sm * sms,
+                      WIDE_SCRATCH_FLOATS // per_block))
 
 
 def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
@@ -162,17 +200,17 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
                 x.data_ptr(), centroids.data_ptr(), n, k, d, T, blocks,
                 part_sums.data_ptr(), part_counts.data_ptr(), part_sse.data_ptr(), *outs)
     else:
-        splits, chunk = wide_splits(n, k, d, sms)
-        asg = torch.empty((n,), dtype=torch.int32, device=dev)
-        terms = torch.empty((n,), dtype=torch.float32, device=dev)
-        part_sums = torch.empty((splits, k, d), dtype=torch.float32, device=dev)
-        part_counts = torch.empty((splits, k), dtype=torch.int32, device=dev)
-        part_sse = torch.empty((splits,), dtype=torch.float32, device=dev)
+        smem, shared_partials = wide_smem(k, d)
+        blocks = wide_blocks(n, k, d, sms)
+        hc = torch.empty((k,), dtype=torch.float32, device=dev)
+        part_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
+        part_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
+        part_sse = torch.empty((blocks,), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             err = lib.kmeans_wide_launch(
-                x.data_ptr(), centroids.data_ptr(), n, k, d, splits, chunk, asg.data_ptr(),
-                terms.data_ptr(), part_sums.data_ptr(), part_counts.data_ptr(),
-                part_sse.data_ptr(), *outs)
+                x.data_ptr(), centroids.data_ptr(), n, k, d, _build.copy_width(d, x, centroids),
+                blocks, int(shared_partials), smem, hc.data_ptr(), part_sums.data_ptr(),
+                part_counts.data_ptr(), part_sse.data_ptr(), *outs)
     _build.check(err, "kmeans_assign")
     with _count_lock:
         launches += 1

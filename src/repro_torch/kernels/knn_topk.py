@@ -14,13 +14,15 @@ training index (lower first).
 * :func:`knn_topk_cuda` — the hand-written CUDA kernel
   (``csrc/knn_topk.cu``, which documents its design and bound): the cross
   term on the tensor cores in 3xTF32 (fp32-grade), the top-k walked per
-  test row in training-index order — for k <= 32 and d <= 272.  Every
-  other k and d take the wide route: fp32 distances of a training chunk
-  through global scratch, and per test row a selection of 64-bit keys
-  (distance, index), which keeps the tie rule.  :func:`route` picks one
-  by shape before launch, and a route that fails raises: neither hands
-  work to the other or to the plain version.  It takes only contiguous
-  fp32 CUDA tensors and raises on anything else.
+  test row in training-index order — for k <= 32 and d <= 64 (it holds
+  d up to 272, but past 64 the wide route is faster).  Every other k
+  and d take the wide route: the same 3xTF32 product with both
+  operands streamed in 32-deep slices (shared memory independent of d),
+  each test row's k best kept as 64-bit keys (distance, index), which
+  keep the tie rule, behind a threshold in a register.  :func:`route`
+  picks one by shape before launch, and a route that fails raises:
+  neither hands work to the other or to the plain version.  It takes
+  only contiguous fp32 CUDA tensors and raises on anything else.
 
 :func:`repro_torch.kernels.ops.knn_topk` picks one by device.
 """
@@ -35,16 +37,28 @@ from . import _build
 
 BIG = 1e30
 MAX_K = 32             # register list lengths the kernel is built for: 8/16/32
+# the tensor-core route's depth: past 64 a block's rows take 76 floats, an
+# SM holds one block fewer, and the wide route is faster at k 5 and 32
+# (d 72: 6.90 / 9.63 ms against 7.35 / 9.65; d 64: 5.76 / 8.40-8.64
+# against 4.62 / 6.72-7.01; ``chip_knockout.py --crossover``)
+MAX_D = 64
 _BLOCK_ROWS = 128      # test rows per CUDA block (kBlockRows in csrc/knn_topk.cu)
 _TILE = 32             # training rows per shared tile (kTile there)
 _CROSS_FLOATS = 4 * _TILE * 36   # the four warps' cross-term tiles (kLDC = 36)
 _SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
 _SMEM_PER_SM = 233472  # shared memory of one SM
-WIDE_GROUP = 8192      # the wide route's test rows per pass
-WIDE_CHUNK = 4096      # its training rows per pass (kSelCap in csrc/knn_topk.cu)
-# the wide route's static shared memory per block, any k and d: the
-# distance block (repro::DotTileSmem) and the select block (keys + count)
-WIDE_SMEM_BYTES = (2 * 16 * 65 * 4 + 2 * 64 * 4, WIDE_CHUNK * 8 + 4)
+# the wide route (any k and d): blocks of 128 test rows by tiles of 128
+# training rows, 32-deep slices of both (and the tile's |y|^2) in a ring
+# of 3 shared stages (WIDE_RING_BYTES, whatever d is), a buffer of 32
+# keys per test row, and the rows' lists of k keys in shared memory where
+# they fit beside those
+WIDE_ROWS = 128        # kWideRows in csrc/knn_topk.cu
+WIDE_TILE = 128        # kWideTile
+WIDE_RING_BYTES = 3 * ((WIDE_ROWS + WIDE_TILE) * 36 + WIDE_TILE) * 4
+WIDE_BUF_BYTES = WIDE_ROWS * 32 * 8
+WIDE_MAX_SPLITS = 64
+WIDE_MIN_TILES = 64    # a split's least tiles: each split fills its lists anew
+WIDE_SCRATCH_KEYS = 1 << 24   # the splits' lists (8 bytes a key), unless one split is larger
 
 launches = 0         # kernel launches since the last reset (plain int)
 _count_lock = threading.Lock()
@@ -121,17 +135,39 @@ def list_length(k: int) -> int:
 
 def route(k: int, d: int) -> str:
     """The CUDA route for k neighbours in d dims: ``"tensor_cores"`` where
-    the register lists hold k and a block's shared memory holds d, else
-    ``"wide"``."""
-    return "tensor_cores" if k <= MAX_K and smem_bytes(d) <= _SMEM_LIMIT else "wide"
+    the register lists hold k and d is at most MAX_D (where that route is
+    the faster), else ``"wide"`` (the depth-streamed route, any k and d)."""
+    return "tensor_cores" if k <= MAX_K and d <= MAX_D else "wide"
 
 
-def wide_dist_floats(m: int) -> int:
-    """The wide route's distance scratch, in floats: one pass of at most
-    WIDE_GROUP test rows by WIDE_CHUNK training rows, whatever n, d and k
-    are.  (Its other scratch, two lists of m x k keys, is the size of the
-    output.)"""
-    return min(m, WIDE_GROUP) * WIDE_CHUNK
+def wide_smem(k: int) -> tuple:
+    """(dynamic shared memory of one wide-route block, whether the rows'
+    lists of k keys are in it): the ring and the buffers, plus the lists
+    where all fit in one block (k <= 85), else the lists stay in global
+    scratch.  No term depends on d."""
+    with_lists = WIDE_RING_BYTES + WIDE_BUF_BYTES + WIDE_ROWS * k * 8
+    if with_lists <= _SMEM_LIMIT:
+        return with_lists, True
+    return WIDE_RING_BYTES + WIDE_BUF_BYTES, False
+
+
+def wide_partition(m: int, n: int, k: int, sms: int) -> tuple:
+    """(splits, chunk) of the wide route: the training rows cut into
+    ``splits`` contiguous chunks of ``chunk`` rows (whole tiles of 128),
+    for the ceil(m / 128) x splits blocks (one per SM) to fill their last
+    wave: the fewest splits within 2% of the best time, ceil(blocks /
+    sms) / splits, at most WIDE_MAX_SPLITS, chunks of at least
+    WIDE_MIN_TILES tiles (a split's first tiles fill its lists, at the
+    cost of many merges), and the lists (splits x m x k keys) within
+    WIDE_SCRATCH_KEYS unless one split alone is larger."""
+    row_blocks = math.ceil(m / WIDE_ROWS)
+    most = max(1, min(WIDE_MAX_SPLITS, n // (WIDE_MIN_TILES * WIDE_TILE),
+                      WIDE_SCRATCH_KEYS // (m * k)))
+    cost = {s: math.ceil(row_blocks * s / sms) / s for s in range(1, most + 1)}
+    best = min(cost.values())
+    splits = min(s for s, c in cost.items() if c <= 1.02 * best)
+    chunk = math.ceil(math.ceil(n / splits) / WIDE_TILE) * WIDE_TILE
+    return math.ceil(n / chunk), chunk
 
 
 def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
@@ -171,13 +207,18 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
                 m, n, d, k, kb, chunk, splits, train_sq.data_ptr(),
                 part_d.data_ptr(), part_l.data_ptr(), out_d.data_ptr(), out_l.data_ptr(), stream)
     else:
-        dists = torch.empty((wide_dist_floats(m),), dtype=torch.float32, device=dev)
-        keys = torch.empty((2, m * k), dtype=torch.int64, device=dev)
+        smem, lists_shared = wide_smem(k)
+        splits, chunk = wide_partition(
+            m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        sq = torch.empty((m + n,), dtype=torch.float32, device=dev)
+        part = torch.empty((splits, m, k), dtype=torch.int64, device=dev)
+        tmp = torch.empty((2, m, k) if splits > 1 else (1,), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             err = lib.knn_wide_launch(
-                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k,
-                WIDE_GROUP, WIDE_CHUNK, dists.data_ptr(), keys[0].data_ptr(),
-                keys[1].data_ptr(), out_d.data_ptr(), out_l.data_ptr(), stream)
+                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k, chunk,
+                splits, _build.copy_width(d, test_x, train_x), int(lists_shared), smem,
+                sq.data_ptr(), sq[m:].data_ptr(), part.data_ptr(), tmp.data_ptr(),
+                out_d.data_ptr(), out_l.data_ptr(), stream)
     _build.check(err, "knn_topk")
     with _count_lock:
         launches += 1

@@ -147,7 +147,8 @@ def test_kmeans_assign_wide_route_matches_plain(cuda, n, d, k):
 
 @pytest.mark.parametrize("m,n,d,k", [(300, 1000, 50, 33), (300, 1000, 50, 100),
                                      (200, 5000, 20, 257), (300, 1000, 273, 5),
-                                     (100, 700, 1024, 40), (70, 9000, 7, 1000)])
+                                     (100, 700, 1024, 40), (70, 9000, 7, 1000),
+                                     (100, 700, 1024, 257), (40, 300, 5, 300)])
 def test_knn_topk_wide_route_exact_on_integer_inputs(cuda, m, n, d, k):
     """Past the tensor-core route (k > 32 or d > 272): the plain version's
     distances and labels bit for bit on tied integer inputs (the tie
@@ -167,6 +168,55 @@ def test_knn_topk_wide_route_close_on_random_inputs(cuda, m, n, d, k):
     want_d, _ = tknn.knn_topk_plain(test, train, labels, k)
     # fp32 distances from two summation orders: rtol 1e-5, atol 1e-3
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("k,d", [(32, 50), (33, 50), (257, 50), (5, 64), (5, 65), (32, 64),
+                                 (32, 65), (5, 272), (5, 273), (5, 1024)])
+def test_knn_topk_at_the_route_edges(cuda, k, d):
+    """One either side of each edge of the tensor-core route (k 32 | 33,
+    d 64 | 65), either side of its shared memory's edge (d 272 | 273, both
+    wide now) and far past them: tied integer inputs bitwise the plain
+    version's, random inputs within rtol 1e-5 / atol 1e-3 with labels
+    equal away from near-ties, two launches bitwise equal."""
+    m, n = 300, 5000
+    test, train, labels = _to(cuda, *_knn_inputs(k + d, m, n, d, integer=True))
+    got = tknn.knn_topk_cuda(test, train, labels, k)
+    assert _same(got, tknn.knn_topk_plain(test, train, labels, k))
+    assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
+    test, train, labels = _to(cuda, *_knn_inputs(k * d, m, n, d, integer=False))
+    got = tknn.knn_topk_cuda(test, train, labels, k)
+    assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
+    want_d, want_l = tknn.knn_topk_plain(test, train, labels, k + 1)
+    torch.testing.assert_close(got[0], want_d[:, :k], rtol=1e-5, atol=1e-3)
+    sep = torch.ones((m, k + 2), dtype=torch.bool, device=cuda)
+    sep[:, 1:k + 1] = (want_d[:, 1:] - want_d[:, :-1]) > 1e-3
+    isolated = sep[:, :k] & sep[:, 1:k + 1]
+    assert torch.equal(got[1][isolated], want_l[:, :k][isolated])
+
+
+@pytest.mark.parametrize("k,d", [(64, 50), (65, 50), (1000, 50), (16, 256), (16, 257)])
+def test_kmeans_assign_at_the_route_edges(cuda, k, d):
+    """One either side of each edge of the tensor-core route (k 64 | 65,
+    d 256 | 257) and far past them: integer inputs bitwise the plain
+    version's; filtered random inputs with equal counts, sums and sse at
+    rtol 1e-5; two launches bitwise equal."""
+    rng = np.random.default_rng(k + d)
+    n = 20_000
+    x, c = _to(cuda, rng.integers(-2, 3, size=(n, d)).astype(np.float32),
+               rng.integers(-2, 3, size=(k, d)).astype(np.float32))
+    got = tkm.kmeans_assign_cuda(x, c)
+    assert _same(got, tkm.kmeans_assign_plain(x, c))
+    assert _same(got, tkm.kmeans_assign_cuda(x, c))
+    x, c = _to(cuda, rng.standard_normal((n, d)).astype(np.float32),
+               rng.standard_normal((k, d)).astype(np.float32))
+    top2 = (x @ c.T - 0.5 * (c * c).sum(1)).topk(2, dim=1).values
+    x = x[(top2[:, 0] - top2[:, 1]) >= 1e-4].contiguous()
+    got = tkm.kmeans_assign_cuda(x, c)
+    assert _same(got, tkm.kmeans_assign_cuda(x, c))
+    psums, pcounts, psse = tkm.kmeans_assign_plain(x, c)
+    assert torch.equal(got[1], pcounts)
+    torch.testing.assert_close(got[0], psums, rtol=1e-5, atol=1e-5 * psums.abs().max().item())
+    torch.testing.assert_close(got[2], psse, rtol=1e-5, atol=0.0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -27,6 +27,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash  # noq
 from repro.kernels.rglru_scan import rglru_scan as pallas_rglru  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
+from repro_torch.algorithms.kmeans import _np_fill_fragment  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import kmeans_assign as tkm  # noqa: E402
@@ -877,51 +878,71 @@ def test_ssd_blocks_fit_in_shared_memory(P, N):
 @pytest.mark.parametrize("k,d,want", [(64, 256, "tensor_cores"), (65, 256, "wide"),
                                       (64, 257, "wide"), (65, 50, "wide"), (16, 257, "wide"),
                                       (16, 50, "tensor_cores"), (1, 1, "tensor_cores"),
-                                      (1000, 300, "wide")])
+                                      (1000, 300, "wide"), (100, 384, "wide")])
 def test_kmeans_route_by_shape(k, d, want):
     """The tensor-core route holds k <= 64 and d <= 256; every other shape
-    takes the wide route, chosen before launch."""
+    takes the depth-streamed wide route, chosen before launch, whose pass
+    covers k in 16-centroid tiles (k 65: 80 columns, not 128)."""
     assert tkm.route(k, d) == want
+    if want == "wide":
+        assert tkm.wide_pass(k) == min(128, -(-k // 16) * 16)
+    assert tkm.wide_ring_bytes(65) == 3 * ((128 + 80) * 36 + 80) * 4
 
 
-@pytest.mark.parametrize("k,d,want", [(32, 272, "tensor_cores"), (33, 272, "wide"),
+@pytest.mark.parametrize("k,d,want", [(32, 64, "tensor_cores"), (33, 64, "wide"),
+                                      (32, 65, "wide"), (5, 64, "tensor_cores"), (5, 65, "wide"),
+                                      (32, 272, "wide"), (33, 272, "wide"),
                                       (32, 273, "wide"), (33, 50, "wide"), (5, 273, "wide"),
                                       (5, 50, "tensor_cores"), (1, 1, "tensor_cores"),
-                                      (257, 1024, "wide")])
+                                      (257, 1024, "wide"), (50, 384, "wide")])
 def test_knn_route_by_shape(k, d, want):
     """The tensor-core route holds k <= 32 (its register lists) and d up
-    to 272 (its shared memory); every other shape takes the wide route."""
+    to 272 (its shared memory), and takes d up to 64, where it is the
+    faster; every other shape takes the depth-streamed wide route, whose
+    shared memory does not depend on d."""
     assert tknn.route(k, d) == want
     assert (tknn.smem_bytes(d) <= SMEM_LIMIT) == (d <= 272)
-
-
-STATIC_SMEM = 48 * 1024   # static shared memory a block may declare
+    assert tknn.smem_bytes(tknn.MAX_D) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n", [1, 1000, 100_003, 500_000])
 @pytest.mark.parametrize("k,d", [(65, 50), (16, 257), (1000, 300), (65, 1), (1, 5000),
                                  (4096, 1024), (100_000, 64)])
 def test_kmeans_wide_route_has_bounded_scratch(n, k, d):
-    """The wide route's shared memory does not depend on k or d; its
-    partials stay within 2^22 floats unless one partial alone is larger
-    (then there is one); the splits cover the points once, none empty."""
-    assert tkm.WIDE_SMEM_BYTES <= STATIC_SMEM
-    splits, chunk = tkm.wide_splits(n, k, d, sms=132)
-    per_split = k * d + k + 1
-    assert splits >= 1 and (splits - 1) * chunk < n <= splits * chunk
-    assert splits * per_split <= max(tkm.WIDE_SCRATCH_FLOATS, per_split)
-    assert splits <= 8 * 132 and (splits == 1 or chunk >= 128)
+    """The wide route's ring does not depend on d; a block fits the SM's
+    shared memory for every k and d (its partials there only where they
+    fit); the partials stay within 2^22 floats unless one alone is larger
+    (then there is one block); no block is without a tile."""
+    smem, shared = tkm.wide_smem(k, d)
+    assert smem <= SMEM_LIMIT
+    # beside the partials (where they fit), nothing depends on d
+    assert smem - shared * 4 * (k * d + k) == tkm.wide_ring_bytes(k) + 128 * 8 + 272 * 4
+    assert shared or tkm.wide_ring_bytes(k) + 128 * 8 + 272 * 4 + 4 * (k * d + k) > SMEM_LIMIT
+    blocks = tkm.wide_blocks(n, k, d, sms=132)
+    per_block = k * d + k + 1
+    assert 1 <= blocks <= -(-n // 128) and blocks <= tkm.wide_blocks_per_sm(k) * 132
+    assert blocks * per_block <= max(tkm.WIDE_SCRATCH_FLOATS, per_block)
 
 
 @pytest.mark.parametrize("m", [1, 300, 12_500, 100_000])
 @pytest.mark.parametrize("k,d", [(33, 50), (257, 50), (5, 273), (40, 1024), (5000, 3)])
 def test_knn_wide_route_has_bounded_scratch(m, k, d):
-    """The wide route's shared memory and its distance scratch do not
-    depend on k, d or n (at most 8192 x 4096 floats)."""
-    assert all(b <= STATIC_SMEM for b in tknn.WIDE_SMEM_BYTES)
-    assert tknn.wide_dist_floats(m) == min(m, tknn.WIDE_GROUP) * tknn.WIDE_CHUNK
-    assert tknn.wide_dist_floats(m) <= tknn.WIDE_GROUP * tknn.WIDE_CHUNK
-    assert tknn.WIDE_CHUNK <= 4096      # the select block's keys fit its 32 KB
+    """The wide route's shared memory depends on k alone (the lists where
+    128 x k keys fit beside the ring and buffers, k <= 85); its splits
+    cover the training rows once in whole tiles of at least 64 tiles each
+    (one split where n is smaller), and the splits' lists stay within
+    2^24 keys unless one split alone is larger."""
+    smem, shared = tknn.wide_smem(k)
+    assert smem <= SMEM_LIMIT and shared == (k <= 85)
+    assert smem == tknn.WIDE_RING_BYTES + tknn.WIDE_BUF_BYTES + shared * 128 * k * 8
+    for n in (k, 10 * k + 77, 125_000):
+        splits, chunk = tknn.wide_partition(m, n, k, sms=132)
+        assert chunk % tknn.WIDE_TILE == 0 and 1 <= splits <= tknn.WIDE_MAX_SPLITS
+        assert (splits - 1) * chunk < n <= splits * chunk
+        assert splits * m * k <= max(tknn.WIDE_SCRATCH_KEYS, m * k)
+        assert splits == 1 or chunk >= tknn.WIDE_MIN_TILES * tknn.WIDE_TILE
+    # one KNN_frag task at k 33: four splits fill 3 waves of 132 SMs
+    assert tknn.wide_partition(12_500, 125_000, 33, sms=132)[0] == 4
 
 
 def _ordered_bits(f):
@@ -946,52 +967,78 @@ def test_ordered_bits_order_as_the_floats_and_invert():
     np.testing.assert_array_equal(_from_ordered_bits(u).view(np.uint32), f.view(np.uint32))
 
 
-def _knn_wide_emulation(test, train, labels, k, chunk, group):
-    """knn_topk's wide route as csrc/knn_topk.cu forms it (the distances
-    here from the plain version's formula): per group of test rows and
-    chunk of training rows, each row's keys below its k-th best are
-    gathered in an arbitrary order, sorted, and merged with the row's list
-    by place = index in its own list + count of smaller keys in the other."""
-    none = np.uint64(2 ** 64 - 1)
+_NONE = np.uint64(2 ** 64 - 1)
+
+
+def _place_merge(a, b, k):
+    """The k smallest of two ascending key lists by the kernels' place rule
+    (merge_row, knn_wide_merge): a_i goes to i + (b's keys below it), b_j
+    to j + (a's keys below it), and the places below k are kept."""
+    out = np.full(k, _NONE)
+    to_a = np.arange(a.size) + np.searchsorted(b, a, side="left")
+    to_b = np.arange(b.size) + np.searchsorted(a, b, side="left")
+    out[to_a[to_a < k]] = a[to_a < k]
+    out[to_b[to_b < k]] = b[to_b < k]
+    return out
+
+
+def _knn_wide_emulation(test, train, labels, k, chunk, buf_keys=32):
+    """knn_topk's wide route as csrc/knn_topk.cu selects (the distances
+    here from the plain version's formula): per split of ``chunk``
+    training rows and warp of 16 test rows, tiles of 128 columns walked
+    one n8 tile at a time; a distance at or below its row's threshold
+    (the k-th key's distance, inf until the list is full) is appended to
+    the row's buffer, and when a row holds more than buf_keys - 8 after a
+    tile, or the split ends, every buffered row of the warp is merged into
+    its list; then the splits' lists are merged in split order."""
     x, y = torch.from_numpy(test), torch.from_numpy(train)
     d2 = (((x * x).sum(1)[:, None] - 2.0 * (x @ y.T)) + (y * y).sum(1)[None, :]).numpy()
     m, n = d2.shape
     keys = (_ordered_bits(d2).astype(np.uint64) << np.uint64(32)) | np.arange(n, dtype=np.uint64)
-    rng = np.random.default_rng(1)
-    best = np.empty((m, k), dtype=np.uint64)
-    for g0 in range(0, m, group):
-        for r in range(g0, min(m, g0 + group)):
-            lst = None
-            for n0 in range(0, n, chunk):
-                row = keys[r, n0:n0 + chunk]
-                kth = none if lst is None else lst[k - 1]
-                cand = row[row < kth]
-                cand = np.sort(rng.permutation(cand))   # the gather's order is undone
-                if cand.size == 0:
-                    continue
-                a = np.full(k, none) if lst is None else lst
-                out = np.full(k, none)
-                at_a = np.arange(k) + np.searchsorted(cand, a, side="left")
-                at_b = np.arange(cand.size) + (0 if lst is None
-                                               else np.searchsorted(lst, cand, side="left"))
-                out[at_a[at_a < k]] = a[at_a < k]
-                out[at_b[at_b < k]] = cand[at_b < k]
-                lst = out
-            best[r] = lst
+    parts = []
+    for n0 in range(0, n, chunk):
+        n1 = min(n, n0 + chunk)
+        lists = np.full((m, k), _NONE)
+        for w0 in range(0, m, 16):
+            rows = list(range(w0, min(m, w0 + 16)))
+            thr = np.full(m, np.inf, dtype=np.float32)
+            buf = {r: [] for r in rows}
+
+            def flush():
+                for r in rows:
+                    if buf[r]:
+                        lists[r] = _place_merge(lists[r], np.sort(np.array(buf[r])), k)
+                        buf[r] = []
+                        kth = lists[r, k - 1]
+                        thr[r] = np.inf if kth == _NONE else \
+                            _from_ordered_bits(np.uint32(kth >> np.uint64(32)))
+            for c0 in range(n0, n1, 8):          # n8 tiles of the 128-row tiles
+                cols = np.arange(c0, min(n1, c0 + 8))
+                passed = False
+                for r in rows:
+                    hit = cols[d2[r, cols] <= thr[r]]
+                    buf[r].extend(keys[r, hit])
+                    passed |= hit.size > 0
+                if passed and max(len(buf[r]) for r in rows) > buf_keys - 8:
+                    flush()
+            flush()
+        parts.append(lists)
+    best = parts[0]
+    for lists in parts[1:]:
+        best = np.stack([_place_merge(a, b, k) for a, b in zip(best, lists)])
     dist = _from_ordered_bits((best >> np.uint64(32)).astype(np.uint32))
     return dist, labels[(best & np.uint64(0xFFFFFFFF)).astype(np.int64)]
 
 
-@pytest.mark.parametrize("m,n,d,k,chunk,group", [(40, 300, 16, 33, 64, 16),
-                                                 (30, 500, 9, 100, 64, 30),
-                                                 (20, 257, 5, 257, 32, 7),
-                                                 (25, 400, 12, 5, 4096, 8192)])
-def test_knn_wide_selection_emulation_is_exact_on_integer_inputs(m, n, d, k, chunk, group):
-    """Integer inputs with duplicated rows (ties everywhere): the keyed
-    selection over chunks gives the plain version's distances and labels
-    bit for bit, k beyond a chunk and k = n_train included."""
+@pytest.mark.parametrize("m,n,d,k,chunk", [(40, 300, 16, 33, 128), (30, 500, 9, 100, 256),
+                                           (20, 300, 5, 257, 128), (25, 400, 12, 400, 256)])
+def test_knn_wide_selection_emulation_is_exact_on_integer_inputs(m, n, d, k, chunk):
+    """Integer inputs with duplicated rows (ties everywhere): the
+    threshold, buffers, flushes, merges and the split merge give the plain
+    version's distances and labels bit for bit, at k 33, 100, 257 and
+    k = n_train, over two to three splits."""
     test, train, labels = _knn_inputs(m + k, m, n, d, integer=True)
-    got_d, got_l = _knn_wide_emulation(test, train, labels, k, chunk, group)
+    got_d, got_l = _knn_wide_emulation(test, train, labels, k, chunk)
     want_d, want_l = tknn.knn_topk_plain(torch.from_numpy(test), torch.from_numpy(train),
                                          torch.from_numpy(labels), k)
     np.testing.assert_array_equal(got_d, want_d.numpy())
@@ -1000,11 +1047,164 @@ def test_knn_wide_selection_emulation_is_exact_on_integer_inputs(m, n, d, k, chu
 
 def test_knn_wide_selection_emulation_matches_pallas_on_random_inputs():
     test, train, labels = _knn_inputs(17, 40, 300, 16, integer=False)
-    got_d, got_l = _knn_wide_emulation(test, train, labels, 33, 64, 16)
+    got_d, got_l = _knn_wide_emulation(test, train, labels, 33, 128)
     pal_d, pal_l = _pallas_knn(test, train, labels, 33)
     # fp32 distances from two summation orders: rtol 1e-5, atol 1e-3
     np.testing.assert_allclose(got_d, pal_d, rtol=1e-5, atol=1e-3)
     assert (got_l == pal_l).mean() > 0.98
+
+
+def _toward_zero(v):
+    """fp64 -> fp32, cut toward zero (how an mma's sum is rounded)."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _stream_3xtf32(a, b, three_products=True, cut=False, fresh_steps=True):
+    """a (m, d) . b (n, d)^T as repro::mma_slice_3xtf32 forms it: per
+    8-deep step the products x_lo y_hi, x_hi y_lo, x_hi y_hi of TF32
+    operands (cvt.rna), each added with one rounding (the 8 products of a
+    step are exact in fp64) into a fresh step accumulator, which an fp32
+    add carries into the running one.  ``cut`` models the tensor cores'
+    rounding toward zero of each product's add (no guard bits: a bound
+    on the card's drift); without ``fresh_steps`` the products go
+    straight into the running accumulator."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if three_products else ((ah, bh),)
+    rnd = _toward_zero if cut else (lambda v: v.astype(np.float32))
+    acc = np.zeros((a.shape[0], b.shape[0]), dtype=np.float32)
+    for j in range(0, a.shape[1], 8):
+        step = np.zeros_like(acc) if fresh_steps else acc
+        for p, q in terms:
+            prod = p[:, j:j + 8].astype(np.float64) @ q[:, j:j + 8].T.astype(np.float64)
+            step = rnd(step.astype(np.float64) + prod)
+        acc = (acc + step).astype(np.float32) if fresh_steps else step
+    return acc
+
+
+def test_depth_streamed_3xtf32_fresh_steps_keep_the_sse_on_far_data():
+    """Points ~80 from the origin at d 384 (the K-means fragments of
+    phase wide): with each product's add cut toward zero, an accumulator
+    carried through all 48 steps drifts and the sse leaves rtol 1e-5;
+    a fresh accumulator per step keeps it within."""
+    rng = np.random.default_rng(0)
+    d, k, n = 384, 100, 1500
+    x = _np_fill_fragment(0, n, d).astype(np.float32)
+    c = (x[rng.choice(n, k, replace=False)] + 0.3 * rng.standard_normal((k, d))).astype(np.float32)
+    h = (0.5 * (c.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    q = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+
+    def sse(cross):
+        best = (cross - h[None, :]).astype(np.float32).max(1)
+        return float((q - 2 * best).astype(np.float64).sum())
+
+    want = sse((x.astype(np.float64) @ c.T.astype(np.float64)).astype(np.float32))
+    fresh = sse(_stream_3xtf32(x, c, cut=True))
+    carried = sse(_stream_3xtf32(x, c, cut=True, fresh_steps=False))
+    assert abs(fresh - want) <= 1e-5 * want
+    assert abs(carried - want) > 1e-5 * want
+
+
+@pytest.mark.parametrize("d", [273, 300, 1024])
+def test_knn_depth_streamed_3xtf32_meets_the_card_tolerance(d):
+    """The wide route's distances from the depth-streamed 3xTF32 product
+    lie within the card's tolerance of the plain version's at depths past
+    the tensor-core route; one TF32 product does not."""
+    test, train, labels = _knn_inputs(d, 64, 500, d, integer=False)
+    want_d, _ = tknn.knn_topk_plain(torch.from_numpy(test), torch.from_numpy(train),
+                                    torch.from_numpy(labels), 5)
+    x, y = torch.from_numpy(test), torch.from_numpy(train)
+    xsq, ysq = (x * x).sum(1)[:, None], (y * y).sum(1)[None, :]
+
+    def top(cross):
+        return torch.sort((xsq - 2.0 * torch.from_numpy(cross)) + ysq, dim=1).values[:, :5]
+    # the card's check of the kernel's distances: rtol 1e-5, atol 1e-3
+    torch.testing.assert_close(top(_stream_3xtf32(test, train)), want_d, rtol=1e-5, atol=1e-3)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(top(_stream_3xtf32(test, train, three_products=False)),
+                                   want_d, rtol=1e-5, atol=1e-3)
+
+
+def _kmeans_wide_sums(x, assign, k, blocks, sort_segments=True):
+    """The wide route's per-block partial sums (tiles b, b + blocks, ...
+    of 128 points): with sort_segments, each tile's points sorted by the
+    key cluster << 7 | point and each cluster's segment added in point
+    order into a running sum that starts from the partial (the kernel's
+    way); else every point added to its cluster in point order."""
+    n, d = x.shape
+    part = np.zeros((blocks, k, d), dtype=np.float32)
+    for t in range(-(-n // 128)):
+        b, idx = t % blocks, np.arange(128 * t, min(n, 128 * t + 128))
+        if not sort_segments:
+            for p in idx:
+                part[b, assign[p]] += x[p]
+            continue
+        order = np.sort((assign[idx].astype(np.int64) << 7) | (idx - 128 * t))
+        cl, pt = order >> 7, 128 * t + (order & 127)
+        starts = np.flatnonzero(np.r_[True, cl[1:] != cl[:-1]])
+        for s0, s1 in zip(starts, np.r_[starts[1:], cl.size]):
+            acc = part[b, cl[s0]].copy()
+            for p in pt[s0:s1]:
+                acc += x[p]
+            part[b, cl[s0]] = acc
+    return part
+
+
+def _kmeans_wide_emulation(x, c, sms=2):
+    """kmeans_assign's wide route: the assignment from 3xTF32 scores, the
+    sums from the sorted segments per block, the block partials reduced by
+    32 lanes striding over the blocks and a shuffle tree."""
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    (n, d), k = x.shape, c.shape[0]
+    half = torch.from_numpy(_stream_3xtf32(x, c)) - 0.5 * (ct * ct).sum(1)
+    assign = torch.argmax(half, dim=1)        # the first index on ties
+    sse = ((xt * xt).sum(1) - 2.0 * half.amax(1)).sum()
+    blocks = tkm.wide_blocks(n, k, d, sms)
+    part = torch.from_numpy(_kmeans_wide_sums(x, assign.numpy(), k, blocks))
+    lanes = torch.zeros((32, k, d))
+    for b in range(blocks):
+        lanes[b % 32] = lanes[b % 32] + part[b]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[torch.arange(32) ^ off]
+    return lanes[0], torch.bincount(assign, minlength=k).to(torch.int32), sse
+
+
+@pytest.mark.parametrize("n,d,k", [(3000, 13, 300), (1001, 5, 65), (700, 40, 7)])
+def test_kmeans_sorted_segment_sums_equal_the_in_order_sums(n, d, k):
+    """The cluster-sorted segments, each added in point order, give every
+    block partial of the in-order sums bit for bit, on random inputs."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    assign = rng.integers(0, k, size=n)
+    got = _kmeans_wide_sums(x, assign, k, blocks=3)
+    want = _kmeans_wide_sums(x, assign, k, blocks=3, sort_segments=False)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n,d,k", [(2000, 50, 65), (700, 257, 16), (1500, 20, 200)])
+def test_kmeans_wide_emulation_is_exact_on_integer_inputs(n, d, k):
+    x, c = _km_inputs(n + d, n, d, k, integer=True)
+    sums, counts, sse = _kmeans_wide_emulation(x, c)
+    want = tkm.kmeans_assign_plain(torch.from_numpy(x), torch.from_numpy(c))
+    assert torch.equal(sums, want[0]) and torch.equal(counts, want[1])
+    assert torch.equal(sse, want[2])
+
+
+@pytest.mark.parametrize("n,d,k", [(5000, 50, 65), (1000, 257, 16)])
+def test_kmeans_wide_emulation_meets_the_card_tolerance(n, d, k):
+    x, c = _km_inputs(n, n, d, k, integer=False)
+    # drop the points whose two best centroids score within 1e-4, as the card checks do
+    half = x.astype(np.float64) @ c.T.astype(np.float64) - 0.5 * (c.astype(np.float64) ** 2).sum(1)
+    top2 = np.sort(half, axis=1)[:, -2:]
+    x = np.ascontiguousarray(x[(top2[:, 1] - top2[:, 0]) >= 1e-4])
+    want, counts, want_sse = tkm.kmeans_assign_plain(torch.from_numpy(x), torch.from_numpy(c))
+    got, got_counts, got_sse = _kmeans_wide_emulation(x, c)
+    assert torch.equal(got_counts, counts)
+    torch.testing.assert_close(got_sse, want_sse, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
 
 # the oracle of the wide routes, anchored to the Pallas kernels in
