@@ -57,8 +57,7 @@ VARIANTS = {
                M: [("    const int nt_active = (min(PW, k - c0) + 15) / 16 * 2;",
                     "    const int nt_active = 0;")]},
     "ko_load": {K: [(LOAD, "")], M: [(LOAD, "")]},
-    "ko_1x": {C: [("          mma_tf32(step, al, bh[2 * h], bh[2 * h + 1]);\n"
-                   "          mma_tf32(step, ah, bl[2 * h], bl[2 * h + 1]);\n", "")]},
+    "ko_1x": {C: [("  mma_tf32(step, al, bh0, bh1);\n  mma_tf32(step, ah, bl0, bl1);\n", "")]},
     "ko_sums": {M: [SUMS]},
     "ko_sort": {M: [SUMS, ("      for (int size = 2; size <= 32; size <<= 1) {",
                            "      for (int size = 64; size <= 32; size <<= 1) {"),

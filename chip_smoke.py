@@ -8,9 +8,10 @@ Run from the repository root, with no arguments:
 ``--parent DIR`` also times the kernels of another checkout of the
 repository (for example ``git archive`` of the parent commit unpacked
 into ``build/parent``) beside this one's, in the same process on the same
-inputs, for ``kmeans_assign``, bf16 ``ssd_scan`` and ``rmsnorm`` (every
-timed shape): their rows then carry ``parent_ms``, read before and after
-this checkout's kernel.
+inputs, for ``knn_topk`` and ``kmeans_assign`` (the shapes their narrow
+routes take: the path shape and the edges k 32 / d 64, k 64 / d 256),
+bf16 ``ssd_scan`` and ``rmsnorm`` (every timed shape): their rows then
+carry ``parent_ms``, read before and after this checkout's kernel.
 
 Phases, in order; each prints one JSON line with its wall time, and any
 failure raises (the script then exits non-zero without a result):
@@ -37,7 +38,11 @@ failure raises (the script then exits non-zero without a result):
              timed at shapes past their tensor-core routes (their rows'
              ``wide_shapes``: the depth-streamed wide CUDA routes) and at
              each route's edges, k and d one either side (``edge_pairs``),
-             and each row names the route it took;
+             and each row names the route it took; each tensor-core route
+             is also held at its widest on points far from the origin
+             (``far_case``: knn d 64, k 32; kmeans d 256, k 64 on
+             run_kmeans's own fills), where an accumulator carried through
+             the depth drifts;
 4. knn     — run_knn on 2M x 50 training rows, 50k test rows;
 5. kmeans  — run_kmeans on 8M x 50 points, k=16, 10 iterations, twice;
 6. linreg  — run_linreg on 2M x 100 rows;
@@ -165,7 +170,15 @@ failure raises (the script then exits non-zero without a result):
              at world size 1 on the card: the ranks' losses equal, within
              TP_EP_LOSS_ATOL of one rank's, launches exactly phase
              train's count per step on each rank; step seconds and
-             nvidia-smi's name and power limit printed.
+             nvidia-smi's name and power limit printed;
+22. codecs — the paper's Table 1 on the card's host: the port's
+             ``benchmark_codecs`` at 1024, 4096 and 8192 square float64
+             blocks, 3 repeats, one line per codec and size with its
+             serialize and deserialize seconds beside the card's own
+             crossing of that block (``.cpu()`` and the upload back) and
+             nvidia-smi's name and power limit; every codec holds every
+             size, every time finite and positive, the 1024 block bitwise
+             through each codec, the mmap file and a spill.
 
 Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
@@ -181,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import inspect
 import json
 import os
@@ -380,7 +394,7 @@ def load_parent(root: str) -> dict:
     sys.modules["parent_repro_torch"] = mod
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f"parent_repro_torch.kernels.{name}")
-            for name in ("kmeans_assign", "ssd_scan", "rmsnorm")}
+            for name in ("knn_topk", "kmeans_assign", "ssd_scan", "rmsnorm")}
 
 
 def with_parent(name: str, call, t_new) -> dict:
@@ -560,6 +574,35 @@ def knn_against_plain(knn_k, test, train, labels, k, cuda, far=False) -> float:
     return (got[0] - want_d[:, :k]).abs().max().item()
 
 
+def knn_against_float64(knn_k, test, train, labels, k, cuda) -> tuple:
+    """For data far from the origin, where fp32's own rounding of |x|^2,
+    x.y and |y|^2 passes the atol 1e-3 that knn_against_plain holds two
+    fp32 results to (on an H100 the plain fp32 version lay 1.6e-3 off the
+    float64 distances at d 64, |x| ~ 40): two launches bitwise equal;
+    the distances no further from the plain version's in float64 than
+    the plain fp32 version's are; labels equal to the float64 version's
+    away from near-ties, pairs closer than twice the larger of the
+    kernel's error and knn_against_plain's ``far`` rule.  Returns (the
+    kernel's largest distance error, the plain fp32 version's)."""
+    m, n = test.shape[0], train.shape[0]
+    got = knn_k.knn_topk_cuda(test, train, labels, k)
+    assert bitwise_equal(got, knn_k.knn_topk_cuda(test, train, labels, k)), \
+        "knn_topk: two launches differ"
+    kk = min(k + 1, n)
+    want_d, want_l = knn_k.knn_topk_plain(test.double(), train.double(), labels, kk)
+    plain_d = knn_k.knn_topk_plain(test, train, labels, k)[0]
+    err = (got[0].double() - want_d[:, :k]).abs().max().item()
+    plain_err = (plain_d.double() - want_d[:, :k]).abs().max().item()
+    assert err <= plain_err, f"knn_topk {err} off the float64 distances, the plain fp32 {plain_err}"
+    gap = want_d[:, 1:] - want_d[:, :-1]
+    sep = torch.ones((m, kk + 1), dtype=torch.bool, device=cuda)
+    sep[:, 1:kk] = gap > 2 * torch.clamp(1e-3 + 1e-5 * want_d[:, 1:].abs(), min=err)
+    isolated = sep[:, :k] & sep[:, 1:k + 1]
+    assert torch.equal(got[1][isolated], want_l[:, :k][isolated]), \
+        "knn_topk labels differ away from near-ties"
+    return err, plain_err
+
+
 def check_knn(knn_k, gen, cuda):
     """knn_topk kernel vs its plain version; returns the kernels-line row."""
     def exact_case(m, n, d, k, **ties):
@@ -586,12 +629,27 @@ def check_knn(knn_k, gen, cuda):
     normal_case(300, 9000, 20, 100)             # the wide route: k past the lists,
     normal_case(200, 3000, 300, 5)              # d past the tile,
     normal_case(70, 9000, 7, 1000)              # lists in global scratch
+    # the narrow route at its edge (d 64, k 32) on points ~40 from the origin
+    from repro_torch.algorithms.kmeans import _np_fill_fragment
+    m, n, d, k = 2000, 100_000, 64, 32
+    pts = torch.from_numpy(_np_fill_fragment(SEED, m + n, d).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(gen.integers(0, 4, size=n).astype(np.int32)).to(cuda)
+    assert knn_k.route(k, d) == "tensor_cores"
+    err, plain_err = knn_against_float64(knn_k, pts[:m].contiguous(), pts[m:].contiguous(),
+                                         labels, k, cuda)
+    far_case = {"shape": {"m": m, "n": n, "d": d, "k": k}, "max_abs_err_float64": err,
+                "plain_max_abs_err_float64": plain_err}
 
-    def timed(m, n, d, k):
+    def timed(m, n, d, k, parent=False):
         exact_case(m, n, d, k)
         test, train, labels, err = normal_case(m, n, d, k)
-        t = times(lambda: knn_k.knn_topk_cuda(test, train, labels, k),
-                  lambda: knn_k.knn_topk_plain(test, train, labels, k), reps=10, plain_reps=3)
+        def run():
+            return times(lambda: knn_k.knn_topk_cuda(test, train, labels, k),
+                         lambda: knn_k.knn_topk_plain(test, train, labels, k), reps=10,
+                         plain_reps=3)
+
+        t = with_parent("knn_topk", lambda mod: mod.knn_topk_cuda(test, train, labels, k), run) \
+            if parent else run()
         nbytes = 4.0 * (m * d + n * d + n) + 8.0 * m * k
         fp32_cores = bound(2.0 * m * n * d, nbytes)
         # both routes: three TF32 products per pair on the tensor cores
@@ -601,17 +659,19 @@ def check_knn(knn_k, gen, cuda):
                 "bound_ms_fp32_cores": fp32_cores[0]}
 
     # the path shape: one KNN_frag task of phase 4, on the tensor cores
-    row = timed(12_500, 125_000, 50, 5)
+    row = timed(12_500, 125_000, 50, 5, parent=True)
     assert row["cuda_route"] == "tensor_cores", row["cuda_route"]
     row["wide_shapes"] = [timed(12_500, 125_000, 50, 33), timed(12_500, 125_000, 300, 5)]
     assert all(w["cuda_route"] == "wide" for w in row["wide_shapes"])
     # the routes' edges, each pair timed in this run: k 32 | 33 at d 50, d 64 | 65 at
     # k 5; and d 272 | 273, the edge of the tensor-core route's shared memory
-    row["edge_pairs"] = [[timed(12_500, 125_000, 50, 32), row["wide_shapes"][0]],
-                         [timed(12_500, 125_000, 64, 5), timed(12_500, 125_000, 65, 5)],
+    row["edge_pairs"] = [[timed(12_500, 125_000, 50, 32, parent=True), row["wide_shapes"][0]],
+                         [timed(12_500, 125_000, 64, 5, parent=True),
+                          timed(12_500, 125_000, 65, 5)],
                          [timed(12_500, 125_000, 272, 5), timed(12_500, 125_000, 273, 5)]]
     assert [[w["cuda_route"] for w in pair] for pair in row["edge_pairs"]] == \
         [["tensor_cores", "wide"]] * 2 + [["wide", "wide"]]
+    row["far_case"] = far_case
     return {"name": "knn_topk", "route": "cuda",
             "source": "src/repro_torch/csrc/knn_topk.cu",
             "replaces": "src/repro/kernels/knn_topk.py:86", **row}
@@ -645,7 +705,8 @@ def kmeans_against_plain(km_k, x, c, far=False) -> tuple:
     with ``far`` (data far from the origin, where the scores' rounding
     passes 1e-4) within 1e-4 + 1e-5 |x| max|c|.
     Then two launches bitwise equal, counts equal to the plain version's,
-    sums and sse within rtol 1e-5.  Returns (x kept, largest sums error)."""
+    sums and sse within rtol 1e-5.  Returns (x kept, largest sums error,
+    the sse's relative error)."""
     half = x @ c.T - 0.5 * (c * c).sum(1)[None, :]
     top2 = half.topk(2, dim=1).values
     tie = 1e-4 + 1e-5 * x.norm(dim=1) * c.norm(dim=1).max() if far else 1e-4
@@ -658,7 +719,7 @@ def kmeans_against_plain(km_k, x, c, far=False) -> tuple:
     torch.testing.assert_close(got[0], sums, rtol=1e-5,
                                atol=1e-5 * sums.abs().max().item())
     torch.testing.assert_close(got[2], sse, rtol=1e-5, atol=0.0)
-    return x, (got[0] - sums).abs().max().item()
+    return x, (got[0] - sums).abs().max().item(), abs(got[2].item() / sse.item() - 1.0)
 
 
 def check_kmeans(km_k, gen, cuda):
@@ -674,12 +735,24 @@ def check_kmeans(km_k, gen, cuda):
     def normal_case(n, d, k):
         x = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(cuda)
         c = torch.from_numpy(gen.standard_normal((k, d)).astype(np.float32)).to(cuda)
-        x, err = kmeans_against_plain(km_k, x, c)
+        x, err, _ = kmeans_against_plain(km_k, x, c)
         return x, c, err
 
     normal_case(1007, 13, 5)                    # ragged tile, k not a multiple of 4
     normal_case(100_003, 50, 16)
     normal_case(20_011, 300, 1000)              # the wide route, both past
+    # the narrow route on run_kmeans's own fills at its widest (d 256, k 64):
+    # points ~80 from the origin, centroids drawn from them plus 0.3 N(0, 1)
+    from repro_torch.algorithms.kmeans import _np_fill_fragment
+    n, d, k = 100_000, 256, 64
+    pts = _np_fill_fragment(SEED, n, d).astype(np.float32)
+    cents = pts[gen.choice(n, k, replace=False)] + 0.3 * gen.standard_normal((k, d))
+    x = torch.from_numpy(pts).to(cuda)
+    c = torch.from_numpy(cents.astype(np.float32)).to(cuda)
+    assert km_k.route(k, d) == "tensor_cores"
+    kept, far_err, far_sse = kmeans_against_plain(km_k, x, c, far=True)
+    far_case = {"shape": {"n": kept.shape[0], "d": d, "k": k}, "max_abs_err": far_err,
+                "sse_rel_err": far_sse}
 
     def timed(n, d, k, parent=False):
         exact_case(10_000, d, k)              # sse below 2^24
@@ -705,10 +778,11 @@ def check_kmeans(km_k, gen, cuda):
     row["wide_shapes"] = [timed(500_000, 50, 65), timed(100_000, 257, 16)]
     assert all(w["cuda_route"] == "wide" for w in row["wide_shapes"])
     # the routes' edges, each pair timed in this run: k 64 | 65 at d 50, d 256 | 257 at k 16
-    row["edge_pairs"] = [[timed(500_000, 50, 64), row["wide_shapes"][0]],
-                         [timed(100_000, 256, 16), row["wide_shapes"][1]]]
+    row["edge_pairs"] = [[timed(500_000, 50, 64, parent=True), row["wide_shapes"][0]],
+                         [timed(100_000, 256, 16, parent=True), row["wide_shapes"][1]]]
     assert [[w["cuda_route"] for w in pair] for pair in row["edge_pairs"]] == \
         [["tensor_cores", "wide"]] * 2
+    row["far_case"] = far_case
     return {"name": "kmeans_assign", "route": "cuda",
             "source": "src/repro_torch/csrc/kmeans_assign.cu",
             "replaces": "src/repro/kernels/kmeans_assign.py:65", **row}
@@ -1139,7 +1213,7 @@ def wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda) -> dict
     pts = torch.from_numpy(kmeans._np_fill_fragment(SEED, mc["n_points"] // mc["fragments"],
                                                     mc["d"]).astype(np.float32)).to(cuda)
     cents = torch.from_numpy(r1.centroids.astype(np.float32)).to(cuda)
-    kept, psum_err = kmeans_against_plain(km_k, pts, cents, far=True)
+    kept, psum_err, _ = kmeans_against_plain(km_k, pts, cents, far=True)
     kmeans_exact_case(km_k, gen, cuda, 8000, mc["d"], mc["k"])          # sse below 2^24
     kmeans_exact_case(km_k, gen, cuda, pts.shape[0], mc["d"], mc["k"], sse_exact=False)
     psum_ms = device_ms(lambda: km_k.kmeans_assign_cuda(pts, cents), reps=10)
@@ -1707,6 +1781,73 @@ def tp_ep_ranks(jobs) -> list:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+CODEC_SIZES = (1024, 4096, 8192)   # phase codecs: Table 1's square float64 blocks
+CODEC_REPEATS = 3
+
+
+def codecs_phase(ph, serialization, cuda, smi: str) -> None:
+    """The paper's Table 1 on the card's host: the port's
+    ``benchmark_codecs`` (best serialize and deserialize seconds of
+    CODEC_REPEATS per codec and block size, the file-backed ``mmap`` codec
+    among them), each beside the port's own crossing of an address-space
+    boundary for that block: a card tensor goes device -> host (``.cpu()``)
+    before any codec touches it, and comes back by an upload, each timed
+    between two synchronisations.  Every codec holds every size, every
+    time is finite and positive, and the 1024 block goes through each
+    codec, the mmap file and a spill bitwise."""
+    table = serialization.benchmark_codecs(sizes=CODEC_SIZES, dtype=np.float64,
+                                           repeats=CODEC_REPEATS)
+    assert list(table) == [*serialization.CODECS, "mmap"], list(table)
+    rng = np.random.default_rng(0)          # benchmark_codecs' blocks, in its order
+    crossing = {}
+    for size in CODEC_SIZES:
+        host = torch.from_numpy(rng.standard_normal((size, size)).astype(np.float64))
+        dev = host.to(cuda)
+        to_host = to_card = float("inf")
+        for _ in range(CODEC_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = dev.cpu()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            back = got.to(cuda)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            to_host, to_card = min(to_host, t1 - t0), min(to_card, t2 - t1)
+        assert torch.equal(got, host) and torch.equal(back, dev), size
+        crossing[size] = (to_host, to_card)
+        del host, dev, got, back
+    torch.cuda.empty_cache()
+    for name, per_size in table.items():
+        assert list(per_size) == list(CODEC_SIZES), (name, list(per_size))
+        for size, (s_sec, d_sec) in per_size.items():
+            assert np.isfinite([s_sec, d_sec]).all() and s_sec > 0 and d_sec > 0, \
+                (name, size, s_sec, d_sec)
+            emit({"codec": name, "size": size, "dtype": "float64", "s_seconds": s_sec,
+                  "d_seconds": d_sec, "card_to_host_seconds": crossing[size][0],
+                  "host_to_card_seconds": crossing[size][1], "nvidia_smi": smi})
+    block = np.random.default_rng(SEED).standard_normal((1024, 1024))
+    for name in serialization.CODECS:
+        out = np.asarray(serialization.deserialize(serialization.serialize(block, name), name))
+        assert out.dtype == block.dtype and out.tobytes() == block.tobytes(), name
+    mc = serialization.MmapCodec()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as tmp:
+        path = os.path.join(tmp, "block.rjx")
+        mc.ser_to_file(block, path)
+        view = mc.de_from_file(path)
+        assert np.asarray(view).tobytes() == block.tobytes(), "mmap"
+        spilled = mc.spill(block, dir=tmp)
+        assert np.asarray(spilled).tobytes() == block.tobytes(), "spill"
+        del view, spilled
+        gc.collect()
+        assert os.listdir(tmp) == ["block.rjx"], os.listdir(tmp)
+    ph.info.update(sizes=list(CODEC_SIZES), dtype="float64", repeats=CODEC_REPEATS,
+                   table={name: {str(size): list(t) for size, t in per_size.items()}
+                          for name, per_size in table.items()},
+                   crossing={str(size): list(t) for size, t in crossing.items()},
+                   nvidia_smi=smi)
+
+
 def tp_ep_phase(ph, ops, lm, train, get_config, cuda) -> dict:
     """Phase tp_ep: the TP sublayers and the expert-parallel MoE at full
     width, (a) at world size 1 against the plain layers and (b) on two
@@ -2055,7 +2196,8 @@ def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout whose kmeans_assign, ssd_scan and rmsnorm kernels are "
+                    help="a checkout whose knn_topk, kmeans_assign, ssd_scan and rmsnorm "
+                         "kernels are "
                          "timed beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2068,7 +2210,7 @@ def main(argv) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.algorithms import kmeans, knn, linreg
     from repro_torch.algorithms.common import make_blobs
-    from repro_torch.core import api
+    from repro_torch.core import api, serialization
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import kmeans_assign as km_k
     from repro_torch.kernels import knn_topk as knn_k
@@ -2583,6 +2725,9 @@ def main(argv) -> int:
 
     with Phase("tp_ep") as ph:
         by_phase["tp_ep"] = tp_ep_phase(ph, ops, lm, train, get_config, cuda)
+
+    with Phase("codecs") as ph:
+        codecs_phase(ph, serialization, cuda, smi)
 
     for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
         launches[name] = sum(counts[name] for counts in by_phase.values())

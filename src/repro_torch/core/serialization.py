@@ -1,25 +1,37 @@
-"""Serialization codecs (paper §3.3.3 + Table 1), the port's copy,
-trimmed to what its object planes use.
+"""Pluggable serialization codecs (paper §3.3.3 + Table 1), the port's copy.
+
+COMPSs exchanges task parameters through a language-agnostic byte channel;
+RCOMPSs benchmarked nine R serializers and picked RMVL (a low-overhead,
+memory-mappable binary format).  This module keeps the methodology: a
+codec registry with a common interface, a harness that measures serialize
+and deserialize times of square blocks per codec (:func:`benchmark_codecs`,
+Table 1), and a default chosen from the measurements.
 
 * ``pickle`` — stdlib pickle protocol 5 (general; the fallback for
   non-array payloads).
+* ``npy``    — ``numpy.save`` container (array-only, portable).
 * ``raw``    — 24-byte header + raw buffer; the process backend's
   shared-memory plane lays every segment out as a ``raw`` blob body
   (header in the ref, buffer in the segment), so a reader rebuilds the
   array with ``np.frombuffer`` — zero copies.
 * ``mmap``   — the RMVL analogue: header + raw buffer written to a file;
   deserialization returns a ``numpy.memmap`` view — *zero-copy
-  reconstruction*; the memory governor spills through it.
+  reconstruction*; the memory governor spills through it, and
+  :meth:`MmapCodec.spill` packages the write-then-own round trip.
 
 In-process task hand-off passes values by reference (no codec):
-serialization only happens at address-space boundaries — the process
-backend's worker pipes and segments, and spill.
+serialization only happens at address-space boundaries — the process and
+cluster backends' pipes, segments and frames, and spill.  A card tensor
+crosses such a boundary as host bytes: it goes device -> host first.
 """
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import struct
+import tempfile
+import time
 import weakref
 from typing import Any, Callable, Dict, Tuple
 
@@ -69,6 +81,17 @@ def _pickle_de(data: bytes) -> Any:
     return pickle.loads(data)
 
 
+def _npy_ser(obj: Any) -> bytes:
+    arr = np.asarray(obj)
+    bio = io.BytesIO()
+    np.save(bio, arr, allow_pickle=False)
+    return bio.getvalue()
+
+
+def _npy_de(data: bytes) -> Any:
+    return np.load(io.BytesIO(data), allow_pickle=False)
+
+
 def _raw_ser(obj: Any) -> bytes:
     arr = as_c_contiguous(obj)
     return _pack_header(arr) + arr.tobytes()
@@ -91,6 +114,7 @@ class Codec:
 
 CODECS: Dict[str, Codec] = {
     "pickle": Codec("pickle", _pickle_ser, _pickle_de),
+    "npy": Codec("npy", _npy_ser, _npy_de, array_only=True),
     "raw": Codec("raw", _raw_ser, _raw_de, array_only=True),
 }
 
@@ -105,8 +129,8 @@ def serialize(obj: Any, codec: str = DEFAULT_CODEC) -> bytes:
 
 
 def deserialize(data: bytes, codec: str = DEFAULT_CODEC) -> Any:
-    # the pickle fallback is self-describing; raw has a magic to sniff
-    if codec == "raw" and data[:4] != _MAGIC:
+    # the pickle fallback is self-describing; raw and npy have magics to sniff
+    if codec in ("raw", "npy") and not (data[:4] == _MAGIC or data[:6] == b"\x93NUMPY"):
         return CODECS["pickle"].de(data)
     return CODECS[codec].de(data)
 
@@ -123,8 +147,12 @@ class MmapCodec:
 
     ``owned=True`` ties the file's lifetime to the returned view (a
     ``weakref.finalize`` unlinks it at GC — on POSIX the mapping stays
-    valid even after the unlink, so live slices keep working).
+    valid even after the unlink, so live slices keep working); :meth:`spill`
+    packages the write-then-own round trip.
     """
+
+    name = "mmap"
+    array_only = True
 
     def ser_to_file(self, obj: Any, path: str) -> int:
         arr = as_c_contiguous(obj)
@@ -144,3 +172,63 @@ class MmapCodec:
         if owned:
             weakref.finalize(view, _unlink_quiet, path)
         return view
+
+    def spill(self, obj: Any, dir: str = None) -> np.ndarray:
+        """Write ``obj`` to a fresh temp file and return a self-cleaning
+        zero-copy view: the file is unlinked when the view is collected."""
+        fd, path = tempfile.mkstemp(prefix="rjax_spill_", suffix=".rjx", dir=dir)
+        os.close(fd)
+        try:
+            self.ser_to_file(obj, path)
+            return self.de_from_file(path, owned=True)
+        except BaseException:
+            _unlink_quiet(path)
+            raise
+
+
+# -------------------------------------------------------------- Table 1 bench
+def benchmark_codecs(sizes=(1024, 4096, 8192), dtype=np.float64, repeats: int = 3):
+    """Table 1's method: square blocks of increasing size, the best
+    serialize (S) and deserialize (D) wall times of ``repeats`` per codec,
+    and the file-backed ``mmap`` codec (D: the view and its first page).
+    Returns ``{codec: {size: (s_seconds, d_seconds)}}``."""
+    rng = np.random.default_rng(0)
+    results: Dict[str, Dict[int, Tuple[float, float]]] = {}
+    tmpdir = tempfile.mkdtemp(prefix="rjax_serbench_")
+    mc = MmapCodec()
+    try:
+        for size in sizes:
+            arr = rng.standard_normal((size, size)).astype(dtype)
+            for name, codec in CODECS.items():
+                s_best = d_best = float("inf")
+                for _ in range(repeats):
+                    t0 = time.perf_counter()
+                    blob = codec.ser(arr)
+                    t1 = time.perf_counter()
+                    out = codec.de(blob)
+                    t2 = time.perf_counter()
+                    s_best = min(s_best, t1 - t0)
+                    d_best = min(d_best, t2 - t1)
+                assert np.asarray(out).shape == arr.shape
+                del blob, out
+                results.setdefault(name, {})[size] = (s_best, d_best)
+            path = os.path.join(tmpdir, f"blk{size}.rjx")
+            s_best = d_best = float("inf")
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                mc.ser_to_file(arr, path)
+                t1 = time.perf_counter()
+                view = mc.de_from_file(path)
+                _ = view[0, 0]  # touch the first page
+                t2 = time.perf_counter()
+                s_best = min(s_best, t1 - t0)
+                d_best = min(d_best, t2 - t1)
+                del view
+            results.setdefault("mmap", {})[size] = (s_best, d_best)
+            _unlink_quiet(path)
+    finally:
+        try:
+            os.rmdir(tmpdir)
+        except OSError:
+            pass
+    return results

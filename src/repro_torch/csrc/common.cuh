@@ -67,6 +67,27 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// acc += a . b on one 16 x 8 tile, k 8, in 3xTF32: the products x_lo
+// y_hi, x_hi y_lo, x_hi y_hi, in that order, gathered in a fresh
+// accumulator that an fp32 add carries into acc.  The tensor cores add
+// into their fp32 accumulator without rounding to nearest (an mma's sum is
+// cut toward zero), so an accumulator carried through every step of a
+// product drifts toward zero by about half an ulp of itself a step; the
+// fresh one's ulps are those of 8 terms.  On an H100, on points ~5
+// sqrt(d) from the origin, a carried accumulator raised kmeans' sse by
+// 2.4e-5 relative at d 384 (the wide route) and by 6.6e-5 at d 256, k 64
+// (the narrow one), and moved knn distances at d 64 by 4.2e-3.
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  float step[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(step, al, bh0, bh1);
+  mma_tf32(step, ah, bl0, bl1);
+  mma_tf32(step, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += step[e];
+}
+
 // (x0, x1) -> hi = their bf16 pair, lo = the bf16 pair of what hi misses
 // (x - hi is exact in fp32); x0 in the low half, as the fragments want
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -118,13 +139,8 @@ __device__ inline void zero_shared(float* buf, int count) {
 // accumulators in registers across the whole depth, so shared memory does
 // not grow with d.  The products are 3xTF32 (x_lo y_hi + x_hi y_lo + x_hi
 // y_hi, split where the fragments are loaded), as in knn_chunk_topk.
-// The tensor cores add into their fp32 accumulator without rounding to
-// nearest (an mma's sum is cut toward zero), so an accumulator carried
-// through every step of a deep product drifts toward zero by about half
-// an ulp of itself a step: at d 384 on points ~80 from the origin that
-// raised kmeans' sse by 2.4e-5 relative.  Each 8-deep step therefore
-// gathers its three products in a fresh accumulator, whose ulps are those
-// of 8 terms, and adds it to the running one with an fp32 add.
+// Each 8-deep step gathers its three products in a fresh accumulator and
+// adds it to the running one with an fp32 add (mma_3xtf32, above).
 
 constexpr int kSliceDepth = 32;            // depth of one shared slice: 4 TF32 k-steps
 constexpr int kSliceLD = kSliceDepth + 4;  // its row stride in floats: 8 ldmatrix rows
@@ -187,9 +203,8 @@ __device__ __forceinline__ uint32_t slice_b_addr(const float* slice) {
 
 // acc[j] += A . B_j^T over the first `ksteps` 8-deep steps of one slice:
 // A the 16 rows at a_addr, B_j the 8 rows of n8 tile j at b_addr, j <
-// nt_active (even; the tiles past it are not touched).  3xTF32 per tile,
-// in the order x_lo y_hi, x_hi y_lo, x_hi y_hi, into a fresh accumulator
-// per step that an fp32 add carries into acc (see above).  Element e of acc[j] is
+// nt_active (even; the tiles past it are not touched), by mma_3xtf32 per
+// tile and step.  Element e of acc[j] is
 // row g + 8 (e >> 1), column 8 j + 2 t4 + (e & 1) (g = lane / 4, t4 =
 // lane % 4).  With SQ, sq[0] and sq[1] gather the squares of the A values
 // this lane loads for rows g and g + 8 (a quad's four lanes hold a row).
@@ -215,12 +230,7 @@ __device__ __forceinline__ void mma_slice_3xtf32(float (&acc)[NT][4], uint32_t a
         for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(rb[e]), bh[e], bl[e]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float step[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(step, al, bh[2 * h], bh[2 * h + 1]);
-          mma_tf32(step, ah, bl[2 * h], bl[2 * h + 1]);
-          mma_tf32(step, ah, bh[2 * h], bh[2 * h + 1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[2 * jp + h][e] += step[e];
+          mma_3xtf32(acc[2 * jp + h], ah, al, bh[2 * h], bh[2 * h + 1], bl[2 * h], bl[2 * h + 1]);
         }
       }
     }

@@ -28,10 +28,12 @@
 //    32w .. 32w + 31 of the tile against 16 centroids per pass as 3xTF32
 //    `mma.sync.m16n8k8` products (x_lo c_hi + x_hi c_lo + x_hi c_hi, each
 //    operand split into TF32 hi + lo: fp32-grade dot products, exact on
-//    small integers); the centroids' fragments are split once per block
-//    into shared memory.  The argmax of x.c - |c|^2/2 keeps the first
-//    strict maximum: a lane's four clusters in order, then its quad by
-//    shuffles with the lower index on ties.  |x|^2 comes from the same
+//    small integers), each 8-deep step's three in a fresh accumulator
+//    added to the running score in fp32 (repro::mma_3xtf32: an mma cuts
+//    its adds toward zero); the centroids' fragments are split once per
+//    block into shared memory.  The argmax of x.c - |c|^2/2 keeps the
+//    first strict maximum: a lane's four clusters in order, then its quad
+//    by shuffles with the lower index on ties.  |x|^2 comes from the same
 //    fragments.  (On the fp32 CUDA cores, two points per thread, the
 //    assignment cost as much as the sums.)
 //  * The sums are the Pallas kernel's second matmul, on the tensor cores:
@@ -266,12 +268,8 @@ kmeans_tc_partials(const float* __restrict__ x, const float* __restrict__ c, int
             uint32_t ah[4], al[4];
 #pragma unroll
             for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[q], al[q]);
-            mma_tf32(sc[mt][0], al, b0.x, b0.y);
-            mma_tf32(sc[mt][1], al, b1.x, b1.y);
-            mma_tf32(sc[mt][0], ah, b0.z, b0.w);
-            mma_tf32(sc[mt][1], ah, b1.z, b1.w);
-            mma_tf32(sc[mt][0], ah, b0.x, b0.y);
-            mma_tf32(sc[mt][1], ah, b1.x, b1.y);
+            repro::mma_3xtf32(sc[mt][0], ah, al, b0.x, b0.y, b0.z, b0.w);
+            repro::mma_3xtf32(sc[mt][1], ah, al, b1.x, b1.y, b1.z, b1.w);
           }
         }
         // the first strict maximum of the pass: a lane's 4 clusters in

@@ -20,9 +20,11 @@
 // value is split as hi = tf32(v) and lo = tf32(v - hi) (rounded to
 // nearest, ties away, as `cvt.rna` rounds; v - hi is exact in fp32) and
 // x.y is taken as x_lo y_hi + x_hi y_lo + x_hi y_hi with fp32
-// accumulation; what it drops, x_lo y_lo, is ~2^-22 of |x||y|.  Integer
-// values in [-3, 3] are exact in TF32 (lo = 0), so integer-valued inputs
-// keep their exact distances.  tests/test_torch_kernels.py emulates both
+// accumulation, each 8-deep step's three products in a fresh accumulator
+// added to the running one in fp32 (repro::mma_3xtf32: the tensor cores
+// cut their adds toward zero); what it drops, x_lo y_lo, is ~2^-22 of
+// |x||y|.  Integer values in [-3, 3] are exact in TF32 (lo = 0), so
+// integer-valued inputs keep their exact distances.  tests/test_torch_kernels.py emulates both
 // roundings on the CPU.
 //
 // Design:
@@ -175,6 +177,7 @@ __global__ void row_sqnorms(const float* __restrict__ x, int n, int d,
 }
 
 // One block per SM as the floor of the bound, as in csrc/flash_attention.cu.
+// (Bound to three, the K = 32 list's 184 registers would spill.)
 template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
@@ -270,9 +273,8 @@ knn_chunk_topk(const float* __restrict__ test, const float* __restrict__ train,
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            repro::mma_tf32(acc[i][j + h], al[i], bh[2 * h], bh[2 * h + 1]);
-            repro::mma_tf32(acc[i][j + h], ah[i], bl[2 * h], bl[2 * h + 1]);
-            repro::mma_tf32(acc[i][j + h], ah[i], bh[2 * h], bh[2 * h + 1]);
+            repro::mma_3xtf32(acc[i][j + h], ah[i], al[i], bh[2 * h], bh[2 * h + 1], bl[2 * h],
+                              bl[2 * h + 1]);
           }
       }
     }

@@ -13,6 +13,9 @@ ones (bf16 results within one bf16 rounding step); two launches must
 agree bitwise.  The pipelines and LM serving on the card must agree with
 the same runs on the CPU.
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 
@@ -217,6 +220,54 @@ def test_kmeans_assign_at_the_route_edges(cuda, k, d):
     assert torch.equal(got[1], pcounts)
     torch.testing.assert_close(got[0], psums, rtol=1e-5, atol=1e-5 * psums.abs().max().item())
     torch.testing.assert_close(got[2], psse, rtol=1e-5, atol=0.0)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke.py, loaded by path: its far-data checks are the card's."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("d", [50, 128, 192, 256])
+def test_kmeans_assign_narrow_route_on_far_data(cuda, smoke, d, k):
+    """The tensor-core route on run_kmeans's own fills (points ~5 sqrt(d)
+    from the origin), centroids drawn from the points plus 0.3 N(0, 1):
+    with the near-ties scaled to the data dropped, counts equal, sums
+    within rtol 1e-5 of the largest sum, sse within rtol 1e-5, two
+    launches bitwise (chip_smoke.kmeans_against_plain(far=True)).  An
+    accumulator carried through all ceil(d / 8) steps of the scores
+    drifts past that sse tolerance; a fresh one per step does not."""
+    assert tkm.route(k, d) == "tensor_cores"
+    rng = np.random.default_rng(d + k)
+    n = 100_000
+    xn = kmeans._np_fill_fragment(d + k, n, d).astype(np.float32)
+    cn = (xn[rng.choice(n, k, replace=False)] + 0.3 * rng.standard_normal((k, d)))
+    x, c = _to(cuda, xn, cn.astype(np.float32))
+    kept, sums_err, sse_err = smoke.kmeans_against_plain(tkm, x, c, far=True)
+    assert kept.shape[0] > 0.9 * n
+    print(f"d {d} k {k}: sums {sums_err} off, sse {sse_err} relative")
+
+
+def test_knn_topk_narrow_route_on_far_data(cuda, smoke):
+    """The tensor-core route at its edge (d 64, k 32) on points ~40 from
+    the origin, where fp32's own rounding of the distances passes atol
+    1e-3: the distances no further from the float64 ones than the plain
+    fp32 version's (an accumulator carried through the depth was), labels
+    equal away from near-ties, two launches bitwise
+    (chip_smoke.knn_against_float64)."""
+    m, n, d, k = 2000, 100_000, 64, 32
+    assert tknn.route(k, d) == "tensor_cores"
+    pts = kmeans._np_fill_fragment(7, m + n, d).astype(np.float32)
+    labels = np.random.default_rng(7).integers(0, 4, size=n).astype(np.int32)
+    test, train, labels = _to(cuda, pts[:m], pts[m:], labels)
+    err, plain_err = smoke.knn_against_float64(tknn, test, train, labels, k, cuda)
+    print(f"knn d {d} k {k}: {err} off the float64 distances, the plain fp32 {plain_err}")
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -630,9 +630,12 @@ def _tf32_terms(v, terms):
     return out
 
 
-def _kmeans_tc_emulation(x, c, terms=2, sms=8):
+def _kmeans_tc_emulation(x, c, terms=2, sms=8, scores=None, cut=False):
     """kmeans_assign as the kernel forms it: the assignment from 3xTF32
-    scores; per block (tiles b, b + blocks, ...) and per 8 points one
+    scores (with ``scores`` "fresh" or "carried", in the narrow route's
+    step schedule, _stream_3xtf32: each 8-deep step's three products in a
+    fresh accumulator added in fp32, or all of them carried in one; ``cut``
+    rounds each product's add toward zero); per block (tiles b, b + blocks, ...) and per 8 points one
     ``mma`` per TF32 term of x, lo first, each adding the exact sum of its
     one-hot products to its fp32 accumulator chain with one rounding (per
     term and 8-point half of a 16-point step where the kernel keeps four
@@ -642,11 +645,14 @@ def _kmeans_tc_emulation(x, c, terms=2, sms=8):
     xt, ct = torch.from_numpy(x), torch.from_numpy(c)
     (n, d), k = x.shape, c.shape[0]
     # the scores in 3xTF32 (x_lo c_hi + x_hi c_lo + x_hi c_hi), fp32 |c|^2/2
-    xh, ch = _tf32_rna(x), _tf32_rna(c)
-    xl, cl = _tf32_rna(x - xh), _tf32_rna(c - ch)
-    cross = ((torch.from_numpy(xl) @ torch.from_numpy(ch).T
-              + torch.from_numpy(xh) @ torch.from_numpy(cl).T)
-             + torch.from_numpy(xh) @ torch.from_numpy(ch).T)
+    if scores is None:
+        xh, ch = _tf32_rna(x), _tf32_rna(c)
+        xl, cl = _tf32_rna(x - xh), _tf32_rna(c - ch)
+        cross = ((torch.from_numpy(xl) @ torch.from_numpy(ch).T
+                  + torch.from_numpy(xh) @ torch.from_numpy(cl).T)
+                 + torch.from_numpy(xh) @ torch.from_numpy(ch).T)
+    else:
+        cross = torch.from_numpy(_stream_3xtf32(x, c, cut=cut, fresh_steps=scores == "fresh"))
     half = cross - 0.5 * (ct * ct).sum(1)
     assign = torch.argmax(half, dim=1)        # the first index on ties
     sse = ((xt * xt).sum(1) - 2.0 * half.amax(1)).sum()
@@ -722,6 +728,24 @@ def test_kmeans_tc_emulation_meets_the_card_tolerance(n, d, k):
     single = _kmeans_tc_emulation(x, c, terms=1)[0]
     with pytest.raises(AssertionError):
         torch.testing.assert_close(single, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("d,k", [(256, 64), (50, 16)])
+def test_kmeans_tc_emulation_fresh_steps_keep_the_sse_on_far_data(d, k):
+    """The narrow route's scores on run_kmeans's own fills (points ~5
+    sqrt(d) from the origin), centroids drawn from the points plus 0.3
+    N(0, 1), each product's add cut toward zero: an accumulator carried
+    through all ceil(d / 8) steps leaves the card's sse tolerance (rtol
+    1e-5 of the plain version's); a fresh one per step stays within."""
+    rng = np.random.default_rng(0)
+    n = 1500
+    x = _np_fill_fragment(0, n, d).astype(np.float32)
+    c = (x[rng.choice(n, k, replace=False)] + 0.3 * rng.standard_normal((k, d))).astype(np.float32)
+    want = float(tkm.kmeans_assign_plain(torch.from_numpy(x), torch.from_numpy(c))[2])
+    fresh = float(_kmeans_tc_emulation(x, c, scores="fresh", cut=True)[2])
+    carried = float(_kmeans_tc_emulation(x, c, scores="carried", cut=True)[2])
+    assert abs(fresh - want) <= 1e-5 * want
+    assert abs(carried - want) > 1e-5 * want
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -1106,6 +1130,32 @@ def test_depth_streamed_3xtf32_fresh_steps_keep_the_sse_on_far_data():
     carried = sse(_stream_3xtf32(x, c, cut=True, fresh_steps=False))
     assert abs(fresh - want) <= 1e-5 * want
     assert abs(carried - want) > 1e-5 * want
+
+
+def test_knn_far_data_fresh_steps_stay_within_the_plain_versions_error():
+    """Points ~40 from the origin at d 64 (run_kmeans's fills, the narrow
+    knn route's widest): the plain fp32 distances themselves lie past
+    atol 1e-3 of the float64 ones.  With each product's add cut toward
+    zero, the fresh-step 3xTF32 product stays no further from them than
+    the plain fp32 version; an accumulator carried through the 8 steps
+    does not (what the card's far check holds)."""
+    m, n, d, k = 200, 10_000, 64, 32
+    pts = _np_fill_fragment(0, m + n, d).astype(np.float32)
+    test, train = pts[:m], pts[m:]
+    x64, y64 = test.astype(np.float64), train.astype(np.float64)
+    exact = ((x64 ** 2).sum(1)[:, None] - 2.0 * x64 @ y64.T) + (y64 ** 2).sum(1)[None, :]
+    near = np.argpartition(exact, k, axis=1)[:, :k]      # the k nearest, any order
+    x, y = torch.from_numpy(test), torch.from_numpy(train)
+    xsq, ysq = (x * x).sum(1)[:, None].numpy(), (y * y).sum(1)[None, :].numpy()
+
+    def err(cross):
+        d2 = ((xsq - 2.0 * cross).astype(np.float32) + ysq).astype(np.float32)
+        return np.abs(np.take_along_axis(d2, near, 1) - np.take_along_axis(exact, near, 1)).max()
+
+    plain = err((x @ y.T).numpy())
+    assert plain > 1e-3
+    assert err(_stream_3xtf32(test, train, cut=True)) <= plain
+    assert err(_stream_3xtf32(test, train, cut=True, fresh_steps=False)) > plain
 
 
 @pytest.mark.parametrize("d", [273, 300, 1024])
