@@ -30,7 +30,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core import api, collectives
+from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
 from .common import calibrate_cost, resolve_device, tree_reduce_spec
@@ -48,8 +48,11 @@ def _np_fill_fragment(seed: int, n: int, d: int, n_centers: int = 8,
 def fill_fragment(seed: int, n: int, d: int, n_centers: int = 8,
                   spread: float = 5.0, device=None) -> torch.Tensor:
     """One fragment of points, (n, d) fp32 on ``device``."""
-    X = _np_fill_fragment(seed, n, d, n_centers, spread)
-    return torch.from_numpy(X.astype(np.float32)).to(resolve_device(device))
+    dev = resolve_device(device)
+    with tracing.span("generate"):
+        X = _np_fill_fragment(seed, n, d, n_centers, spread).astype(np.float32)
+    with tracing.span("upload"):
+        return torch.from_numpy(X).to(dev)
 
 
 def partial_sum(X: torch.Tensor, centroids: torch.Tensor):

@@ -31,7 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core import api, collectives
+from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
 from .common import calibrate_cost, make_blobs, resolve_device, tree_reduce_spec
@@ -42,14 +42,19 @@ def knn_fill_fragment(seed: int, n: int, d: int, n_classes: int, device=None):
     """Generate one labelled training fragment on ``device``:
     (rows (n, d) fp32, labels (n,) int32)."""
     dev = resolve_device(device)
-    X, y = make_blobs(seed, n, d, n_classes)
-    return (torch.from_numpy(X.astype(np.float32)).to(dev),
-            torch.from_numpy(y.astype(np.int32)).to(dev))
+    with tracing.span("generate"):
+        X, y = make_blobs(seed, n, d, n_classes)
+        X, y = X.astype(np.float32), y.astype(np.int32)
+    with tracing.span("upload"):
+        return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
 
 
 def knn_gen_test(seed: int, n: int, d: int, n_classes: int, device=None):
-    X, _ = make_blobs(seed, n, d, n_classes)
-    return torch.from_numpy(X.astype(np.float32)).to(resolve_device(device))
+    dev = resolve_device(device)
+    with tracing.span("generate"):
+        X = make_blobs(seed, n, d, n_classes)[0].astype(np.float32)
+    with tracing.span("upload"):
+        return torch.from_numpy(X).to(dev)
 
 
 def knn_frag(frag, test_X: torch.Tensor, k: int):

@@ -83,11 +83,17 @@ def runtime_start(n_workers: Optional[int] = None, *,
     higher depths overlap dispatch with remote execution.  Defaults to
     ``RJAX_PIPELINE_DEPTH`` (4).
 
-    ``telemetry`` toggles the live telemetry plane (DESIGN.md §17).
-    ``dashboard_port`` serves the zero-dependency live dashboard on
-    ``127.0.0.1:<port>`` (``0`` = pick an ephemeral port, read it back
-    from ``runtime.dashboard.url``; implies ``telemetry=True``);
-    ``RJAX_DASHBOARD=<port>`` does the same from the environment."""
+    ``tracing`` (on by default) keeps the task tracer
+    (``runtime.tracer``): one event per task attempt with its lifecycle
+    stamps and the body's child spans, for the Paraver / Chrome exports.
+    ``telemetry`` toggles the live telemetry plane (DESIGN.md §17): the
+    bounded task-lifecycle ring behind ``/api/tasks`` and the sampler.
+    It is off unless ``telemetry=True`` or a dashboard asks for it; the
+    tracer does not turn it on.  ``dashboard_port`` serves the
+    zero-dependency live dashboard on ``127.0.0.1:<port>`` (``0`` = pick
+    an ephemeral port, read it back from ``runtime.dashboard.url``;
+    implies ``telemetry=True``); ``RJAX_DASHBOARD=<port>`` does the same
+    from the environment."""
     global _runtime
     cfg = config if config is not None else RuntimeConfig()
     if n_workers is not None:

@@ -264,8 +264,8 @@ class RuntimeConfig:
         doc="Task-lifecycle tracer (Paraver/Chrome exports).")
     telemetry: Optional[bool] = knob(
         default=None, cast=parse_bool,
-        doc="Live telemetry plane (DESIGN.md §17); default follows "
-            "tracing.")
+        doc="Live telemetry plane (DESIGN.md §17); default off, on "
+            "with a dashboard.")
     heartbeat_s: Optional[float] = knob(
         env="RJAX_HEARTBEAT_S", default=1.0, cast=float,
         scope="agent", cli="--heartbeat-s",

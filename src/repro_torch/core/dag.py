@@ -63,6 +63,7 @@ class TaskNode:
     worker: Optional[int] = None
     node: Optional[int] = None  # which (virtual) node executed it
     submit_t: float = 0.0
+    ready_t: float = 0.0     # when it last entered READY
     start_t: float = 0.0
     end_t: float = 0.0
     error: Optional[BaseException] = None
@@ -172,7 +173,7 @@ class TaskGraph:
                     p.children.add(node.task_id)
                     unresolved += 1
         node.unresolved = unresolved
-        node.submit_t = time.perf_counter()
+        node.submit_t = node.ready_t = time.perf_counter()
         for key in node.out_keys:
             self._producers[key] = node.task_id
         self._nodes[node.task_id] = node
@@ -221,6 +222,8 @@ class TaskGraph:
             return n
 
     def _release_children_locked(self, n: TaskNode) -> List[int]:
+        """Decrement the in-degree of ``n``'s PENDING children; those it
+        releases become ready at ``n.end_t``."""
         newly_ready: List[int] = []
         for cid in n.children:
             c = self._nodes.get(cid)
@@ -235,6 +238,7 @@ class TaskGraph:
                 self._counts[TaskState.PENDING] -= 1
                 self._counts[TaskState.READY] += 1
                 c.state = TaskState.READY
+                c.ready_t = n.end_t
                 newly_ready.append(cid)
         return newly_ready
 
@@ -270,6 +274,7 @@ class TaskGraph:
         with self._lock:
             n = self._nodes[task_id]
             self._set_state_locked(n, TaskState.READY)
+            n.ready_t = time.perf_counter()
 
     def producer_of(self, key: Tuple[int, int]) -> Optional[int]:
         """The task id that produces datum ``key`` (None once pruned)."""
@@ -293,6 +298,7 @@ class TaskGraph:
             self._counts[TaskState.DONE] -= 1
             self._counts[TaskState.READY] += 1
             n.state = TaskState.READY
+            n.ready_t = time.perf_counter()
             n.error = None
             # re-arm edges to children still PENDING: their edge to this
             # task was released by the first completion, so without the

@@ -49,7 +49,7 @@ from .futures import Future, ObjectStore, TaskFailedError
 from .memory import budget_from_env
 from .scheduler import Scheduler
 from .telemetry import TelemetryHub, normalize_executor_stats
-from .tracing import TraceEvent, Tracer
+from .tracing import TraceEvent, Tracer, set_span_sink
 
 # per-worker in-flight task budget for pipelined backends (DESIGN.md §14);
 # 1 reproduces the stop-and-wait dispatch of earlier revisions
@@ -110,7 +110,7 @@ class TaskExecution:
     backend keeps in flight between ``begin_task`` and completion."""
 
     __slots__ = ("t", "args", "kwargs", "input_keys", "t0", "t_run",
-                 "worker", "node_id")
+                 "worker", "node_id", "spans")
 
     def __init__(self, t: TaskNode, args: tuple, kwargs: dict,
                  input_keys: Dict[int, Tuple[int, int]], t0: float,
@@ -125,6 +125,9 @@ class TaskExecution:
         self.t_run = t_run
         self.worker = worker
         self.node_id = node_id
+        # the body's child spans (tracing.span), collected on the thread
+        # backend while the tracer is on; None elsewhere
+        self.spans: Optional[list] = None
 
 
 class _InputsNotReady(Exception):
@@ -243,20 +246,15 @@ class Runtime:
         self.n_workers = int(n_workers)
         self.backend = backend
         self.cluster = cluster
-        # live telemetry plane (DESIGN.md §17): ring hooks follow the
-        # tracing flag unless asked for explicitly; a dashboard implies
-        # telemetry.  RJAX_DASHBOARD=<port> enables the dashboard from
-        # the environment (0 = ephemeral port).
+        # live telemetry plane (DESIGN.md §17): the ring hooks and the
+        # sampler run only when asked for, by telemetry=True or a
+        # dashboard (RJAX_DASHBOARD=<port> serves one from the
+        # environment, 0 = ephemeral port); the tracer does not turn
+        # them on, since only a dashboard reads the ring
         if dashboard_port is None:
             env_dash = os.environ.get("RJAX_DASHBOARD", "")
             dashboard_port = int(env_dash) if env_dash != "" else None
-        telemetry_on = bool(tracing) if telemetry is None else bool(telemetry)
-        if dashboard_port is not None:
-            telemetry_on = True
-        # sampler threads only when someone is watching (dashboard) or
-        # telemetry was requested explicitly — plain traced runs keep
-        # their thread count unchanged
-        self._want_sampler = bool(telemetry) or dashboard_port is not None
+        telemetry_on = bool(telemetry) or dashboard_port is not None
         try:
             self._init_rest(workers_per_node, policy, tracing, retry,
                             speculation, name, backend, backend_opts,
@@ -318,8 +316,7 @@ class Runtime:
         if dashboard_port is not None:
             from .dashboard import DashboardServer
             self.dashboard = DashboardServer(self, port=dashboard_port)
-        if (self.telemetry.enabled and self._want_sampler
-                and backend != "cluster"):
+        if self.telemetry.enabled and backend != "cluster":
             # thread/process backends have no agents to heartbeat: an
             # in-process sampler synthesizes the per-node view instead
             self.telemetry.start_sampler(self)
@@ -588,29 +585,41 @@ class Runtime:
                                    pend.t0, block=True)
 
     def complete_task(self, ex: TaskExecution, result: Any) -> None:
-        """Successful body execution: publish outputs, release children."""
+        """Successful body execution: publish outputs, release children.
+        Entry stamps the attempt's ``t_body``: under ``"thread"`` the
+        body has just returned; on the pipelined backends its reply has
+        just arrived."""
+        t_body = time.perf_counter()
         self._finish_success(ex.t, result, ex.node_id)
         self._trace_task(ex.t, ex.worker, ex.node_id, ex.t0, ok=True,
-                         t_run=ex.t_run)
+                         t_run=ex.t_run, t_body=t_body, spans=ex.spans)
 
     def fail_task(self, ex: TaskExecution, err: BaseException) -> None:
-        """Body execution raised: apply the retry policy or fail."""
+        """Body execution raised: apply the retry policy or fail.  Entry
+        stamps ``t_body``, as in :meth:`complete_task`."""
+        t_body = time.perf_counter()
         if isinstance(err, PoisonedInputError):
             self._finish_failure(ex.t, err, retryable=False)
             self._trace_task(ex.t, ex.worker, ex.node_id, ex.t0, ok=False,
-                             t_run=ex.t_run)
+                             t_run=ex.t_run, t_body=t_body, spans=ex.spans)
             return
         self._handle_task_error(ex.t, err, ex.worker, ex.node_id, ex.t0,
-                                t_run=ex.t_run)
+                                t_run=ex.t_run, t_body=t_body, spans=ex.spans)
 
     def _handle_task_error(self, t: TaskNode, err: BaseException,
                            worker: int, node_id: int, t0: float,
-                           t_run: Optional[float] = None) -> None:
+                           t_run: Optional[float] = None,
+                           t_body: Optional[float] = None,
+                           spans: Optional[list] = None) -> None:
         allowed = t.max_retries
         lost = bool(getattr(err, "lost_input", False))
         if lost:
             allowed += LOST_INPUT_RETRIES
         if self.retry.should_retry(t.attempts, allowed, err):
+            # traced before the requeue, which stamps the next attempt's
+            # ready time on the node
+            self._trace_task(t, worker, node_id, t0, ok=False, retried=True,
+                             t_run=t_run, t_body=t_body, spans=spans)
             # one unified backoff policy (DESIGN.md §19): exponential in
             # the attempt number with bounded jitter, folded with the
             # lost-input pacing — the datum only reappears once lineage
@@ -628,38 +637,48 @@ class Runtime:
                 timer.start()
             else:
                 self._requeue_retry(t.task_id)
-            self._trace_task(t, worker, node_id, t0, ok=False, retried=True,
-                             t_run=t_run)
             return
         self._finish_failure(t, err, retryable=True)
-        self._trace_task(t, worker, node_id, t0, ok=False, t_run=t_run)
+        self._trace_task(t, worker, node_id, t0, ok=False, t_run=t_run,
+                         t_body=t_body, spans=spans)
 
     def _requeue_retry(self, task_id: int) -> None:
         self.graph.requeue_for_retry(task_id)
         self.scheduler.push(task_id)
 
     def _execute(self, tid: int, worker: int, node_id: int) -> None:
-        """Synchronous task lifecycle — the non-pipelined (thread) path."""
+        """Synchronous task lifecycle — the non-pipelined (thread) path.
+        While the tracer is on, the body's child spans collect in a list
+        installed on this thread for the body's duration."""
         ex = self.begin_task(tid, worker, node_id)
         if ex is None:
             return
+        if self.tracer.enabled:
+            ex.spans = []
+            set_span_sink(ex.spans)
         try:
             result = self.executor.invoke(worker, ex.t.fn, ex.args, ex.kwargs,
                                           input_keys=ex.input_keys)
         except BaseException as err:
+            set_span_sink(None)
             self.fail_task(ex, err)
             return
+        set_span_sink(None)
         self.complete_task(ex, result)
 
     def _trace_task(self, t: TaskNode, worker: int, node_id: int, t0: float,
                     ok: bool, retried: bool = False,
-                    t_run: Optional[float] = None) -> None:
+                    t_run: Optional[float] = None,
+                    t_body: Optional[float] = None,
+                    spans: Optional[list] = None) -> None:
         t1 = time.perf_counter()
         self.tracer.record(TraceEvent(
             kind="task", name=t.name, worker=worker, node=node_id,
             t0=t0, t1=t1, task_id=t.task_id,
             meta={"ok": ok, "retried": retried, "attempt": t.attempts,
                   "speculative_of": t.speculative_of},
+            t_ready=t.ready_t, t_run=t_run, t_body=t_body,
+            spans=tuple(spans) if spans else (),
         ))
         if self.telemetry.enabled:
             self.telemetry.note_task(t.task_id, t.name, worker, node_id,

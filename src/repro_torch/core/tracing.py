@@ -1,11 +1,22 @@
 """Extrae/Paraver-style execution tracing (paper §3.3.4, Fig. 10).
 
-The tracer records one event per task attempt (worker, node, task name,
-start/end) plus runtime lifecycle events.  From a trace we derive the
-quantities the paper reads off Paraver timelines: per-worker utilization,
-parallel efficiency, serialization share, and an ASCII Gantt rendering for
-quick terminal inspection.  Two file exports: a minimal ``.prv``-like
-format familiar to Paraver users, and the Chrome trace-event JSON
+The tracer records one event per task attempt: worker, node, task name,
+and the attempt's lifecycle stamps, all from ``time.perf_counter()``:
+
+* ``t_ready`` — the task became ready (its last input was published, or
+  it was submitted with none, or a retry requeued it);
+* ``t0`` — a worker claimed it (dispatch);
+* ``t_run`` — its inputs were resolved and the body is about to run;
+* ``t_body`` — the body returned (on the pipelined backends: its reply
+  arrived);
+* ``t1`` — its outputs were published and its dependents released;
+
+plus ``spans``, the ``(name, start, end)`` child spans the body itself
+recorded with :func:`span` (thread backend only).  From a trace we derive
+the quantities the paper reads off Paraver timelines: per-worker
+utilization, parallel efficiency, and an ASCII Gantt rendering for quick
+terminal inspection.  Two file exports: a minimal ``.prv``-like format
+familiar to Paraver users, and the Chrome trace-event JSON
 (``to_chrome_trace``) that opens directly in Perfetto / ``about:tracing``.
 
 :class:`TaskStream` is the live-telemetry counterpart (DESIGN.md §17): a
@@ -20,13 +31,13 @@ import json
 import os
 import threading
 import time
-from dataclasses import dataclass, asdict, field
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass
 class TraceEvent:
-    kind: str            # "task" | "serialize" | "transfer" | "runtime"
+    kind: str            # "task"
     name: str
     worker: int
     node: int
@@ -34,10 +45,50 @@ class TraceEvent:
     t1: float
     task_id: int = -1
     meta: dict = field(default_factory=dict)
+    t_ready: Optional[float] = None
+    t_run: Optional[float] = None
+    t_body: Optional[float] = None
+    spans: Tuple[Tuple[str, float, float], ...] = ()
 
     @property
     def dt(self) -> float:
         return self.t1 - self.t0
+
+
+# the span sink of the task body running on this thread: a list the
+# runtime installs around a thread-backend body while its tracer is on,
+# None everywhere else
+_local = threading.local()
+
+
+def set_span_sink(sink: Optional[list]) -> None:
+    """Install ``sink`` as this thread's span sink (``None``: spans are
+    dropped)."""
+    _local.sink = sink
+
+
+class span:
+    """``with span("upload"): ...`` — a child span of the running task
+    body.  Appends ``(name, start, end)`` to the sink the runtime
+    installed on this thread, which ``TraceEvent.spans`` then carries.
+    With no sink (outside a runtime, in a process or cluster worker, or
+    with tracing off) it costs one thread-local attribute read."""
+
+    __slots__ = ("name", "_sink", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._sink = getattr(_local, "sink", None)
+        if self._sink is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._sink is not None:
+            self._sink.append((self.name, self._t0, time.perf_counter()))
+        return False
 
 
 class Tracer:
@@ -81,12 +132,6 @@ class Tracer:
             return 0.0
         return sum(self.busy_per_worker().values()) / (wall * n_workers)
 
-    def serialization_share(self) -> float:
-        task_t = sum(e.dt for e in self.events("task"))
-        ser_t = sum(e.dt for e in self.events("serialize"))
-        total = task_t + ser_t
-        return ser_t / total if total > 0 else 0.0
-
     def task_duration_stats(self) -> Dict[str, dict]:
         per: Dict[str, List[float]] = {}
         for e in self.events("task"):
@@ -104,9 +149,6 @@ class Tracer:
         return out
 
     # -------------------------------------------------------------- exports
-    def to_json(self) -> str:
-        return json.dumps([asdict(e) for e in self.events()], indent=1)
-
     def to_prv(self) -> str:
         """Tiny Paraver-like export: header + one state record per task.
 
@@ -128,11 +170,32 @@ class Tracer:
 
     def to_chrome_trace(self) -> str:
         """Chrome trace-event JSON (the ``traceEvents`` format Perfetto
-        and ``about:tracing`` open directly): one complete ("X") event
-        per recorded trace event, ``pid`` = locality domain / node,
-        ``tid`` = worker, timestamps in µs relative to runtime start.
+        and ``about:tracing`` open directly): ``pid`` = locality domain /
+        node, ``tid`` = worker, timestamps in µs from the tracer's origin,
+        which ``metadata.perf_counter_origin_s`` gives on the
+        ``time.perf_counter()`` clock, so that a profiler trace aligned to
+        that clock can be laid over it.
+
+        Each task attempt is one complete ("X") event from dispatch to
+        publication on its worker's row, with its phases nested inside
+        it: ``resolve`` (``t0`` → ``t_run``), the body's child spans, and
+        ``publish`` (``t_body`` → ``t1``).  The wait before dispatch,
+        ``queued`` (``t_ready`` → ``t0``), overlaps the worker's earlier
+        tasks, and complete events on one row must nest, so it is an
+        async slice ("b"/"e") with the same ``pid`` and ``tid``.
         Metadata records name the node/worker rows."""
         evs = self.events()
+
+        def us(t: float) -> float:
+            return round(max(0.0, (t - self.t_start) * 1e6), 3)
+
+        def complete(name: str, cat: str, a: float, b: float,
+                     e: TraceEvent) -> dict:
+            ts = us(a)
+            return {"name": name, "cat": cat, "ph": "X", "ts": ts,
+                    "dur": round(max(0.0, us(b) - ts), 3),
+                    "pid": int(e.node), "tid": int(e.worker)}
+
         records: List[dict] = []
         for node in sorted({e.node for e in evs}):
             records.append({"name": "process_name", "ph": "M",
@@ -147,15 +210,24 @@ class Tracer:
             for k, v in e.meta.items():
                 if isinstance(v, (bool, int, float, str)) or v is None:
                     args[k] = v
-            records.append({
-                "name": e.name, "cat": e.kind, "ph": "X",
-                "ts": round(max(0.0, (e.t0 - self.t_start) * 1e6), 3),
-                "dur": round(max(0.0, (e.t1 - e.t0) * 1e6), 3),
-                "pid": int(e.node), "tid": int(e.worker),
-                "args": args,
-            })
-        return json.dumps({"traceEvents": records,
-                           "displayTimeUnit": "ms"}, indent=1)
+            records.append(dict(complete(e.name, e.kind, e.t0, e.t1, e),
+                                args=args))
+            if e.t_run is not None:
+                records.append(complete("resolve", "phase", e.t0, e.t_run, e))
+            for name, a, b in e.spans:
+                records.append(complete(name, "span", a, b, e))
+            if e.t_body is not None:
+                records.append(complete("publish", "phase", e.t_body, e.t1, e))
+            if e.t_ready is not None:
+                queued = {"name": "queued", "cat": "queued",
+                          "id": f"{e.task_id}.{e.meta.get('attempt', 0)}",
+                          "pid": int(e.node), "tid": int(e.worker)}
+                records.append(dict(queued, ph="b", ts=us(e.t_ready)))
+                records.append(dict(queued, ph="e", ts=us(e.t0)))
+        return json.dumps({"traceEvents": records, "displayTimeUnit": "ms",
+                           "metadata": {"clock": "time.perf_counter",
+                                        "perf_counter_origin_s": self.t_start}},
+                          indent=1)
 
     def ascii_gantt(self, width: int = 100) -> str:
         """Terminal Gantt chart — one row per worker (paper Fig. 10 analogue)."""

@@ -145,15 +145,19 @@ def test_config_copy_declares_the_same_knobs_as_the_reference():
     from repro.core import config as jconfig
     from repro_torch.core import config
     assert config.declared_env_knobs() == jconfig.declared_env_knobs()
-    # one deliberate divergence: the port's worker pools spawn by default
-    # (a forked child cannot re-initialise CUDA); every other row is equal
+    # two deliberate divergences: the port's worker pools spawn by default
+    # (a forked child cannot re-initialise CUDA), and the port's telemetry
+    # ring no longer follows the tracer (same default, another doc);
+    # every other row is equal
     rows = config.knob_table().splitlines()
     jrows = jconfig.knob_table().splitlines()
     assert len(rows) == len(jrows)
     differ = [(r, j) for r, j in zip(rows, jrows) if r != j]
-    assert [r.split(" | ")[0] for r, _ in differ] == ["| `mp_context`"], differ
-    (row, jrow), = differ
+    assert [r.split(" | ")[0] for r, _ in differ] == ["| `mp_context`", "| `telemetry`"], differ
+    (row, jrow), (trow, tjrow) = differ
     assert row.split(" | ")[2] == "spawn" and jrow.split(" | ")[2] == "fork"
+    assert trow.split(" | ")[:3] == tjrow.split(" | ")[:3]
+    assert "follows tracing" in tjrow and "follows tracing" not in trow
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
