@@ -20,10 +20,11 @@ times print as JSON lines and land in ``build/ko/knockout.json``.
     python3 chip_knockout.py --crossover
 
 times instead both routes of ``knn_topk`` from the unchanged source at
-m 12,500, n 125,000 and k 5 and 32, over depths from 50 to 272, where
-both can run: the route is forced by replacing ``knn_topk.route``.  The
-times land in ``build/ko/crossover.json``; ``knn_topk.MAX_D`` is set
-from them.
+m 12,500, n 125,000 and k 5 and 32, over depths from 48 to 80 around the
+route edge: the route is forced by replacing ``knn_topk.route``.  The
+tensor-core route is built for d <= 64 (its test rows' fragments stay in
+registers), so past 64 only the wide route is timed.  The times land in
+``build/ko/crossover.json``; ``knn_topk.MAX_D`` is set from them.
 """
 import ctypes
 import json
@@ -104,16 +105,17 @@ def build_all():
 
 
 def crossover(cuda):
-    """Device ms of both knn routes, each forced, at the depths up to 272."""
+    """Device ms of both knn routes, each forced, around the route edge."""
     res = []
     chosen = knn_k.route
     for k in (5, 32):
-        for d in (50, 56, 64, 72, 80, 88, 96, 128, 160, 192, 224, 256, 272):
+        for d in (48, 56, 64, 72, 80):
             te = torch.randn((12_500, d), device=cuda)
             tr = torch.randn((125_000, d), device=cuda)
             lab = torch.randint(0, 4, (125_000,), device=cuda, dtype=torch.int32)
             row = {"d": d, "k": k}
-            for r in ("tensor_cores", "wide", "tensor_cores", "wide"):
+            routes = ("tensor_cores", "wide") if d <= knn_k.MAX_D else ("wide",)
+            for r in routes * 2:
                 knn_k.route = lambda k, d, r=r: r
                 row.setdefault(r, []).append(
                     cs.device_ms(lambda: knn_k.knn_topk_cuda(te, tr, lab, k), reps=5))

@@ -465,8 +465,8 @@ def tensor_core_counts(lib_path: str) -> dict:
 # mangled name); each must hold tensor-core instructions and spill nothing
 TENSOR_CORE_KERNELS = [(f"flash_fwd_bf16_tc<{d}>", rf"flash_fwd_bf16_tcILi{d}E")
                        for d in (16, 32, 64, 128, 256)] + \
-                      [(f"knn_chunk_topk<{kb}>", rf"knn_chunk_topkILi{kb}E")
-                       for kb in (8, 16, 32)] + \
+                      [(f"knn_chunk_topk<{ks}>", rf"knn_chunk_topkILi{ks}E")
+                       for ks in range(1, 9)] + \
                       [(f"kmeans_tc_partials<{mt},{ntw}>", rf"kmeans_tc_partialsILi{mt}ELi{ntw}E")
                        for mt in (1, 2, 4) for ntw in (1, 2, 4)] + \
                       [(f"ssd_chunk_bf16_tc<{nk},{int(al)}>",

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # C entry points: name -> (argtypes, restype).  Every pointer and the
 # stream travel as c_void_p: a bare Python int would be cut to 32 bits.
 SIGNATURES = {
-    "knn_topk_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "knn_topk_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P], _I),
     "kmeans_assign_launch": ([_P, _P, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P], _I),

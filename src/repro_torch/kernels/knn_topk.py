@@ -11,15 +11,19 @@ training index (lower first).
   before each new block and a *stable* sort keeps the first k, so the
   lower index wins ties.  It runs wherever its tensors live; the CPU
   tests use it, and ``chip_smoke.py`` holds the kernel against it.
-* :func:`knn_topk_cuda` — the hand-written CUDA kernel
-  (``csrc/knn_topk.cu``, which documents its design and bound): the cross
-  term on the tensor cores in 3xTF32 (fp32-grade), the top-k walked per
-  test row in training-index order — for k <= 32 and d <= 64 (it holds
-  d up to 272, but past 64 the wide route is faster).  Every other k
-  and d take the wide route: the same 3xTF32 product with both
-  operands streamed in 32-deep slices (shared memory independent of d),
-  each test row's k best kept as 64-bit keys (distance, index), which
-  keep the tie rule, behind a threshold in a register.  :func:`route`
+* :func:`knn_topk_cuda` — the hand-written CUDA kernels
+  (``csrc/knn_topk.cu``, which documents their design and bound).  For
+  k <= 32 and d <= 64 the Hopper route: one persistent block per SM
+  walks balanced work units of (128 test rows x 64 training rows); a
+  producer warpgroup bulk-copies the training tiles into a ring of shared
+  stages and splits each once into TF32 hi/lo planes, two consumer
+  warpgroups take the cross term in 3xTF32 ``wgmma`` and the distances,
+  and a selector warpgroup keeps each test row's k best with the lower
+  training index first on ties, behind a threshold the consumers test
+  first; the segments' lists merge as 64-bit keys (distance, index).
+  Every other k and d take the wide route: the same 3xTF32 product with
+  both operands streamed in 32-deep slices (shared memory independent of
+  d), keyed lists.  :func:`route`
   picks one by shape before launch, and a route that fails raises:
   neither hands work to the other or to the plain version.  It takes
   only contiguous fp32 CUDA tensors and raises on anything else.
@@ -36,17 +40,24 @@ import torch
 from . import _build
 
 BIG = 1e30
-MAX_K = 32             # register list lengths the kernel is built for: 8/16/32
-# the tensor-core route's depth: past 64 a block's rows take 76 floats, an
-# SM holds one block fewer, and the wide route is faster at k 5 and 32
-# (d 72: 6.90 / 9.63 ms against 7.35 / 9.65; d 64: 5.76 / 8.40-8.64
-# against 4.62 / 6.72-7.01; ``chip_knockout.py --crossover``)
+MAX_K = 32             # the merge's register list lengths: 8/16/32
+# the tensor-core route's depth: its consumers hold the test rows' TF32
+# fragments in registers, 8 a step of 8; at d 64 it takes 3.99 / 7.15-7.19
+# ms at k 5 / 32 against the wide route's 5.71 / 8.34-8.42, which takes d
+# 72 in 6.86 / 9.47-9.49 (``chip_knockout.py --crossover``)
 MAX_D = 64
-_BLOCK_ROWS = 128      # test rows per CUDA block (kBlockRows in csrc/knn_topk.cu)
-_TILE = 32             # training rows per shared tile (kTile there)
-_CROSS_FLOATS = 4 * _TILE * 36   # the four warps' cross-term tiles (kLDC = 36)
+# the tensor-core route (kTc* in csrc/knn_topk.cu): slabs of 128 test rows
+# by tiles of 64 training rows; per block three split stages (hi and lo
+# planes of 8-deep steps, 2 KB each, and the tile's |y|^2), three raw
+# stages (the tile as copied, 16 bytes of room, |y|^2), two consumer
+# warpgroups' distance tiles (two each where they fit), the selector's
+# lists, thresholds, flags and 17 mbarriers
+TC_ROWS = 128
+TC_TILE = 64
+TC_SPLIT_STAGES = 3
+TC_RAW_STAGES = 3
+TC_DIST_LD = TC_TILE + 4
 _SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
-_SMEM_PER_SM = 233472  # shared memory of one SM
 # the wide route (any k and d): blocks of 128 test rows by tiles of 128
 # training rows, 32-deep slices of both (and the tile's |y|^2) in a ring
 # of 3 shared stages (WIDE_RING_BYTES, whatever d is), a buffer of 32
@@ -61,6 +72,8 @@ WIDE_MIN_TILES = 64    # a split's least tiles: each split fills its lists anew
 WIDE_SCRATCH_KEYS = 1 << 24   # the splits' lists (8 bytes a key), unless one split is larger
 
 launches = 0         # kernel launches since the last reset (plain int)
+# the calls of each route since the same reset (plain ints)
+route_launches = {"tensor_cores": 0, "wide": 0}
 _count_lock = threading.Lock()
 
 
@@ -101,32 +114,41 @@ def knn_topk_plain(test_x: torch.Tensor, train_x: torch.Tensor,
     return best_d, best_l
 
 
-def tile_ld(d: int) -> int:
-    """Shared row stride, in floats, of the kernel's tiles: mirrors
-    ``tile_ld`` in ``csrc/knn_topk.cu`` (d rounded up to 8, plus 4)."""
-    return -(-d // 8) * 8 + 4
+def tc_layout(d: int, k: int) -> tuple:
+    """(dynamic shared memory of one tensor-core-route block, its distance
+    tiles per consumer warpgroup): ``tc_layout`` in ``csrc/knn_topk.cu``."""
+    steps, kb = -(-d // 8), list_length(k)
+    split_stage = 2 * steps * TC_TILE * 8 * 4 + TC_TILE * 4
+    raw_stage = -(-(TC_TILE * d * 4 + 16) // 16) * 16 + TC_TILE * 4
+    stages = TC_SPLIT_STAGES * split_stage + TC_RAW_STAGES * raw_stage
+    for bufs in (2, 1):
+        total = (stages + 2 * bufs * 64 * TC_DIST_LD * 4 + 2 * TC_ROWS * (kb + 1) * 4
+                 + TC_ROWS * 4 + 64 + 17 * 8)
+        if total <= _SMEM_LIMIT or bufs == 1:
+            return total, bufs
 
 
-def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one kernel block (see the .cu source): the
-    test rows, two training tiles, the cross-term tiles, labels and norms."""
-    return ((_BLOCK_ROWS + 2 * _TILE) * tile_ld(d) + _CROSS_FLOATS) * 4 + 2 * _TILE * 8
+def smem_bytes(d: int, k: int) -> int:
+    """Dynamic shared memory of one tensor-core-route block."""
+    return tc_layout(d, k)[0]
 
 
-def partition(m: int, n: int, d: int, sms: int) -> tuple:
-    """(splits, chunk): the training rows cut into ``splits`` contiguous
-    chunks of ``chunk`` rows (whole tiles; the last may be short), so that
-    the ceil(m / 128) x splits blocks fill one wave of resident blocks on
-    ``sms`` SMs."""
-    wave = (_SMEM_PER_SM // (smem_bytes(d) + 1024)) * sms
-    row_blocks = math.ceil(m / _BLOCK_ROWS)
-    splits = max(1, min(wave // row_blocks, math.ceil(n / _TILE)))
-    chunk = math.ceil(math.ceil(n / splits) / _TILE) * _TILE
-    return math.ceil(n / chunk), chunk
+def partition(m: int, n: int, sms: int) -> tuple:
+    """(blocks, slabs, tiles) of the tensor-core route: the work units are
+    (slab of 128 test rows, tile of 64 training rows), slabs x tiles of
+    them in slab-major order, cut into ``blocks`` contiguous runs, one
+    persistent block per SM (fewer where there are fewer units)."""
+    slabs, tiles = -(-m // TC_ROWS), -(-n // TC_TILE)
+    return min(sms, slabs * tiles), slabs, tiles
+
+
+def run_of(b: int, blocks: int, units: int) -> tuple:
+    """Units [u0, u1) of block b's run (as the kernel cuts them)."""
+    return b * units // blocks, (b + 1) * units // blocks
 
 
 def list_length(k: int) -> int:
-    """The kernel's register list length for ``k`` (8, 16 or 32)."""
+    """The merge's register list length for ``k`` (8, 16 or 32)."""
     for kb in (8, 16, 32):
         if k <= kb:
             return kb
@@ -135,8 +157,8 @@ def list_length(k: int) -> int:
 
 def route(k: int, d: int) -> str:
     """The CUDA route for k neighbours in d dims: ``"tensor_cores"`` where
-    the register lists hold k and d is at most MAX_D (where that route is
-    the faster), else ``"wide"`` (the depth-streamed route, any k and d)."""
+    the merge's register lists hold k and d is at most MAX_D (where that
+    route is the faster), else ``"wide"`` (the depth-streamed route, any k and d)."""
     return "tensor_cores" if k <= MAX_K and d <= MAX_D else "wide"
 
 
@@ -176,7 +198,6 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
     and train_x (n, d) fp32, train_y (n,) int32, all contiguous on one
     CUDA device.  Returns (dists (m, k) fp32 ascending, labels (m, k)
     int32)."""
-    global launches
     _build.refuse_grad("knn_topk_cuda", test_x, train_x)
     _check_shapes(test_x, train_x, train_y, k)
     dev = test_x.device
@@ -194,18 +215,19 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
     out_l = torch.empty((m, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
-    if route(k, d) == "tensor_cores":
-        kb = list_length(k)
-        splits, chunk = partition(m, n, d,
-                                  torch.cuda.get_device_properties(dev).multi_processor_count)
-        train_sq = torch.empty((n,), dtype=torch.float32, device=dev)
-        part_d = torch.empty((splits, m, kb), dtype=torch.float32, device=dev)
-        part_l = torch.empty((splits, m, kb), dtype=torch.int32, device=dev)
+    which = route(k, d)
+    if which == "tensor_cores":
+        blocks, slabs, tiles = partition(
+            m, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+        # |x|^2, then |y|^2 padded to whole tiles and 16-byte aligned
+        at = -(-m // 4) * 4
+        sq = torch.empty((at + tiles * TC_TILE,), dtype=torch.float32, device=dev)
+        part = torch.empty(((blocks + slabs - 1) * TC_ROWS * k,), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             err = lib.knn_topk_launch(
-                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(),
-                m, n, d, k, kb, chunk, splits, train_sq.data_ptr(),
-                part_d.data_ptr(), part_l.data_ptr(), out_d.data_ptr(), out_l.data_ptr(), stream)
+                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k,
+                list_length(k), blocks, sq.data_ptr(), sq[at:].data_ptr(), part.data_ptr(),
+                out_d.data_ptr(), out_l.data_ptr(), stream)
     else:
         smem, lists_shared = wide_smem(k)
         splits, chunk = wide_partition(
@@ -220,6 +242,13 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
                 sq.data_ptr(), sq[m:].data_ptr(), part.data_ptr(), tmp.data_ptr(),
                 out_d.data_ptr(), out_l.data_ptr(), stream)
     _build.check(err, "knn_topk")
+    _count(which)
+    return out_d, out_l
+
+
+def _count(which: str) -> None:
+    """One launch of route ``which``: ``launches`` and its route's count."""
+    global launches
     with _count_lock:
         launches += 1
-    return out_d, out_l
+        route_launches[which] += 1

@@ -182,6 +182,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count, and ``knn_topk``'s calls per route."""
     for mod in KERNELS.values():
         with mod._count_lock:
             mod.launches = 0
+    with _knn._count_lock:
+        _knn.route_launches.update(dict.fromkeys(_knn.route_launches, 0))

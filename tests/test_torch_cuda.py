@@ -55,7 +55,8 @@ def _knn_inputs(seed, m, n, d, integer):
         train = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
         train[n // 2:n // 2 + n // 4] = train[:n // 4]      # duplicate rows
         test = rng.integers(-3, 4, size=(m, d)).astype(np.float32)
-        test[:m // 4] = train[:m // 4]                     # zero distances
+        same = min(m // 4, n)
+        test[:same] = train[:same]                         # zero distances
     else:
         train = rng.standard_normal((n, d)).astype(np.float32)
         test = rng.standard_normal((m, d)).astype(np.float32)
@@ -83,6 +84,58 @@ def test_knn_topk_close_on_random_inputs(cuda, m, n, d, k):
     want_d, _ = tknn.knn_topk_plain(test, train, labels, k)
     # fp32 distances from two summation orders: rtol 1e-5, atol 1e-3
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [1, 3, 50, 64])
+@pytest.mark.parametrize("k", [1, 5, 8, 16, 32])
+def test_knn_topk_tensor_core_route_exact_and_repeatable(cuda, k, d):
+    """The Hopper route at every list length and at depths of one, part
+    of and all of its 8-deep steps: tied integer inputs give the plain
+    version's distances and labels bit for bit, and two launches agree
+    bitwise; the call counts on its route alone."""
+    assert tknn.route(k, d) == "tensor_cores"
+    test, train, labels = _to(cuda, *_knn_inputs(k * 100 + d, 300, 3000, d, integer=True))
+    ops.reset_launch_counts()
+    got = tknn.knn_topk_cuda(test, train, labels, k)
+    assert tknn.route_launches == {"tensor_cores": 1, "wide": 0}
+    assert _same(got, tknn.knn_topk_plain(test, train, labels, k))
+    assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
+
+
+@pytest.mark.parametrize("m,n,d,k", [(12_700, 76_800 + 37, 50, 5), (12_700, 5_001, 13, 8),
+                                     (129, 65, 3, 1), (130, 1000, 64, 32), (1, 70, 50, 5),
+                                     (128, 64 * 131 + 5, 50, 32), (300, 40, 8, 32),
+                                     (257, 33, 50, 32)])
+def test_knn_topk_tensor_core_route_ragged_shapes(cuda, m, n, d, k):
+    """Ragged m and n (a slab with one warpgroup's rows or fewer, a last
+    tile of a few rows, runs that end mid-slab) and fewer training rows
+    than k times the segments of a slab (segments whose lists are not
+    full): integer inputs bitwise, random inputs within rtol 1e-5 / atol
+    1e-3, two launches bitwise."""
+    assert tknn.route(k, d) == "tensor_cores"
+    test, train, labels = _to(cuda, *_knn_inputs(m + n + k, m, n, d, integer=True))
+    got = tknn.knn_topk_cuda(test, train, labels, k)
+    assert _same(got, tknn.knn_topk_plain(test, train, labels, k))
+    assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
+    test, train, labels = _to(cuda, *_knn_inputs(m * n + k, m, n, d, integer=False))
+    got = tknn.knn_topk_cuda(test, train, labels, k)
+    assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
+    want_d, _ = tknn.knn_topk_plain(test, train, labels, k)
+    torch.testing.assert_close(got[0], want_d, rtol=1e-5, atol=1e-3)
+
+
+def test_knn_topk_tensor_core_route_on_an_unaligned_view(cuda):
+    """Training rows that start 4, 8 or 12 bytes past a 16-byte boundary
+    (a view into a larger tensor): the bulk copies take the aligned middle,
+    plain loads the ends; bitwise the plain version's on integers."""
+    test, train, labels = _to(cuda, *_knn_inputs(5, 300, 2000 + 3, 50, integer=True))
+    flat = train.reshape(-1)
+    for skip in (1, 2, 3):
+        view = flat[skip:skip + 2000 * 50].view(2000, 50)
+        assert view.data_ptr() % 16 == 4 * skip
+        lab = labels[:2000]
+        got = tknn.knn_topk_cuda(test, view, lab, 5)
+        assert _same(got, tknn.knn_topk_plain(test, view, lab, 5))
 
 
 @pytest.mark.parametrize("n,d,k", [(5000, 50, 16), (1001, 13, 5), (3000, 100, 64), (7, 3, 1)])
@@ -254,14 +307,16 @@ def test_kmeans_assign_narrow_route_on_far_data(cuda, smoke, d, k):
     print(f"d {d} k {k}: sums {sums_err} off, sse {sse_err} relative")
 
 
-def test_knn_topk_narrow_route_on_far_data(cuda, smoke):
-    """The tensor-core route at its edge (d 64, k 32) on points ~40 from
-    the origin, where fp32's own rounding of the distances passes atol
-    1e-3: the distances no further from the float64 ones than the plain
-    fp32 version's (an accumulator carried through the depth was), labels
+@pytest.mark.parametrize("d,k", [(64, 32), (50, 5)])
+def test_knn_topk_narrow_route_on_far_data(cuda, smoke, d, k):
+    """The tensor-core route at its edge (d 64, k 32) and at the
+    benchmark's shape (d 50, k 5) on points ~5 sqrt(d) from the origin,
+    where fp32's own rounding of the distances passes atol 1e-3: the
+    distances no further from the float64 ones than the plain fp32
+    version's (an accumulator carried through the depth was), labels
     equal away from near-ties, two launches bitwise
     (chip_smoke.knn_against_float64)."""
-    m, n, d, k = 2000, 100_000, 64, 32
+    m, n = 2000, 100_000
     assert tknn.route(k, d) == "tensor_cores"
     pts = kmeans._np_fill_fragment(7, m + n, d).astype(np.float32)
     labels = np.random.default_rng(7).integers(0, 4, size=n).astype(np.int32)

@@ -187,6 +187,24 @@ def test_ops_dispatch_by_device_and_count_only_kernel_launches():
         ops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c).to("meta"))
 
 
+def test_knn_route_counts_move_per_route_and_reset_with_launches():
+    """knn_topk counts its launches per route beside ``launches``: a
+    route's count moves only for that route's calls, the plain version
+    counts nothing, and ops.reset_launch_counts zeroes both."""
+    ops.reset_launch_counts()
+    assert tknn.launches == 0 and tknn.route_launches == {"tensor_cores": 0, "wide": 0}
+    tknn._count(tknn.route(5, 50))
+    assert tknn.launches == 1 and tknn.route_launches == {"tensor_cores": 1, "wide": 0}
+    for k, d in ((33, 50), (5, 65)):
+        tknn._count(tknn.route(k, d))
+    assert tknn.launches == 3 and tknn.route_launches == {"tensor_cores": 1, "wide": 2}
+    test, train, labels = _knn_inputs(0, 10, 50, 4, integer=False)
+    ops.knn_topk(torch.from_numpy(test), torch.from_numpy(train), torch.from_numpy(labels), k=3)
+    assert ops.launch_counts()["knn_topk"] == 3 and tknn.route_launches["wide"] == 2
+    ops.reset_launch_counts()
+    assert tknn.launches == 0 and tknn.route_launches == {"tensor_cores": 0, "wide": 0}
+
+
 def test_cuda_wrappers_refuse_cpu_tensors_without_building():
     """On a CPU tensor the CUDA wrapper raises: it never falls back to the
     plain version, and the refusal happens before any build."""
@@ -593,29 +611,91 @@ def test_flash_blocks_fit_in_shared_memory(d):
     assert (d + 8) * 2 % 16 == 0
 
 
-@pytest.mark.parametrize("d", [3, 13, 50, 100, 148])
+@pytest.mark.parametrize("d", list(range(1, tknn.MAX_D + 1)))
 def test_knn_blocks_fit_in_shared_memory(d):
-    """Every depth the first kernel took (up to 148) still fits; rows are
-    padded to whole TF32 steps of 8 plus 4 floats."""
-    assert tknn.smem_bytes(d) <= SMEM_LIMIT
-    ld = tknn.tile_ld(d)
-    assert ld >= d and (ld - 4) % 8 == 0 and (ld // 4) % 2 == 1
+    """The tensor-core route's block (three split stages, three raw
+    stages, the distance tiles, the selector's lists) fits a Hopper
+    block's shared memory at every depth it takes, for every k it takes,
+    with two distance tiles per consumer warpgroup wherever they fit:
+    always at k <= 8 (the benchmark's d 50, k 5 among them)."""
+    for k in (1, 5, 8, 16, tknn.MAX_K):
+        smem, bufs = tknn.tc_layout(d, k)
+        assert smem <= SMEM_LIMIT and bufs in (1, 2)
+        assert smem == tknn.smem_bytes(d, k)
+        if bufs == 1:
+            assert smem + 2 * 64 * tknn.TC_DIST_LD * 4 > SMEM_LIMIT
+        if k <= 8:
+            assert bufs == 2
 
 
-@pytest.mark.parametrize("m,n,d", [(12_500, 125_000, 50), (1037, 10013, 50), (129, 3, 50),
-                                   (5, 64, 1), (300, 700, 140)])
-def test_knn_partition_covers_the_training_rows(m, n, d):
-    """splits x chunk covers n exactly once: whole training tiles, no empty
-    chunk, no more blocks than one wave of an H100's 132 SMs holds; at one
-    KNN_frag task's shape that wave is nearly full."""
-    splits, chunk = tknn.partition(m, n, d, sms=132)
-    assert chunk % tknn._TILE == 0 and splits >= 1
-    assert (splits - 1) * chunk < n <= splits * chunk
-    blocks = -(-m // 128) * splits
-    wave = 233472 // (tknn.smem_bytes(d) + 1024) * 132
-    assert blocks <= max(wave, -(-m // 128))
-    if (m, n) == (12_500, 125_000):
-        assert blocks / wave > 0.95
+def _knn_block_of(p, units, blocks):
+    """csrc/knn_topk.cu :: block_of, the merge's way to the runs."""
+    return ((p + 1) * blocks + units - 1) // units - 1
+
+
+def _knn_runs(m, n, sms):
+    """Per block, its segments (slab, first tile, end tile) as the kernel
+    walks its run of units."""
+    blocks, slabs, tiles = tknn.partition(m, n, sms)
+    units = slabs * tiles
+    runs = []
+    for b in range(blocks):
+        u0, u1 = tknn.run_of(b, blocks, units)
+        segs, u = [], u0
+        while u < u1:
+            s = u // tiles
+            end = min(u1, (s + 1) * tiles)
+            segs.append((s, u - s * tiles, end - s * tiles))
+            u = end
+        runs.append(segs)
+    return blocks, slabs, tiles, runs
+
+
+@pytest.mark.parametrize("m,n", [(12_700, 76_800), (8_000, 76_800), (12_500, 125_000),
+                                 (1037, 10013), (129, 3), (5, 64), (300, 700), (1, 1),
+                                 (100_000, 1000), (128, 64 * 132 + 1)])
+def test_knn_partition_covers_the_training_rows(m, n):
+    """The persistent grid's runs cover every (slab, tile) unit exactly
+    once, so every pair of a test row and a training row meets once; each
+    block has work; a segment's list index (block + slab) is unique and
+    within the scratch the wrapper allocates; the merge finds a slab's
+    blocks from the run formula alone.  At the benchmark's two shapes and
+    at 12,500 x 125,000 the most loaded SM's work (units by the consumer
+    warpgroups with rows, by the training rows of the tile) is within 5%
+    of the mean."""
+    sms = 132
+    blocks, slabs, tiles, runs = _knn_runs(m, n, sms)
+    assert 1 <= blocks <= sms and slabs == -(-m // 128) and tiles == -(-n // 64)
+    seen = np.zeros((slabs, tiles), dtype=np.int64)
+    index = set()
+    holders = [set() for _ in range(slabs)]
+    for b, segs in enumerate(runs):
+        assert segs, f"block {b} has no work"
+        for s, t0, t1 in segs:
+            assert 0 <= t0 < t1 <= tiles
+            seen[s, t0:t1] += 1
+            assert b + s not in index and 0 <= b + s < blocks + slabs - 1
+            index.add(b + s)
+            holders[s].add(b)
+    assert (seen == 1).all()
+    rows_t = np.zeros(m, dtype=np.int64)
+    rows_y = np.zeros(n, dtype=np.int64)
+    for s in range(slabs):
+        rows_t[128 * s:128 * s + 128] += 1
+    for t in range(tiles):
+        rows_y[64 * t:64 * t + 64] += 1
+    assert (rows_t == 1).all() and (rows_y == 1).all()
+    units = slabs * tiles
+    for s in range(slabs):
+        first = _knn_block_of(s * tiles, units, blocks)
+        last = _knn_block_of(s * tiles + tiles - 1, units, blocks)
+        assert holders[s] == set(range(first, last + 1))
+    if (m, n) in ((12_700, 76_800), (8_000, 76_800), (12_500, 125_000)):
+        groups = [min(2, -(-(m - 128 * s) // 64)) for s in range(slabs)]
+        width = [min(64, n - 64 * t) for t in range(tiles)]
+        csum = np.concatenate([[0], np.cumsum(width)])
+        work = [sum(groups[s] * (csum[t1] - csum[t0]) for s, t0, t1 in segs) for segs in runs]
+        assert blocks == sms and max(work) <= 1.05 * np.mean(work)
 
 
 # ------------------------------------------ kmeans_assign on the tensor cores
@@ -920,13 +1000,15 @@ def test_kmeans_route_by_shape(k, d, want):
                                       (5, 50, "tensor_cores"), (1, 1, "tensor_cores"),
                                       (257, 1024, "wide"), (50, 384, "wide")])
 def test_knn_route_by_shape(k, d, want):
-    """The tensor-core route holds k <= 32 (its register lists) and d up
-    to 272 (its shared memory), and takes d up to 64, where it is the
+    """The tensor-core route holds k <= 32 (its merge's register lists)
+    and d up to 64 (its A fragments stay in registers), where it is the
     faster; every other shape takes the depth-streamed wide route, whose
     shared memory does not depend on d."""
     assert tknn.route(k, d) == want
-    assert (tknn.smem_bytes(d) <= SMEM_LIMIT) == (d <= 272)
-    assert tknn.smem_bytes(tknn.MAX_D) <= SMEM_LIMIT
+    if want == "tensor_cores":
+        assert tknn.smem_bytes(d, k) <= SMEM_LIMIT and tknn.list_length(k) >= k
+    assert tknn.smem_bytes(tknn.MAX_D, tknn.MAX_K) <= SMEM_LIMIT
+    assert tknn.wide_smem(k)[0] <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n", [1, 1000, 100_003, 500_000])
