@@ -3,17 +3,31 @@ the port of ``repro/algorithms/linreg.py``.
 
 Nine task types, mirroring the paper's DAG: ``LR_fill_fragment`` generates
 (X, y) fragments; ``partial_ztz`` computes each fragment's Gram contribution
-X'X (intercept column included); ``partial_zty`` computes X'y; two merge
-trees combine them; ``compute_model_parameters`` solves the normal
-equations; ``LR_genpred`` generates prediction inputs; ``compute_prediction``
-applies the model; the final sync closes the pipeline.
+Z'Z of Z = [1 X] (intercept column included); ``partial_zty`` computes
+Z'y; two merge trees combine them; ``compute_model_parameters`` solves the
+normal equations; ``LR_genpred`` generates prediction inputs;
+``compute_prediction`` applies the model; the final sync closes the
+pipeline.
 
-What the port changes: the generators run NumPy exactly as the JAX
-package does and move the data to the device once, in float64; the Gram
-products are plain float64 GEMMs (``torch.matmul``) — the reference
-leaves them to BLAS outside any Pallas kernel, so no kernel is owed —
-and the fit is ``torch.linalg.solve``.  Only beta and the predictions
-come back to the host.
+What the port changes, and why:
+
+* The generators run NumPy exactly as the JAX package does (recorded as
+  the ``generate`` span) and move the data to the device once, in
+  float64 (the ``upload`` span).
+* The intercept costs no copy.  The reference forms Z = [1 X] for every
+  fragment and prediction block; at the paper's width (p 1000) each Z is
+  a 160 MB copy of a 20,000-row fragment, written and read again, and
+  one to four of them live at once under four workers.  Here
+  ``partial_ztz`` assembles Z'Z from one product X'X, the column sums
+  1'X (first row and column, a matrix-vector product) and n at [0, 0];
+  ``partial_zty`` returns [1'y ; X'y]; ``compute_prediction`` returns
+  X_p beta[1:] + beta[0].  The results equal the Z form to float64
+  rounding.
+* The products are float64 GEMMs (``torch.mm``, cuBLAS on the card): the
+  reference leaves them to BLAS outside any Pallas kernel, so no kernel
+  is owed.  The fit is ``torch.linalg.solve`` (the ``solve`` span), which
+  synchronises the card.  Only beta and the predictions come back to the
+  host.
 """
 from __future__ import annotations
 
@@ -23,7 +37,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core import api, collectives
+from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
 from .common import calibrate_cost, resolve_device
 
@@ -50,25 +64,32 @@ def lr_fill_fragment(seed: int, n: int, p: int, beta_seed: int = 1234,
     """Synthetic (X, y) with a hidden ground-truth beta (shared seed),
     float64 on ``device``."""
     dev = resolve_device(device)
-    X, y = _np_fill_fragment(seed, n, p, beta_seed, noise)
-    return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
-
-
-def _with_intercept(X: torch.Tensor) -> torch.Tensor:
-    ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
-    return torch.cat([ones, X], dim=1)
+    with tracing.span("generate"):
+        X, y = _np_fill_fragment(seed, n, p, beta_seed, noise)
+    with tracing.span("upload"):
+        return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
 
 
 def partial_ztz(frag) -> torch.Tensor:
+    """Z'Z of Z = [1 X], (p+1, p+1), without forming Z: [[n, 1'X], [X'1,
+    X'X]]."""
     X, _ = frag
-    Z = _with_intercept(X)
-    return Z.T @ Z            # the paper's GEMM hot-spot (×4 GEMM tasks)
+    n, p = X.shape
+    G = X.new_empty((p + 1, p + 1))
+    torch.mm(X.T, X, out=G[1:, 1:])   # the paper's GEMM hot-spot (×4 GEMM tasks)
+    # 1'X as a product: torch's column-sum reduction of a 20,000 x 1000
+    # float64 fragment stages a 258 MiB buffer on the card, more than X
+    s = X.T @ X.new_ones(n)
+    G[0, 1:] = s
+    G[1:, 0] = s
+    G[0, 0] = n
+    return G
 
 
 def partial_zty(frag) -> torch.Tensor:
+    """Z'y of Z = [1 X], (p+1,), without forming Z: [1'y ; X'y]."""
     X, y = frag
-    Z = _with_intercept(X)
-    return Z.T @ y
+    return torch.cat([y.sum(0, keepdim=True), X.T @ y])
 
 
 def merge_add(a, b):
@@ -77,10 +98,14 @@ def merge_add(a, b):
 
 def compute_model_parameters(ztz: torch.Tensor, zty: torch.Tensor,
                              ridge: float = 0.0) -> torch.Tensor:
+    """beta solving (Z'Z + ridge I) beta = Z'y.  ``torch.linalg.solve``
+    checks its factorisation on the host, so on the card it synchronises:
+    the ``solve`` span includes the device work queued before it."""
     A = ztz
     if ridge > 0.0:
         A = A + ridge * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-    return torch.linalg.solve(A, zty)
+    with tracing.span("solve"):
+        return torch.linalg.solve(A, zty)
 
 
 def _np_genpred(seed: int, m: int, p: int) -> np.ndarray:
@@ -89,11 +114,16 @@ def _np_genpred(seed: int, m: int, p: int) -> np.ndarray:
 
 
 def lr_genpred(seed: int, m: int, p: int, device=None) -> torch.Tensor:
-    return torch.from_numpy(_np_genpred(seed, m, p)).to(resolve_device(device))
+    dev = resolve_device(device)
+    with tracing.span("generate"):
+        Xp = _np_genpred(seed, m, p)
+    with tracing.span("upload"):
+        return torch.from_numpy(Xp).to(dev)
 
 
 def compute_prediction(X_pred: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    return _with_intercept(X_pred) @ beta
+    """[1 X_p] beta without forming [1 X_p]."""
+    return X_pred @ beta[1:] + beta[0]
 
 
 # -------------------------------------------------------------------- driver

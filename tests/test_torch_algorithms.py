@@ -136,6 +136,26 @@ def test_linreg_ridge_and_ground_truth(rt):
     np.testing.assert_allclose(res.beta, bref, atol=1e-8)
 
 
+def test_linreg_bodies_equal_the_z_form_at_the_papers_width():
+    """At p 1000 the three bodies that once formed Z = [1 X] equal that
+    form and the JAX package's bodies to float64 rounding."""
+    X, y = linreg.lr_fill_fragment(11, 2000, 1000, device=CPU)
+    Xp = linreg.lr_genpred(50_011, 300, 1000, device=CPU)
+    beta = torch.from_numpy(np.random.default_rng(1234).standard_normal(1001))
+    Z = torch.cat([torch.ones((2000, 1), dtype=torch.float64), X], dim=1)
+    Zp = torch.cat([torch.ones((300, 1), dtype=torch.float64), Xp], dim=1)
+    ztz, zty = linreg.partial_ztz((X, y)), linreg.partial_zty((X, y))
+    pred = linreg.compute_prediction(Xp, beta)
+    assert ztz.shape == (1001, 1001) and zty.shape == (1001,) and pred.shape == (300,)
+    assert ztz[0, 0].item() == 2000.0
+    for got, z_form, jax_form in (
+            (ztz, Z.T @ Z, jlinreg.partial_ztz((X.numpy(), y.numpy()))),
+            (zty, Z.T @ y, jlinreg.partial_zty((X.numpy(), y.numpy()))),
+            (pred, Zp @ beta, jlinreg.compute_prediction(Xp.numpy(), beta.numpy()))):
+        np.testing.assert_allclose(got.numpy(), z_form.numpy(), rtol=0, atol=1e-10)
+        np.testing.assert_allclose(got.numpy(), jax_form, rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 7])
 def test_generators_are_bit_identical(seed):
     X, y = common.make_blobs(seed, 500, 9, 3)

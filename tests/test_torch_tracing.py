@@ -15,13 +15,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.algorithms import kmeans, knn  # noqa: E402
+from repro_torch.algorithms import kmeans, knn, linreg  # noqa: E402
 from repro_torch.core import api, tracing  # noqa: E402
 
 FILLS = {
     "KNN_fill_fragment": (knn.knn_fill_fragment, (3, 64, 5, 4, "cpu")),
     "KNN_gen_test": (knn.knn_gen_test, (4, 64, 5, 4, "cpu")),
     "fill_fragment": (kmeans.fill_fragment, (5, 64, 5, 8, 5.0, "cpu")),
+    "LR_fill_fragment": (linreg.lr_fill_fragment, (6, 64, 5, 1234, 0.1, "cpu")),
+    "LR_genpred": (linreg.lr_genpred, (50_006, 64, 5, "cpu")),
 }
 
 
@@ -122,6 +124,18 @@ def test_a_fill_records_nothing_with_tracing_off(name):
         api.wait_on(api.task(body, name=name)(*args))
     assert rt.tracer.events() == []
     assert seen == [None]
+
+
+def test_the_fit_records_one_solve_span_inside_its_body():
+    X, y = linreg.lr_fill_fragment(7, 64, 5, device="cpu")
+    with api.runtime_start(n_workers=2) as rt:
+        fit = api.task(linreg.compute_model_parameters, name="compute_model_parameters")
+        beta = api.wait_on(fit(linreg.partial_ztz((X, y)), linreg.partial_zty((X, y))))
+    assert beta.shape == (6,)
+    ev, = rt.tracer.events("task")
+    assert [s[0] for s in ev.spans] == ["solve"]
+    (_, s0, s1), = ev.spans
+    assert ev.t_run <= s0 <= s1 <= ev.t_body
 
 
 def test_a_span_outside_a_runtime_is_a_no_op():
