@@ -42,7 +42,14 @@ failure raises (the script then exits non-zero without a result):
              is also held at its widest on points far from the origin
              (``far_case``: knn d 64, k 32; kmeans d 256, k 64 on
              run_kmeans's own fills), where an accumulator carried through
-             the depth drifts;
+             the depth drifts.  ``normal_fill`` is held against NumPy's
+             own generator from the same state (its plain version) at
+             each fill's shape of the pipelines (linreg_p1000's 20,000 x
+             1000 fragment and its noise, kmeans_d50's and knn_d50's
+             fp32 blobs) and at ragged ones: fast-path and wedge elements
+             bit for bit, the ziggurat tail's within 2 ulp, two launches
+             bitwise; timed beside the bytes it writes and NumPy's host
+             time;
 4. knn     — run_knn on 2M x 50 training rows, 50k test rows;
 5. kmeans  — run_kmeans on 8M x 50 points, k=16, 10 iterations, twice;
 6. linreg  — run_linreg on 2M x 100 rows;
@@ -184,7 +191,7 @@ Phase 3 also holds the gradients through each model kernel's autograd
 Function (the kernel's forward, the plain version's backward) against
 autograd through the plain version.  Each serve and train phase frees its
 model before the next.  Then a ``{"kernels": [...]}`` line (launches
-counted during phases 4, 5, 7, 8, 10, 11 and 12-21, by phase; times measured in
+counted during phases 4-8, 10, 11 and 12-21, by phase; times measured in
 phase 3)
 and, last, ``{"ok": true, "device": {...}}``.
 The script imports nothing of the JAX package; it needs one CUDA card
@@ -788,6 +795,90 @@ def check_kmeans(km_k, gen, cuda):
             "replaces": "src/repro/kernels/kmeans_assign.py:65", **row}
 
 
+def check_normal_fill(nf_k, cuda):
+    """normal_fill kernel vs its plain version (NumPy's own generator from
+    the same PCG64 state, then the same epilogue) at each fill's shape of
+    the pipelines and at ragged ones: every element made on the
+    ziggurat's fast path or wedge bit for bit, the tail's (|z| > r, where
+    CUDA's log1p is not the host libm) within 2 ulp; two launches bitwise
+    equal.  Timed at the fills' shapes beside the bytes they write (the
+    plain version's time is NumPy's on the host: ``plain_host_ms``).
+    Returns the kernels-line row."""
+    ints = {torch.float32: np.int32, torch.float64: np.int64}
+
+    def fill_case(seed, n, d, classes=None, timed=False):
+        """float64 (n, d) and n noise normals (linreg) when ``classes`` is
+        None, else float32 blobs around ``classes`` centres (drawn on the
+        host first, as make_blobs draws them)."""
+        rng = np.random.default_rng(seed)
+        if classes is None:
+            out = [torch.empty((n, d), dtype=torch.float64, device=cuda),
+                   torch.empty(n, dtype=torch.float64, device=cuda)]
+            kw = {"noise": out[1]}
+        else:
+            labs = rng.integers(0, classes, size=n).astype(np.int32)
+            cents = rng.standard_normal((classes, d)) * 4.0
+            out = [torch.empty((n, d), dtype=torch.float32, device=cuda)]
+            kw = {"centres": torch.from_numpy(cents).to(cuda),
+                  "labels": torch.from_numpy(labs).to(cuda)}
+        st = rng.bit_generator.state
+        total = n * d + (n if classes is None else 0)
+        z = np.random.Generator(np.random.PCG64())
+        z.bit_generator.state = st
+        tail = np.abs(z.standard_normal(total)) > nf_k.ZIG_R
+        nf_k.normal_fill_cuda(st, out[0], **kw)
+        got = [t.cpu().numpy().ravel() for t in out]
+        nf_k.normal_fill_cuda(st, out[0], **kw)
+        assert all(a.tobytes() == t.cpu().numpy().ravel().tobytes()
+                   for a, t in zip(got, out)), f"normal_fill: two launches differ {(n, d)}"
+        plain = [torch.empty(t.shape, dtype=t.dtype) for t in out]
+        pkw = {k: v.cpu() for k, v in kw.items()}
+        if classes is None:
+            pkw["noise"] = plain[1]
+        walls = []
+        for _ in range(3 if timed else 1):
+            t0 = time.perf_counter()
+            nf_k.normal_fill_plain(st, plain[0], **pkw)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        got, want = np.concatenate(got), np.concatenate([t.numpy().ravel() for t in plain])
+        as_int = ints[out[0].dtype]
+        assert np.array_equal(got[~tail].view(as_int), want[~tail].view(as_int)), \
+            f"normal_fill: a fast-path or wedge element differs {(n, d, classes)}"
+        ulps = np.abs(got[tail].view(as_int).astype(np.int64)
+                      - want[tail].view(as_int).astype(np.int64)).max(initial=0)
+        assert ulps <= 2, f"normal_fill: a tail element {ulps} ulp from NumPy's {(n, d)}"
+        err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max(initial=0.0))
+        row = {"shape": {"n": n, "d": d, "noise": classes is None,
+                         "dtype": "fp64" if classes is None else "fp32"},
+               "max_abs_err": err, "tail_elements": int(tail.sum()), "tail_max_ulps": int(ulps)}
+        if timed:
+            fill = lambda: nf_k.normal_fill_cuda(st, out[0], **kw)   # noqa: E731
+            nbytes = sum(t.numel() * t.element_size() for t in out) + \
+                (4.0 * n + 8.0 * classes * d if classes else 0.0)
+            bound_ms, bound_by = bound(0.0, nbytes)
+            row.update(ms=device_ms(fill, reps=20), plain_ms=None, plain_host_ms=min(walls),
+                       bound_ms=bound_ms, bound_by=bound_by)
+        return row
+
+    nf_k.reset_reparses()
+    # ragged: one chunk and less, odd lengths, a row count off the chunk
+    for seed, n, d, classes in ((3, 7, 5, None), (4, 999, 13, None), (5, 1001, 13, 5),
+                                (2**40 + 9, 77, 7, 4), (6, 30_011, 3, 8)):
+        fill_case(seed, n, d, classes)
+    # the path shapes: linreg_p1000's fragment (X then its noise, one
+    # stream), kmeans_d50's and knn_d50's fragments, knn_d50's test blocks
+    row = fill_case(2**31 + 11, 20_000, 1000, timed=True)
+    row["blob_shapes"] = [fill_case(2**33 + 1, 216_000, 50, 8, timed=True),
+                          fill_case(2**31 + 7, 76_800, 50, 4, timed=True),
+                          fill_case(10_005, 8_000, 50, 4, timed=True),
+                          fill_case(10_006, 12_700, 50, 4, timed=True)]
+    row["reparses"] = nf_k.reparses()
+    return {"name": "normal_fill", "route": "cuda", "source": "src/repro_torch/csrc/normal_fill.cu",
+            "replaces": None, "library_ms": None,
+            "replaces_note": "no TPU twin: the JAX package draws its fills on the host with NumPy",
+            "library_note": "torch.randn and cuRAND draw other streams", **row}
+
+
 def close_in_dtype(got, want, what: str) -> float:
     """fp32: within 1e-5 (sums in another order); bf16: within one bf16
     rounding step of each other (two fp32 results that round apart).
@@ -1168,7 +1259,8 @@ def wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda) -> dict
         torch.cuda.synchronize()
         knn_wall = time.perf_counter() - t0
     knn_counts = ops.launch_counts()
-    assert knn_counts == only(ops, knn_topk=kc["train_fragments"] * kc["test_blocks"]), knn_counts
+    assert knn_counts == only(ops, knn_topk=kc["train_fragments"] * kc["test_blocks"],
+                              normal_fill=fills(knn=kc)), knn_counts
     preds = res.predictions
     assert preds.shape == (kc["n_test"],) and preds.min() >= 0 and preds.max() < kc["n_classes"]
     agree = knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, **kc)
@@ -1185,8 +1277,8 @@ def wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda) -> dict
             walls.append(time.perf_counter() - t0)
     km_counts = ops.launch_counts()
     r1, r2 = runs
-    assert km_counts == only(ops, kmeans_assign=mc["fragments"] * (r1.iterations + r2.iterations)), \
-        km_counts
+    assert km_counts == only(ops, kmeans_assign=mc["fragments"] * (r1.iterations + r2.iterations),
+                             normal_fill=2 * fills(kmeans=mc)), km_counts
     assert r1.iterations == mc["max_iters"] and r1.centroids.shape == (mc["k"], mc["d"])
     assert np.isfinite(r1.centroids).all()
     hist = r1.sse_history
@@ -1231,6 +1323,15 @@ def wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda) -> dict
 def only(ops, **nonzero) -> dict:
     """The launch counts of a phase that launches ``nonzero`` and nothing else."""
     return {**dict.fromkeys(ops.KERNELS, 0), **nonzero}
+
+
+def fills(knn=None, kmeans=None, linreg=None) -> int:
+    """normal_fill launches of run_knn / run_kmeans / run_linreg with these
+    arguments: one a fill (training fragments and test blocks, fragments,
+    fragments and prediction blocks)."""
+    return ((knn["train_fragments"] + knn["test_blocks"] if knn else 0)
+            + (kmeans["fragments"] if kmeans else 0)
+            + (linreg["fragments"] + linreg["pred_blocks"] if linreg else 0))
 
 
 @contextlib.contextmanager
@@ -2214,6 +2315,7 @@ def main(argv) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import kmeans_assign as km_k
     from repro_torch.kernels import knn_topk as knn_k
+    from repro_torch.kernels import normal_fill as nf_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import rglru_scan as rg_k
     from repro_torch.kernels import rmsnorm as rms_k
@@ -2253,7 +2355,8 @@ def main(argv) -> int:
     with Phase("kernels") as ph:
         rows = [check_knn(knn_k, gen, cuda), check_kmeans(km_k, gen, cuda),
                 check_rmsnorm(rms_k, gen, cuda), check_flash(fa_k, gen, cuda),
-                check_rglru(rg_k, gen, cuda), check_ssd(ssd_k, gen, cuda)]
+                check_rglru(rg_k, gen, cuda), check_ssd(ssd_k, gen, cuda),
+                check_normal_fill(nf_k, cuda)]
         ph.info["kernels"] = [{k: r[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
                                                  "bound_ms")} for r in rows]
         grad_errs = check_grads(ops, gen, cuda)
@@ -2263,6 +2366,7 @@ def main(argv) -> int:
         ph.info["grad_max_abs_err"] = grad_errs
 
     launches = {}
+    fill_launches = {}     # pipeline phase -> its normal_fill launches
     thread_wall = {}       # pipeline -> its wall under the thread backend
     knn_cfg = dict(n_train=2_000_000, n_test=50_000, d=50, k=5, n_classes=4,
                    train_fragments=16, test_blocks=4)
@@ -2274,7 +2378,9 @@ def main(argv) -> int:
         ph.info["task_seconds"] = task_seconds(rt)
         counts = ops.launch_counts()
         launches["knn_topk"] = counts["knn_topk"]
-        assert counts == only(ops, knn_topk=64), counts
+        fill_launches["knn"] = counts["normal_fill"]
+        assert counts == only(ops, knn_topk=64, normal_fill=fills(knn=knn_cfg)), counts
+        ph.info["normal_fill_reparse"] = nf_k.reparses()
         preds = res.predictions
         assert preds.shape == (50_000,) and preds.min() >= 0 and preds.max() < 4
         agree = knn_oracle_agreement(knn, knn_k, make_blobs, preds, cuda, **knn_cfg)
@@ -2295,7 +2401,9 @@ def main(argv) -> int:
         ph.info["task_seconds"] = task_seconds(rt)
         counts = ops.launch_counts()
         launches["kmeans_assign"] = counts["kmeans_assign"]
-        assert counts == only(ops, kmeans_assign=160), counts
+        fill_launches["kmeans"] = counts["normal_fill"]
+        assert counts == only(ops, kmeans_assign=160, normal_fill=fills(kmeans=cfg)), counts
+        ph.info["normal_fill_reparse"] = nf_k.reparses()
         assert r1.centroids.shape == (16, 50) and np.isfinite(r1.centroids).all()
         hist = r1.sse_history
         assert len(hist) == 10 and all(np.isfinite(hist))
@@ -2313,7 +2421,10 @@ def main(argv) -> int:
         ops.reset_launch_counts()
         with api.runtime_start(n_workers=4, backend="thread") as rt:
             r = linreg.run_linreg(**lr_cfg)
-        assert ops.launch_counts() == only(ops)
+        counts = ops.launch_counts()
+        assert counts == only(ops, normal_fill=fills(linreg=lr_cfg)), counts
+        fill_launches["linreg"] = counts["normal_fill"]
+        ph.info["normal_fill_reparse"] = nf_k.reparses()
         ph.info["pipeline_seconds"] = thread_wall["linreg"] = rt.tracer.wallclock()
         ph.info["task_seconds"] = task_seconds(rt)
         assert r.predictions.shape == (100_000,) and np.isfinite(r.predictions).all()
@@ -2372,6 +2483,13 @@ def main(argv) -> int:
                 "linreg": lambda: linreg.run_linreg(**lr_cfg)}
         one_worker = {}
         for name, run in runs.items():
+            # the runtime keeps task results in reference cycles past
+            # runtime_stop: uncollected, the earlier phases' results hold
+            # the allocator's blocks and the run's fragments come from
+            # fresh cudaMalloc calls, which the cost models (fitted on
+            # reused blocks) leave out.  With the fills on the card that
+            # was half of linreg's 50 ms run here
+            gc.collect()
             with api.runtime_start(n_workers=1, backend="thread") as rt:
                 t0 = time.perf_counter()
                 run()
@@ -2392,9 +2510,18 @@ def main(argv) -> int:
         repeats = inspect.signature(common.calibrate_cost).parameters["repeats"].default
         calib = {name: len(CALIBRATE[name]["units"]) * (repeats + 2)
                  for name in ("knn", "kmeans")}
+        # fills: the fill task `repeats` times a unit, one for each other
+        # task's input a unit (knn: 3, kmeans: 3, linreg: 2 + 2 for the
+        # predictions' fragment and block) and knn's fragment, linreg's
+        # fit's fragment, once
+        units = {name: len(CALIBRATE[name]["units"]) for name in CALIBRATE}
+        calib_fills = ((repeats + 3) * units["knn"] + 1 + (repeats + 3) * units["kmeans"]
+                       + (2 * repeats + 4) * units["linreg"] + 1)
         counts = ops.launch_counts()
         assert counts == only(ops, knn_topk=calib["knn"] + 64,
-                              kmeans_assign=calib["kmeans"] + 160), (calib, counts)
+                              kmeans_assign=calib["kmeans"] + 160,
+                              normal_fill=calib_fills + fills(knn_cfg, km_cfg, lr_cfg)), \
+            (calib, calib_fills, counts)
         launches_sim = counts
         ph.info.update(projected=projected, one_worker=one_worker, launches=counts)
 
@@ -2436,7 +2563,8 @@ def main(argv) -> int:
                         assert out.predictions.tobytes() == r.predictions.tobytes()
                 st = rt.stats()["executor"]
                 gathered = {k: st["kernel_launches"].get(k, 0) for k in ops.KERNELS}
-                assert gathered == only(ops, knn_topk=64, kmeans_assign=160), gathered
+                assert gathered == only(ops, knn_topk=64, kmeans_assign=160,
+                                        normal_fill=fills(knn_cfg, km_cfg, lr_cfg)), gathered
                 assert ops.launch_counts() == only(ops), "the parent launched a kernel"
                 # every worker holds card memory: each reports what its
                 # allocator reserves, and the card's used memory covers
@@ -2489,8 +2617,10 @@ def main(argv) -> int:
                                  for k in ops.KERNELS}
                 # a killed task's launches die with its worker: only
                 # replied tasks are counted, so the retried run adds 64
-                assert launches_proc == only(ops, knn_topk=128, kmeans_assign=160), \
-                    launches_proc
+                # (and its fills)
+                assert launches_proc == only(ops, knn_topk=128, kmeans_assign=160,
+                                             normal_fill=fills(knn_cfg, km_cfg, lr_cfg)
+                                             + fills(knn=knn_cfg)), launches_proc
                 ph.info["launches_with_the_kill_run"] = launches_proc
             finally:
                 planed |= plane_names(ex)
@@ -2547,7 +2677,8 @@ def main(argv) -> int:
                         assert out.predictions.tobytes() == r.predictions.tobytes()
                 st = ex.stats()
                 gathered = {k: st["kernel_launches"].get(k, 0) for k in ops.KERNELS}
-                assert gathered == only(ops, knn_topk=64, kmeans_assign=160), gathered
+                assert gathered == only(ops, knn_topk=64, kmeans_assign=160,
+                                        normal_fill=fills(knn_cfg, km_cfg, lr_cfg)), gathered
                 assert ops.launch_counts() == only(ops), "the scheduler launched a kernel"
                 agents = agents_report()
                 assert not any(s["cuda_initialized"] for s in agents), \
@@ -2593,12 +2724,18 @@ def main(argv) -> int:
                 # only replied tasks are counted: a task whose agent died
                 # with it in flight launches again, once, in its retry,
                 # and a lost result's producer once more per re-execution
+                # (the fills the dead node held run again for the tasks
+                # that need them, more often than their completed events
+                # say: each of the run's fills launched at least once)
                 frag_done = sum(1 for e in rt.tracer.events("task")
                                 if e.name == "KNN_frag" and e.t0 >= t_kill and e.meta["ok"])
                 st = ex.stats()
                 launches_cluster = {k: st["kernel_launches"].get(k, 0) for k in ops.KERNELS}
-                assert launches_cluster == only(ops, knn_topk=64 + frag_done,
-                                                kmeans_assign=160), (frag_done, launches_cluster)
+                refills = launches_cluster["normal_fill"] - fills(knn_cfg, km_cfg, lr_cfg)
+                assert refills >= fills(knn=knn_cfg), launches_cluster
+                assert launches_cluster == only(ops, knn_topk=64 + frag_done, kmeans_assign=160,
+                                                normal_fill=launches_cluster["normal_fill"]), \
+                    (frag_done, launches_cluster)
                 assert ops.launch_counts() == only(ops), "the scheduler launched a kernel"
                 agents = agents_report()
                 assert not any(s["cuda_initialized"] for s in agents)
@@ -2607,6 +2744,7 @@ def main(argv) -> int:
                                retries=stats["retries"], kill_run_s=kill_run,
                                knn_frag_completions=frag_done,
                                knn_frag_reexecutions=frag_done - 64,
+                               kill_run_fills=refills,
                                launches_with_the_kill_run=launches_cluster)
             finally:
                 pids = set(p.pid for p in rt.cluster._procs if p is not None)
@@ -2630,6 +2768,13 @@ def main(argv) -> int:
     with Phase("wide") as ph:
         launches_wide = wide_phase(ph, ops, knn, kmeans, api, knn_k, km_k, make_blobs, cuda)
 
+    fill_launches.update(simulate=launches_sim["normal_fill"],
+                         process=launches_proc["normal_fill"],
+                         cluster=launches_cluster["normal_fill"], wide=launches_wide["normal_fill"])
+    launches["normal_fill"] = sum(fill_launches.values())
+    for row in rows:
+        if row["name"] == "normal_fill":
+            row["launches_by_phase"] = fill_launches
     for name in ("knn_topk", "kmeans_assign"):
         pipeline_by_phase = {"knn" if name == "knn_topk" else "kmeans": launches[name],
                              "simulate": launches_sim[name], "process": launches_proc[name],
@@ -2732,7 +2877,8 @@ def main(argv) -> int:
     for name in ("rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"):
         launches[name] = sum(counts[name] for counts in by_phase.values())
     for row in rows:
-        if row["name"] in launches and row["name"] not in ("knn_topk", "kmeans_assign"):
+        if row["name"] in launches and row["name"] not in ("knn_topk", "kmeans_assign",
+                                                            "normal_fill"):
             row["launches_by_phase"] = {phase: counts[row["name"]]
                                         for phase, counts in by_phase.items()
                                         if counts[row["name"]]}

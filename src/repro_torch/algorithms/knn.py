@@ -9,11 +9,14 @@ block and one training fragment and keep the local top-k, a tree of
 
 What the port changes, and why:
 
-* The fill tasks generate with NumPy exactly as the JAX package does (the
-  same seeds give the same bits), then move the fragment to the device
-  once, as fp32 rows and int32 labels.  Under the thread backend the
-  object store then holds device tensors, and every later task reads
-  them where they are; only the final predictions come back to the host.
+* The fill tasks make the JAX package's data (the same seeds give the
+  same bits).  On the card the host draws only the labels and the class
+  centres with NumPy, sends them up, and the rows' normals are NumPy's
+  own stream drawn on the card (:func:`repro_torch.kernels.ops.
+  normal_fill`), as fp32 rows and int32 labels; on the CPU NumPy draws
+  everything.  Under the thread backend the object store then holds
+  device tensors, and every later task reads them where they are; only
+  the final predictions come back to the host.
 * ``KNN_frag`` calls the fused distance + top-k kernel
   (:func:`repro_torch.kernels.ops.knn_topk`).  The reference's NumPy body
   never calls its Pallas twin; the port does on purpose — the kernel
@@ -34,7 +37,8 @@ import torch
 from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
-from .common import calibrate_cost, make_blobs, resolve_device, tree_reduce_spec
+from .common import (calibrate_cost, make_blobs, make_blobs_on_card, resolve_device,
+                     tree_reduce_spec)
 
 
 # --------------------------------------------------------------------- tasks
@@ -42,6 +46,8 @@ def knn_fill_fragment(seed: int, n: int, d: int, n_classes: int, device=None):
     """Generate one labelled training fragment on ``device``:
     (rows (n, d) fp32, labels (n,) int32)."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        return make_blobs_on_card(seed, n, d, n_classes, dev)
     with tracing.span("generate"):
         X, y = make_blobs(seed, n, d, n_classes)
         X, y = X.astype(np.float32), y.astype(np.int32)
@@ -51,6 +57,8 @@ def knn_fill_fragment(seed: int, n: int, d: int, n_classes: int, device=None):
 
 def knn_gen_test(seed: int, n: int, d: int, n_classes: int, device=None):
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        return make_blobs_on_card(seed, n, d, n_classes, dev)[0]
     with tracing.span("generate"):
         X = make_blobs(seed, n, d, n_classes)[0].astype(np.float32)
     with tracing.span("upload"):
@@ -192,8 +200,9 @@ def calibrate(d: int = 50, k: int = 5, n_classes: int = 4,
               device=None) -> KNNCosts:
     """Fit per-task cost models by timing the real task functions on
     ``device`` (CUDA unless ``device="cpu"``): each call is timed between
-    two synchronisations of the card.  The fill tasks time as they run, a
-    NumPy fill and then one host-to-device copy.  On the card, units that
+    two synchronisations of the card.  The fill tasks time as they run:
+    on the card, the host's small draws and uploads and the normals drawn
+    there.  On the card, units that
     leave ``KNN_frag`` launch-bound make an affine fit that extrapolates
     to nothing: calibrate at the pipeline's own task sizes."""
     dev = resolve_device(device)

@@ -11,9 +11,14 @@ pipeline.
 
 What the port changes, and why:
 
-* The generators run NumPy exactly as the JAX package does (recorded as
-  the ``generate`` span) and move the data to the device once, in
-  float64 (the ``upload`` span).
+* The generators make the JAX package's data (the same seeds give the
+  same bits, y to float64 rounding).  On the card the normals of X, the
+  noise after them (one stream) and the prediction inputs are NumPy's
+  own stream drawn there (:func:`repro_torch.kernels.ops.normal_fill`);
+  the host draws only beta and sends it up (the ``upload`` span), and y
+  = beta[0] + X beta[1:] + 0.1 noise is formed on the card (cuBLAS
+  DGEMV: the host's BLAS sums in another order).  On the CPU NumPy draws
+  everything and the host forms y, as the JAX package does.
 * The intercept costs no copy.  The reference forms Z = [1 X] for every
   fragment and prediction block; at the paper's width (p 1000) each Z is
   a 160 MB copy of a 20,000-row fragment, written and read again, and
@@ -39,6 +44,7 @@ import torch
 
 from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
+from ..kernels import normal_fill, ops
 from .common import calibrate_cost, resolve_device
 
 # default k-ary width of the collective merge trees (DESIGN.md §16): one
@@ -64,6 +70,18 @@ def lr_fill_fragment(seed: int, n: int, p: int, beta_seed: int = 1234,
     """Synthetic (X, y) with a hidden ground-truth beta (shared seed),
     float64 on ``device``."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        with tracing.span("generate"):
+            state = np.random.default_rng(seed).bit_generator.state
+            beta = np.random.default_rng(beta_seed).standard_normal(p + 1)
+        with tracing.span("upload"):
+            b, = normal_fill.upload([beta[1:]], dev)
+        with tracing.span("generate"):
+            X = torch.empty((n, p), dtype=torch.float64, device=dev)
+            z = torch.empty(n, dtype=torch.float64, device=dev)
+            ops.normal_fill(state, X, noise=z)       # X's normals, then the noise's
+            y = torch.mv(X, b).add_(float(beta[0])).add_(z.mul_(noise))
+        return X, y
     with tracing.span("generate"):
         X, y = _np_fill_fragment(seed, n, p, beta_seed, noise)
     with tracing.span("upload"):
@@ -115,6 +133,11 @@ def _np_genpred(seed: int, m: int, p: int) -> np.ndarray:
 
 def lr_genpred(seed: int, m: int, p: int, device=None) -> torch.Tensor:
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        with tracing.span("generate"):
+            Xp = torch.empty((m, p), dtype=torch.float64, device=dev)
+            ops.normal_fill(np.random.default_rng(seed).bit_generator.state, Xp)
+        return Xp
     with tracing.span("generate"):
         Xp = _np_genpred(seed, m, p)
     with tracing.span("upload"):

@@ -8,6 +8,8 @@ version (``ops`` dispatches by device):
   (cache-free prefill of the LM)
 * ``rglru_scan``      — the RG-LRU linear recurrence (RG-LRU prefill)
 * ``ssd_scan``        — the Mamba-2 SSD scan (SSD prefill)
+* ``normal_fill``     — NumPy's PCG64 standard-normal stream, bit for bit
+  (the pipelines' fills; no Pallas twin: the JAX package draws on the host)
 
 CUDA C++ sources live in ``repro_torch/csrc``; ``_build`` compiles them
 with ``nvcc`` at the first CUDA launch.

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint64
 # C entry points: name -> (argtypes, restype).  Every pointer and the
 # stream travel as c_void_p: a bare Python int would be cut to 32 bits.
 SIGNATURES = {
@@ -51,6 +52,8 @@ SIGNATURES = {
     "rglru_scan_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssd_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_L), _I, _P], _I),
+    "normal_fill_launch": ([_U, _U, _U, _U, _L, _L, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P],
+                           _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -14,7 +14,9 @@ a caller over a device mesh gathers its shards first
 
 The launch counters are plain ints, one per kernel, kept by each
 kernel's CUDA wrapper where it launches (``knn_topk.launches``, ...);
-plain-version calls never count.
+plain-version calls never count.  ``normal_fill``'s chunks re-parsed
+serially are counted on the card, where the kernel finds them, and read
+apart (``normal_fill.reparses()``): reading them waits for the card.
 
 Gradients.  The four model kernels (``rmsnorm``, ``flash_attention``,
 ``ssd_scan``, ``rglru_scan``) fill ``torch.empty`` outputs through
@@ -42,12 +44,14 @@ from . import _build
 from . import flash_attention as _flash
 from . import kmeans_assign as _kmeans
 from . import knn_topk as _knn
+from . import normal_fill as _nf
 from . import rglru_scan as _rglru
 from . import rmsnorm as _rms
 from . import ssd_scan as _ssd
 
 KERNELS = {"knn_topk": _knn, "kmeans_assign": _kmeans, "rmsnorm": _rms,
-           "flash_attention": _flash, "rglru_scan": _rglru, "ssd_scan": _ssd}
+           "flash_attention": _flash, "rglru_scan": _rglru, "ssd_scan": _ssd,
+           "normal_fill": _nf}
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -120,6 +124,18 @@ def kmeans_assign(x, centroids):
     return _kmeans.kmeans_assign_cuda(x, centroids)
 
 
+def normal_fill(state: dict, out, *, noise=None, centres=None, labels=None):
+    """Fill ``out`` with the next normals of the NumPy PCG64 stream whose
+    ``bit_generator.state`` is ``state`` (``Generator.standard_normal``'s
+    values): float64 ``out`` as drawn, the normals past it in float64
+    ``noise``; float32 ``out`` (rows, d) as ``float32(centres[labels[row],
+    col] + z)``.  On the CPU NumPy draws them; on a CUDA card the kernel,
+    asynchronously, without advancing any generator."""
+    if _device_type(*(t for t in (out, noise, centres, labels) if t is not None)) == "cuda":
+        return _nf.normal_fill_cuda(state, out, noise=noise, centres=centres, labels=labels)
+    return _nf.normal_fill_plain(state, out, noise=noise, centres=centres, labels=labels)
+
+
 meta_hook: Optional[Callable] = None   # a dry run's view of the kernels' meta stand-ins
 
 
@@ -182,9 +198,11 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count, and ``knn_topk``'s calls per route."""
+    """Zero every kernel's launch count, ``normal_fill``'s re-parses and
+    ``knn_topk``'s calls per route."""
     for mod in KERNELS.values():
         with mod._count_lock:
             mod.launches = 0
+    _nf.reset_reparses()
     with _knn._count_lock:
         _knn.route_launches.update(dict.fromkeys(_knn.route_launches, 0))

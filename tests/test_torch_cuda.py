@@ -893,3 +893,146 @@ def test_the_calibration_timer_synchronises_the_card(cuda):
     torch.cuda.synchronize()
     assert synced >= 0.9 * device_s
     assert unsynced < 0.5 * device_s
+
+
+# ----------------------------------------------------------- normal_fill
+def _frozen_fill(name, seed, n, d):
+    """The benchmark's frozen generator of one fill, and the float64
+    normals of its stream (to tell the tail's elements: |z| > r)."""
+    from bench.frozen import generators as fg
+    from bench.frozen import linreg as fl
+    if name in ("KNN_fill_fragment", "KNN_gen_test"):
+        X, y = fg.make_blobs(seed, n, d, 4)
+        rng = np.random.default_rng(seed)
+        rng.integers(0, 4, size=n)
+        rng.standard_normal((4, d))
+        out = (X.astype(np.float32), y.astype(np.int32))
+        return out[:2 if name == "KNN_fill_fragment" else 1], rng.standard_normal(n * d)
+    if name == "fill_fragment":
+        rng = np.random.default_rng(seed)
+        rng.standard_normal((8, d))
+        rng.integers(0, 8, size=n)
+        return (fg.kmeans_fragment(seed, n, d).astype(np.float32),), rng.standard_normal(n * d)
+    if name == "LR_fill_fragment":
+        z = np.random.default_rng(seed).standard_normal(n * (d + 1))
+        return fl.fragment(seed, n, d), z
+    return (fl.prediction_block(seed, n, d),), np.random.default_rng(seed).standard_normal(n * d)
+
+
+def _card_fill(name, seed, n, d, dev):
+    from repro_torch.algorithms import linreg
+    out = {"KNN_fill_fragment": lambda: knn.knn_fill_fragment(seed, n, d, 4, dev),
+           "KNN_gen_test": lambda: (knn.knn_gen_test(seed, n, d, 4, dev),),
+           "fill_fragment": lambda: (kmeans.fill_fragment(seed, n, d, device=dev),),
+           "LR_fill_fragment": lambda: linreg.lr_fill_fragment(seed, n, d, device=dev),
+           "LR_genpred": lambda: (linreg.lr_genpred(seed, n, d, dev),)}[name]()
+    return tuple(out)
+
+
+def _ulps(a, b):
+    """Distance in units in the last place, elementwise, of two float
+    arrays of one dtype and sign."""
+    ints = {np.float32: np.int32, np.float64: np.int64}[a.dtype.type]
+    return np.abs(a.view(ints).astype(np.int64) - b.view(ints).astype(np.int64))
+
+
+@pytest.mark.parametrize("name,seed,n,d", [
+    ("KNN_fill_fragment", 2**31 + 7, 76_800, 50),     # knn_d50's training fragment
+    ("KNN_fill_fragment", 3, 1001, 13),
+    ("KNN_gen_test", 10_000 + 5, 8_000, 50),          # knn_d50.paper's test block
+    ("KNN_gen_test", 10_000 + 6, 12_700, 50),         # knn_d50.bulk's test block
+    ("KNN_gen_test", 4, 77, 7),
+    ("fill_fragment", 2**33 + 1, 216_000, 50),        # kmeans_d50's fragment
+    ("fill_fragment", 5, 1003, 9),
+    ("LR_fill_fragment", 17, 20_000, 1000),           # linreg_p1000's fragment
+    ("LR_fill_fragment", 6, 999, 13),
+    ("LR_genpred", 50_000 + 9, 20_000, 1000),         # linreg_p1000's prediction block
+    ("LR_genpred", 7, 77, 5),
+])
+def test_fills_on_the_card_are_the_frozen_generators(cuda, name, seed, n, d):
+    """Each fill on the card against the benchmark's frozen NumPy
+    generator: every element made on the ziggurat's fast path or wedge
+    bit for bit, the tail's (|z| > r, CUDA's log1p) within 2 ulp; labels
+    equal; y to float64 summation order (cuBLAS DGEMV against the host's
+    BLAS); two launches bitwise equal; one normal_fill launch a fill."""
+    from repro_torch.kernels import normal_fill as nf
+    ops.reset_launch_counts()
+    got = [t.cpu().numpy() for t in _card_fill(name, seed, n, d, cuda)]
+    assert ops.launch_counts()["normal_fill"] == 1
+    again = [t.cpu().numpy() for t in _card_fill(name, seed, n, d, cuda)]
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(got, again))
+    want, z = _frozen_fill(name, seed, n, d)
+    assert len(got) == len(want)
+    tail = np.abs(z[:n * d]) > nf.ZIG_R
+    rows, ref = got[0].ravel(), want[0].ravel()
+    assert rows.dtype == ref.dtype
+    assert np.array_equal(rows[~tail].view(np.uint8), ref[~tail].view(np.uint8))
+    assert _ulps(rows[tail], ref[tail]).max(initial=0) <= 2
+    if name == "KNN_fill_fragment":
+        assert np.array_equal(got[1], want[1])
+    if name == "LR_fill_fragment":
+        y, y_ref = got[1], want[1]
+        assert np.abs(y - y_ref).max() <= 1e-13 * np.abs(y_ref).max()
+    assert ops.launch_counts()["normal_fill"] == 2 and nf.reparses() >= 0
+
+
+def test_normal_fill_matches_its_plain_version(cuda):
+    """The op on the card and its plain version (NumPy's generator) from
+    one state: float64 with noise at a length that spans many chunks and
+    ends inside one, and float32 blobs."""
+    from repro_torch.kernels import normal_fill as nf
+    rng = np.random.default_rng(2**40 + 3)
+    rng.integers(0, 4, size=11)
+    st = rng.bit_generator.state
+    X, z = torch.empty((777, 131), dtype=torch.float64), torch.empty(777, dtype=torch.float64)
+    ops.normal_fill(st, X, noise=z)
+    Xc, zc = torch.empty_like(X, device=cuda), torch.empty_like(z, device=cuda)
+    ops.normal_fill(st, Xc, noise=zc)
+    for a, b in ((X.numpy().ravel(), Xc.cpu().numpy().ravel()),
+                 (z.numpy(), zc.cpu().numpy())):
+        tail = np.abs(a) > nf.ZIG_R
+        assert np.array_equal(a[~tail], b[~tail]) and _ulps(a[tail], b[tail]).max(initial=0) <= 2
+    cents = torch.from_numpy(rng.standard_normal((3, 131)))
+    labs = torch.from_numpy(rng.integers(0, 3, size=777).astype(np.int32))
+    B = torch.empty((777, 131), dtype=torch.float32)
+    ops.normal_fill(st, B, centres=cents, labels=labs)
+    Bc = torch.empty_like(B, device=cuda)
+    ops.normal_fill(st, Bc, centres=cents.to(cuda), labels=labs.to(cuda))
+    assert _ulps(B.numpy(), Bc.cpu().numpy()).max() <= 2
+    assert (B.numpy() == Bc.cpu().numpy()).mean() > 0.999
+    with pytest.raises(ValueError):
+        nf.normal_fill_cuda(st, X)                       # a CPU tensor
+    ops.reset_launch_counts()
+    nf.normal_fill_cuda(st, torch.empty(0, dtype=torch.float64, device=cuda))
+    assert ops.launch_counts()["normal_fill"] == 0       # nothing launched, nothing counted
+    # a resolve that left an entry unknown is flagged beside the re-parses
+    counter = nf._reparse_counter(cuda)
+    counter[1] = 1
+    with pytest.raises(RuntimeError):
+        nf.reparses()
+    ops.reset_launch_counts()
+    assert nf.reparses() == 0
+
+
+def test_normal_fill_launches_a_fill(cuda):
+    """One normal_fill launch a fill on the card: 24 in knn_d50.paper's
+    program shape (16 fragments, 8 test blocks), 96 in bulk's (80
+    blocks), 16 in kmeans', 20 in linear regression's (16 + 4); the
+    re-parse counter is reported."""
+    from repro_torch.algorithms import linreg
+    from repro_torch.kernels import normal_fill as nf
+    with api.runtime_start(n_workers=4):
+        for run, want in ((lambda: knn.run_knn(n_train=3200, n_test=800, d=8, train_fragments=16,
+                                               test_blocks=8, device=cuda), 24),
+                          (lambda: knn.run_knn(n_train=3200, n_test=1600, d=8,
+                                               train_fragments=16, test_blocks=80,
+                                               device=cuda), 96),
+                          (lambda: kmeans.run_kmeans(n_points=3200, d=8, k=4, fragments=16,
+                                                     max_iters=2, device=cuda), 16),
+                          (lambda: linreg.run_linreg(n_rows=3200, p=10, n_pred=800,
+                                                     fragments=16, pred_blocks=4,
+                                                     device=cuda), 20)):
+            ops.reset_launch_counts()
+            run()
+            assert ops.launch_counts()["normal_fill"] == want
+            assert nf.reparses() >= 0

@@ -178,9 +178,12 @@ def test_ops_dispatch_by_device_and_count_only_kernel_launches():
     y, st = ops.ssd_scan(torch.ones((1, 4, 2, 3)), torch.ones((1, 4, 2)), -torch.ones(2),
                          torch.ones((1, 4, 5)), torch.ones((1, 4, 5)), chunk=2)
     assert y.shape == (1, 4, 2, 3) and st.shape == (1, 2, 3, 5) and y.dtype == torch.float32
+    ops.normal_fill(np.random.default_rng(0).bit_generator.state,
+                    torch.empty(6, dtype=torch.float64))
     # plain versions never count
     assert ops.launch_counts() == {"knn_topk": 0, "kmeans_assign": 0, "rmsnorm": 0,
-                                   "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+                                   "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0,
+                                   "normal_fill": 0}
     with pytest.raises(ValueError):
         ops.rglru_scan(la, b, torch.zeros((2, 5), device="meta"))
     with pytest.raises(ValueError):
