@@ -6,9 +6,12 @@ stream, so a host clock around a call on the card reads the launch (about
 10 µs), not the task: :func:`timeit_median` brackets each call with
 ``torch.cuda.synchronize`` when it is given a CUDA device.
 
-On the card the fills draw their O(n·d) normals there
-(:func:`blobs_on_card`, ``ops.normal_fill``): NumPy's own stream, so the
-same seeds give the same data as on the host."""
+The fills take one path on every device: the host draws what is small
+(labels, centres, beta) in a ``generate`` span, :func:`upload` moves it
+to the device in an ``upload`` span, and ``ops.normal_fill`` draws the
+O(n·d) normals in a second ``generate`` span (:func:`blobs`), NumPy's
+own stream: with NumPy on the CPU, with the kernel on the card, so the
+same seeds give the same data on both."""
 from __future__ import annotations
 
 import time
@@ -19,7 +22,7 @@ import torch
 
 from ..core import tracing
 from ..core.simulator import CostModel
-from ..kernels import normal_fill, ops
+from ..kernels import ops
 
 
 def tree_reduce(items: Sequence, merge_task: Callable, arity: int = 2):
@@ -85,32 +88,32 @@ def make_blobs(seed: int, n: int, d: int, n_classes: int, spread: float = 4.0):
     return X.astype(np.float64), y.astype(np.int64)
 
 
-def blobs_on_card(rng: np.random.Generator, centers: np.ndarray, labels: np.ndarray,
-                  device):
+def upload(arrays, device: torch.device) -> List[torch.Tensor]:
+    """Small host arrays (a fill's labels, centres, beta) on ``device``.  To
+    a CUDA device they are copied asynchronously from pinned memory on the
+    current stream: a copy from pageable memory would wait for every
+    kernel queued there.  On the CPU they stay where they are
+    (``pin_memory`` needs CUDA)."""
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if device.type != "cuda":
+        return tensors
+    return [t.pin_memory().to(device, non_blocking=True) for t in tensors]
+
+
+def blobs(rng: np.random.Generator, centers: np.ndarray, labels: np.ndarray,
+          device: torch.device):
     """``(centers[labels] + rng.standard_normal((n, d))).astype(np.float32)``
-    with the normals drawn on the card from ``rng``'s state (which stays
-    where it is): the host's bytes.  The centres and the int32 labels go
-    up first (the ``upload`` span), then the kernel fills the rows (a
-    ``generate`` span).  Returns (rows (n, d) fp32, labels (n,) int32) on
-    ``device``."""
+    on ``device``, the normals drawn from ``rng``'s state (which stays
+    where it is) by ``ops.normal_fill``: the host's bytes.  The centres
+    and the int32 labels go to the device first (the ``upload`` span),
+    then the rows are filled (a ``generate`` span).  Returns (rows (n, d)
+    fp32, labels (n,) int32) on ``device``."""
     with tracing.span("upload"):
-        cents, labs = normal_fill.upload([centers, labels.astype(np.int32)], device)
+        cents, labs = upload([centers, labels.astype(np.int32)], device)
     with tracing.span("generate"):
         X = torch.empty((labels.shape[0], centers.shape[1]), dtype=torch.float32, device=device)
         ops.normal_fill(rng.bit_generator.state, X, centres=cents, labels=labs)
     return X, labs
-
-
-def make_blobs_on_card(seed: int, n: int, d: int, n_classes: int, device,
-                       spread: float = 4.0):
-    """:func:`make_blobs` as fp32 rows and int32 labels on the card: the
-    labels and centres drawn on the host (a ``generate`` span), the rows
-    by :func:`blobs_on_card`."""
-    with tracing.span("generate"):
-        rng = np.random.default_rng(seed)
-        y = rng.integers(0, n_classes, size=n)
-        centers = rng.standard_normal((n_classes, d)) * spread
-    return blobs_on_card(rng, centers, y, device)
 
 
 def _synchronize(device) -> None:

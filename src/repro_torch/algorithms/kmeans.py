@@ -10,11 +10,12 @@ function) — one synchronization per iteration, exactly as in Fig. 4.
 What the port changes, and why:
 
 * ``fill_fragment`` makes the JAX package's data (the same seeds give the
-  same bits).  On the card the host draws only the centres and each
-  point's centre with NumPy, sends them up, and the points' normals are
-  NumPy's own stream drawn on the card (:func:`repro_torch.kernels.ops.
-  normal_fill`), as fp32; on the CPU NumPy draws everything.  The store
-  then holds device tensors, so no iteration copies a fragment again.
+  same bits).  The host draws only the centres and each point's centre
+  with NumPy and moves them to the device; the points' normals are
+  NumPy's own stream drawn there (:func:`repro_torch.kernels.ops.
+  normal_fill`: the kernel on the card, NumPy on the CPU), as fp32.  The
+  store then holds device tensors, so no iteration copies a fragment
+  again.
 * ``partial_sum`` calls the fused assignment + partial-sums kernel
   (:func:`repro_torch.kernels.ops.kmeans_assign`), which the reference's
   NumPy body never does — the kernel adaptation of DESIGN.md's design
@@ -36,7 +37,7 @@ import torch
 from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
-from .common import blobs_on_card, calibrate_cost, resolve_device, tree_reduce_spec
+from .common import blobs, calibrate_cost, resolve_device, tree_reduce_spec
 
 
 # --------------------------------------------------------------------- tasks
@@ -52,16 +53,11 @@ def fill_fragment(seed: int, n: int, d: int, n_centers: int = 8,
                   spread: float = 5.0, device=None) -> torch.Tensor:
     """One fragment of points, (n, d) fp32 on ``device``."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        with tracing.span("generate"):
-            rng = np.random.default_rng(seed)
-            centers = rng.standard_normal((n_centers, d)) * spread
-            which = rng.integers(0, n_centers, size=n)
-        return blobs_on_card(rng, centers, which, dev)[0]
     with tracing.span("generate"):
-        X = _np_fill_fragment(seed, n, d, n_centers, spread).astype(np.float32)
-    with tracing.span("upload"):
-        return torch.from_numpy(X).to(dev)
+        rng = np.random.default_rng(seed)
+        centers = rng.standard_normal((n_centers, d)) * spread
+        which = rng.integers(0, n_centers, size=n)
+    return blobs(rng, centers, which, dev)[0]
 
 
 def partial_sum(X: torch.Tensor, centroids: torch.Tensor):

@@ -10,13 +10,13 @@ block and one training fragment and keep the local top-k, a tree of
 What the port changes, and why:
 
 * The fill tasks make the JAX package's data (the same seeds give the
-  same bits).  On the card the host draws only the labels and the class
-  centres with NumPy, sends them up, and the rows' normals are NumPy's
-  own stream drawn on the card (:func:`repro_torch.kernels.ops.
-  normal_fill`), as fp32 rows and int32 labels; on the CPU NumPy draws
-  everything.  Under the thread backend the object store then holds
-  device tensors, and every later task reads them where they are; only
-  the final predictions come back to the host.
+  same bits).  The host draws only the labels and the class centres with
+  NumPy and moves them to the device; the rows' normals are NumPy's own
+  stream drawn there (:func:`repro_torch.kernels.ops.normal_fill`: the
+  kernel on the card, NumPy on the CPU), as fp32 rows and int32 labels.
+  Under the thread backend the object store then holds device tensors,
+  and every later task reads them where they are; only the final
+  predictions come back to the host.
 * ``KNN_frag`` calls the fused distance + top-k kernel
   (:func:`repro_torch.kernels.ops.knn_topk`).  The reference's NumPy body
   never calls its Pallas twin; the port does on purpose — the kernel
@@ -37,32 +37,23 @@ import torch
 from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
 from ..kernels import ops
-from .common import (calibrate_cost, make_blobs, make_blobs_on_card, resolve_device,
-                     tree_reduce_spec)
+from .common import blobs, calibrate_cost, make_blobs, resolve_device, tree_reduce_spec
 
 
 # --------------------------------------------------------------------- tasks
 def knn_fill_fragment(seed: int, n: int, d: int, n_classes: int, device=None):
     """Generate one labelled training fragment on ``device``:
-    (rows (n, d) fp32, labels (n,) int32)."""
+    :func:`make_blobs`'s (rows (n, d) fp32, labels (n,) int32)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        return make_blobs_on_card(seed, n, d, n_classes, dev)
     with tracing.span("generate"):
-        X, y = make_blobs(seed, n, d, n_classes)
-        X, y = X.astype(np.float32), y.astype(np.int32)
-    with tracing.span("upload"):
-        return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+        rng = np.random.default_rng(seed)
+        y = rng.integers(0, n_classes, size=n)
+        centers = rng.standard_normal((n_classes, d)) * 4.0
+    return blobs(rng, centers, y, dev)
 
 
 def knn_gen_test(seed: int, n: int, d: int, n_classes: int, device=None):
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        return make_blobs_on_card(seed, n, d, n_classes, dev)[0]
-    with tracing.span("generate"):
-        X = make_blobs(seed, n, d, n_classes)[0].astype(np.float32)
-    with tracing.span("upload"):
-        return torch.from_numpy(X).to(dev)
+    return knn_fill_fragment(seed, n, d, n_classes, device)[0]
 
 
 def knn_frag(frag, test_X: torch.Tensor, k: int):

@@ -12,13 +12,14 @@ pipeline.
 What the port changes, and why:
 
 * The generators make the JAX package's data (the same seeds give the
-  same bits, y to float64 rounding).  On the card the normals of X, the
+  same bits, y to float64 rounding on the card).  The normals of X, the
   noise after them (one stream) and the prediction inputs are NumPy's
-  own stream drawn there (:func:`repro_torch.kernels.ops.normal_fill`);
-  the host draws only beta and sends it up (the ``upload`` span), and y
-  = beta[0] + X beta[1:] + 0.1 noise is formed on the card (cuBLAS
-  DGEMV: the host's BLAS sums in another order).  On the CPU NumPy draws
-  everything and the host forms y, as the JAX package does.
+  own stream drawn on the device (:func:`repro_torch.kernels.ops.
+  normal_fill`: the kernel on the card, NumPy on the CPU); the host
+  draws only beta and moves it to the device (the ``upload`` span).  y
+  = beta[0] + X beta[1:] + 0.1 noise is formed on the card by cuBLAS
+  DGEMV (the host's BLAS sums in another order) and on the CPU by NumPy,
+  as the JAX package does (:func:`_response`).
 * The intercept costs no copy.  The reference forms Z = [1 X] for every
   fragment and prediction block; at the paper's width (p 1000) each Z is
   a 160 MB copy of a 20,000-row fragment, written and read again, and
@@ -44,8 +45,8 @@ import torch
 
 from ..core import api, collectives, tracing
 from ..core.simulator import CostModel, SimTask
-from ..kernels import normal_fill, ops
-from .common import calibrate_cost, resolve_device
+from ..kernels import ops
+from .common import calibrate_cost, resolve_device, upload
 
 # default k-ary width of the collective merge trees (DESIGN.md §16): one
 # k-ary tree node is ONE task folding k partials, so the reduction costs
@@ -70,22 +71,28 @@ def lr_fill_fragment(seed: int, n: int, p: int, beta_seed: int = 1234,
     """Synthetic (X, y) with a hidden ground-truth beta (shared seed),
     float64 on ``device``."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        with tracing.span("generate"):
-            state = np.random.default_rng(seed).bit_generator.state
-            beta = np.random.default_rng(beta_seed).standard_normal(p + 1)
-        with tracing.span("upload"):
-            b, = normal_fill.upload([beta[1:]], dev)
-        with tracing.span("generate"):
-            X = torch.empty((n, p), dtype=torch.float64, device=dev)
-            z = torch.empty(n, dtype=torch.float64, device=dev)
-            ops.normal_fill(state, X, noise=z)       # X's normals, then the noise's
-            y = torch.mv(X, b).add_(float(beta[0])).add_(z.mul_(noise))
-        return X, y
     with tracing.span("generate"):
-        X, y = _np_fill_fragment(seed, n, p, beta_seed, noise)
+        state = np.random.default_rng(seed).bit_generator.state
+        beta = np.random.default_rng(beta_seed).standard_normal(p + 1)
     with tracing.span("upload"):
-        return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+        b, = upload([beta[1:]], dev)
+    with tracing.span("generate"):
+        X = torch.empty((n, p), dtype=torch.float64, device=dev)
+        z = torch.empty(n, dtype=torch.float64, device=dev)
+        ops.normal_fill(state, X, noise=z)       # X's normals, then the noise's
+        y = _response(X, z, beta, b, noise)
+    return X, y
+
+
+def _response(X: torch.Tensor, z: torch.Tensor, beta: np.ndarray, b: torch.Tensor,
+              noise: float) -> torch.Tensor:
+    """y = beta[0] + X beta[1:] + noise z; ``b`` is beta[1:] on X's device.
+    On the CPU it is NumPy's own expression: torch.mv sums in another
+    order than NumPy's BLAS (7.8e-14 apart at 2,000 x 1,000), and y keeps
+    the JAX package's bytes there."""
+    if X.device.type == "cuda":
+        return torch.mv(X, b).add_(float(beta[0])).add_(z.mul_(noise))
+    return torch.from_numpy(beta[0] + X.numpy() @ beta[1:] + noise * z.numpy())
 
 
 def partial_ztz(frag) -> torch.Tensor:
@@ -133,15 +140,10 @@ def _np_genpred(seed: int, m: int, p: int) -> np.ndarray:
 
 def lr_genpred(seed: int, m: int, p: int, device=None) -> torch.Tensor:
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        with tracing.span("generate"):
-            Xp = torch.empty((m, p), dtype=torch.float64, device=dev)
-            ops.normal_fill(np.random.default_rng(seed).bit_generator.state, Xp)
-        return Xp
     with tracing.span("generate"):
-        Xp = _np_genpred(seed, m, p)
-    with tracing.span("upload"):
-        return torch.from_numpy(Xp).to(dev)
+        Xp = torch.empty((m, p), dtype=torch.float64, device=dev)
+        ops.normal_fill(np.random.default_rng(seed).bit_generator.state, Xp)
+    return Xp
 
 
 def compute_prediction(X_pred: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:

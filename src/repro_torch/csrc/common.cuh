@@ -227,11 +227,6 @@ __device__ __forceinline__ float row_sqnorm(const float4* __restrict__ row, int 
   return s;
 }
 
-// Zero a shared buffer of `count` floats.
-__device__ inline void zero_shared(float* buf, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) buf[i] = 0.f;
-}
-
 // ------------------------------ depth-streamed 3xTF32 tiles, any depth d
 
 // The wide routes of knn_topk and kmeans_assign multiply a block's 16 x

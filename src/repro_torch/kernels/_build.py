@@ -9,6 +9,11 @@ repository root (git-ignored); it is built at the first CUDA launch and
 reused while the sources are unchanged.  Importing this module builds
 nothing.  A missing or failing ``nvcc`` raises with its output: there is
 no fallback.
+
+Every kernel wrapper refuses what its kernels do not take through
+:func:`require` and launches through :func:`launch`, which keeps the
+launch counters: one a kernel, and one a route of the kernels that pick
+a route (``knn_topk``).  ``ops.launch_counts()`` reads them.
 """
 from __future__ import annotations
 
@@ -21,7 +26,10 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
 from typing import Optional
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -61,6 +69,10 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
 build_log = ""                          # nvcc's output (ptxas register/smem report)
+_counts_lock = threading.Lock()
+# (kernel, None): the kernel's launches since the last reset; (kernel,
+# route): that route's calls since the same reset (plain ints)
+_counts: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -154,6 +166,50 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def require(kernel: str, tensors, contiguous: bool = True) -> torch.device:
+    """The one CUDA device of ``tensors``, (name, tensor, accepted dtypes or
+    None) triples, checked before anything is built: a tensor elsewhere
+    raises ValueError, one of another dtype TypeError, and, where
+    ``contiguous``, one that is not contiguous ValueError."""
+    dev = tensors[0][1].device
+    for name, t, dtypes in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected one CUDA device")
+        if dtypes is not None and t.dtype not in dtypes:
+            want = " or ".join(str(dt).removeprefix("torch.") for dt in dtypes)
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected {want}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    return dev
+
+
+def launch(kernel: str, symbol: str, device, *args, route: Optional[str] = None) -> None:
+    """Call the library's ``symbol`` on ``device`` with ``args`` and that
+    device's current stream (the last parameter of every ``*_launch``
+    entry), raise through :func:`check` if it failed, else count one
+    launch of ``kernel`` and, where given, one call of its ``route``."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, kernel)
+    with _counts_lock:
+        _counts[kernel, None] += 1
+        if route is not None:
+            _counts[kernel, route] += 1
+
+
+def count(kernel: str, route: Optional[str] = None) -> int:
+    """Launches of ``kernel`` (or calls of its ``route``) since the last
+    :func:`reset_counts`."""
+    with _counts_lock:
+        return _counts[kernel, route]
+
+
+def reset_counts() -> None:
+    with _counts_lock:
+        _counts.clear()
+
+
 def copy_width(d: int, *tensors) -> int:
     """Floats per ``cp.async`` copy of the wide routes' depth slices (see
     ``repro::issue_slice`` in ``csrc/common.cuh``): 4 or 2 where every row
@@ -169,7 +225,6 @@ def refuse_grad(kernel: str, *tensors) -> None:
     none (``knn_topk``, ``kmeans_assign``): an input requires grad and
     grad mode is on.  Their Pallas calls have no gradient under
     ``jax.grad`` either."""
-    import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{kernel} has no gradient: pass tensors that do not require "
                            f"grad, or call it under torch.no_grad()")

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
@@ -44,8 +43,6 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the configs' head dims and their reduced ones
 DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0          # kernel launches since the last reset (plain int)
-_count_lock = threading.Lock()
 _ALIGN = 16           # bytes: the bf16 route's cp.async copies
 
 
@@ -99,13 +96,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d in ``HEAD_DIMS``; bf16 tensors with addresses and strides in
     multiples of 16 bytes.  Returns (B, H, Sq, d) in q's dtype and
     layout."""
-    global launches
     _check_shapes(q, k, v, window)
-    dev = q.device
+    dev = _build.require("flash_attention_cuda", [("q", q, None), ("k", k, None), ("v", v, None)],
+                         contiguous=False)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
-                             f"expected one CUDA device")
         if t.dtype not in DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention_cuda: {name} is {t.dtype}; q, k and v must "
                             f"all be float32 or all bfloat16")
@@ -123,13 +117,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"flash_attention_cuda: bf16 {name} needs its address and "
                                  f"strides {t.stride()} in multiples of {_ALIGN} bytes")
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, o) for i in range(3)))
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K, Sq, Skv, d,
-            strides, int(causal), 0 if window is None else int(window),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "flash_attention")
-    with _count_lock:
-        launches += 1
+    _build.launch("flash_attention", "flash_attention_launch", dev,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K, Sq, Skv, d,
+                  strides, int(causal), 0 if window is None else int(window),
+                  int(q.dtype == torch.bfloat16))
     return o

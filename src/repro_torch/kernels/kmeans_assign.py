@@ -29,7 +29,6 @@ ties); the outputs are the per-cluster sums ``(k, d)``, the counts
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
@@ -49,9 +48,6 @@ _SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
 # memory where they fit beside those
 WIDE_POINTS = 128       # kWidePoints in csrc/kmeans_assign.cu
 WIDE_SCRATCH_FLOATS = 1 << 22   # the wide route's partials, unless one is larger
-
-launches = 0          # kernel launches since the last reset (plain int)
-_count_lock = threading.Lock()
 
 
 def _check_shapes(x, centroids) -> None:
@@ -169,36 +165,25 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
     """Launch the CUDA kernels of :func:`route`'s choice.  x (n, d) and
     centroids (k, d) fp32, contiguous, on one CUDA device.  Returns (sums
     (k, d) fp32, counts (k,) int32, sse 0-d fp32)."""
-    global launches
     _build.refuse_grad("kmeans_assign_cuda", x, centroids)
     _check_shapes(x, centroids)
-    dev = x.device
-    for name, t in (("x", x), ("centroids", centroids)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"kmeans_assign_cuda: {name} is on {t.device}, "
-                             f"expected one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kmeans_assign_cuda: {name} is {t.dtype}, expected float32")
-        if not t.is_contiguous():
-            raise ValueError(f"kmeans_assign_cuda: {name} must be contiguous")
+    dev = _build.require("kmeans_assign_cuda", [("x", x, (torch.float32,)),
+                                                ("centroids", centroids, (torch.float32,))])
     (n, d), k = x.shape, centroids.shape[0]
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.int32, device=dev)
     sse = torch.empty((), dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    outs = (sums.data_ptr(), counts.data_ptr(), sse.data_ptr(), stream)
-    lib = _build.library()
+    outs = (sums.data_ptr(), counts.data_ptr(), sse.data_ptr())
     if route(k, d) == "tensor_cores":
         T = tile_points(k, d)
         blocks = min(math.ceil(n / T), _BLOCKS_PER_SM * sms)
         part_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
         part_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
         part_sse = torch.empty((blocks,), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.kmeans_assign_launch(
-                x.data_ptr(), centroids.data_ptr(), n, k, d, T, blocks,
-                part_sums.data_ptr(), part_counts.data_ptr(), part_sse.data_ptr(), *outs)
+        _build.launch("kmeans_assign", "kmeans_assign_launch", dev,
+                      x.data_ptr(), centroids.data_ptr(), n, k, d, T, blocks,
+                      part_sums.data_ptr(), part_counts.data_ptr(), part_sse.data_ptr(), *outs)
     else:
         smem, shared_partials = wide_smem(k, d)
         blocks = wide_blocks(n, k, d, sms)
@@ -206,12 +191,9 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
         part_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
         part_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
         part_sse = torch.empty((blocks,), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.kmeans_wide_launch(
-                x.data_ptr(), centroids.data_ptr(), n, k, d, _build.copy_width(d, x, centroids),
-                blocks, int(shared_partials), smem, hc.data_ptr(), part_sums.data_ptr(),
-                part_counts.data_ptr(), part_sse.data_ptr(), *outs)
-    _build.check(err, "kmeans_assign")
-    with _count_lock:
-        launches += 1
+        _build.launch("kmeans_assign", "kmeans_wide_launch", dev,
+                      x.data_ptr(), centroids.data_ptr(), n, k, d,
+                      _build.copy_width(d, x, centroids), blocks, int(shared_partials), smem,
+                      hc.data_ptr(), part_sums.data_ptr(), part_counts.data_ptr(),
+                      part_sse.data_ptr(), *outs)
     return sums, counts, sse

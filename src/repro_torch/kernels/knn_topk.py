@@ -33,7 +33,6 @@ training index (lower first).
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
@@ -71,10 +70,7 @@ WIDE_MAX_SPLITS = 64
 WIDE_MIN_TILES = 64    # a split's least tiles: each split fills its lists anew
 WIDE_SCRATCH_KEYS = 1 << 24   # the splits' lists (8 bytes a key), unless one split is larger
 
-launches = 0         # kernel launches since the last reset (plain int)
-# the calls of each route since the same reset (plain ints)
-route_launches = {"tensor_cores": 0, "wide": 0}
-_count_lock = threading.Lock()
+ROUTES = ("tensor_cores", "wide")   # the CUDA routes, each counted apart by _build
 
 
 def _check_shapes(test_x, train_x, train_y, k: int) -> None:
@@ -200,21 +196,12 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
     int32)."""
     _build.refuse_grad("knn_topk_cuda", test_x, train_x)
     _check_shapes(test_x, train_x, train_y, k)
-    dev = test_x.device
-    for name, t, dt in (("test_x", test_x, torch.float32),
-                        ("train_x", train_x, torch.float32),
-                        ("train_y", train_y, torch.int32)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"knn_topk_cuda: {name} is on {t.device}, expected one CUDA device")
-        if t.dtype != dt:
-            raise TypeError(f"knn_topk_cuda: {name} is {t.dtype}, expected {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"knn_topk_cuda: {name} must be contiguous")
+    dev = _build.require("knn_topk_cuda", [("test_x", test_x, (torch.float32,)),
+                                           ("train_x", train_x, (torch.float32,)),
+                                           ("train_y", train_y, (torch.int32,))])
     (m, d), n = test_x.shape, train_x.shape[0]
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_l = torch.empty((m, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.library()
     which = route(k, d)
     if which == "tensor_cores":
         blocks, slabs, tiles = partition(
@@ -223,11 +210,10 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
         at = -(-m // 4) * 4
         sq = torch.empty((at + tiles * TC_TILE,), dtype=torch.float32, device=dev)
         part = torch.empty(((blocks + slabs - 1) * TC_ROWS * k,), dtype=torch.int64, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.knn_topk_launch(
-                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k,
-                list_length(k), blocks, sq.data_ptr(), sq[at:].data_ptr(), part.data_ptr(),
-                out_d.data_ptr(), out_l.data_ptr(), stream)
+        _build.launch("knn_topk", "knn_topk_launch", dev,
+                      test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k,
+                      list_length(k), blocks, sq.data_ptr(), sq[at:].data_ptr(), part.data_ptr(),
+                      out_d.data_ptr(), out_l.data_ptr(), route=which)
     else:
         smem, lists_shared = wide_smem(k)
         splits, chunk = wide_partition(
@@ -235,20 +221,9 @@ def knn_topk_cuda(test_x: torch.Tensor, train_x: torch.Tensor,
         sq = torch.empty((m + n,), dtype=torch.float32, device=dev)
         part = torch.empty((splits, m, k), dtype=torch.int64, device=dev)
         tmp = torch.empty((2, m, k) if splits > 1 else (1,), dtype=torch.int64, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.knn_wide_launch(
-                test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k, chunk,
-                splits, _build.copy_width(d, test_x, train_x), int(lists_shared), smem,
-                sq.data_ptr(), sq[m:].data_ptr(), part.data_ptr(), tmp.data_ptr(),
-                out_d.data_ptr(), out_l.data_ptr(), stream)
-    _build.check(err, "knn_topk")
-    _count(which)
+        _build.launch("knn_topk", "knn_wide_launch", dev,
+                      test_x.data_ptr(), train_x.data_ptr(), train_y.data_ptr(), m, n, d, k,
+                      chunk, splits, _build.copy_width(d, test_x, train_x), int(lists_shared),
+                      smem, sq.data_ptr(), sq[m:].data_ptr(), part.data_ptr(), tmp.data_ptr(),
+                      out_d.data_ptr(), out_l.data_ptr(), route=which)
     return out_d, out_l
-
-
-def _count(which: str) -> None:
-    """One launch of route ``which``: ``launches`` and its route's count."""
-    global launches
-    with _count_lock:
-        launches += 1
-        route_launches[which] += 1

@@ -77,8 +77,7 @@ MASK64 = (1 << 64) - 1
 ZIG_R = 3.6541528853610087963519472518       # ziggurat_nor_r
 ZIG_INV_R = 0.27366123732975827203338247596  # ziggurat_nor_inv_r
 
-launches = 0            # fills that launched the kernels since the last reset
-_count_lock = threading.Lock()
+_reparse_lock = threading.Lock()
 _reparse: Dict[int, torch.Tensor] = {}   # device index -> its counters on that card
 
 
@@ -442,7 +441,7 @@ def normal_fill_plain(state: dict, out: torch.Tensor, *, noise=None, centres=Non
 def _reparse_counter(dev: torch.device) -> torch.Tensor:
     """The card's two int64 words: chunks re-parsed serially, and resolves
     whose rounds ended with a chunk's entry still unknown."""
-    with _count_lock:
+    with _reparse_lock:
         t = _reparse.get(dev.index)
         if t is None:
             t = _reparse[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -454,7 +453,7 @@ def reparses() -> int:
     this process filled on (reading it waits for those cards' fills).
     Raises if a fill's resolve left a chunk's entry unknown: its output
     is not the stream."""
-    with _count_lock:
+    with _reparse_lock:
         counters = [t.tolist() for t in _reparse.values()]
     if any(unresolved for _, unresolved in counters):
         raise RuntimeError("normal_fill: a resolve ended with a chunk's entry offset unknown")
@@ -462,18 +461,9 @@ def reparses() -> int:
 
 
 def reset_reparses() -> None:
-    with _count_lock:
+    with _reparse_lock:
         for t in _reparse.values():
             t.zero_()
-
-
-def upload(arrays, device) -> List[torch.Tensor]:
-    """Small host arrays (a fill's labels, centres, beta) on the CUDA
-    ``device``, copied asynchronously from pinned memory on the current
-    stream: a copy from pageable memory would wait for every kernel
-    queued there."""
-    return [torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True)
-            for a in arrays]
 
 
 def normal_fill_cuda(state: dict, out: torch.Tensor, *, noise=None, centres=None,
@@ -483,14 +473,10 @@ def normal_fill_cuda(state: dict, out: torch.Tensor, *, noise=None, centres=None
     asynchronously on the current stream.  ``state`` is the generator's
     ``bit_generator.state``; the generator is read, not advanced.
     ``labels`` must index rows of ``centres``: the card does not check."""
-    global launches
     kind, main, total = _check(out, noise, centres, labels)
-    dev = out.device
-    if dev.type != "cuda":
-        raise ValueError(f"normal_fill_cuda: out is on {dev}, expected a CUDA device")
+    dev = _build.require("normal_fill_cuda", [("out", out, None)], contiguous=False)
     s, inc = pcg64_words(state)
     d = out.shape[1] if kind == 1 else 1
-    lib = _build.library()
     if total > 2**31 - 1:
         raise ValueError(f"normal_fill_cuda: {total} normals in one fill, at most 2^31 - 1")
     if total:
@@ -498,12 +484,8 @@ def normal_fill_cuda(state: dict, out: torch.Tensor, *, noise=None, centres=None
         summary = torch.empty((chunks, ENTRIES), dtype=torch.int32, device=dev)
         counter = _reparse_counter(dev)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        with torch.cuda.device(dev):
-            err = lib.normal_fill_launch(
-                s & MASK64, s >> 64, inc & MASK64, inc >> 64, total, main, kind, chunks,
-                summary.data_ptr(), counter.data_ptr(), out.data_ptr(), ptr(noise),
-                ptr(centres), ptr(labels), d, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "normal_fill")
-        with _count_lock:
-            launches += 1
+        _build.launch("normal_fill", "normal_fill_launch", dev,
+                      s & MASK64, s >> 64, inc & MASK64, inc >> 64, total, main, kind, chunks,
+                      summary.data_ptr(), counter.data_ptr(), out.data_ptr(), ptr(noise),
+                      ptr(centres), ptr(labels), d)
     return out

@@ -12,8 +12,9 @@ so does a DTensor: the kernels take plain tensors through ctypes, so
 a caller over a device mesh gathers its shards first
 (``distributed/steps.py``) — nothing converts a DTensor here.
 
-The launch counters are plain ints, one per kernel, kept by each
-kernel's CUDA wrapper where it launches (``knn_topk.launches``, ...);
+The launch counters are plain ints, one per kernel and one per route
+of ``knn_topk``, kept by ``_build.launch``, through which every CUDA
+wrapper launches (:func:`launch_counts`, :func:`route_counts`);
 plain-version calls never count.  ``normal_fill``'s chunks re-parsed
 serially are counted on the card, where the kernel finds them, and read
 apart (``normal_fill.reparses()``): reading them waits for the card.
@@ -194,15 +195,17 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: _build.count(name) for name in KERNELS}
+
+
+def route_counts(kernel: str) -> Dict[str, int]:
+    """The calls of each CUDA route of ``kernel`` (one whose module names
+    its ``ROUTES``: ``knn_topk``) since the last reset."""
+    return {r: _build.count(kernel, r) for r in KERNELS[kernel].ROUTES}
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count, ``normal_fill``'s re-parses and
-    ``knn_topk``'s calls per route."""
-    for mod in KERNELS.values():
-        with mod._count_lock:
-            mod.launches = 0
+    """Zero every kernel's launch count, ``knn_topk``'s calls per route and
+    ``normal_fill``'s re-parses."""
+    _build.reset_counts()
     _nf.reset_reparses()
-    with _knn._count_lock:
-        _knn.route_launches.update(dict.fromkeys(_knn.route_launches, 0))

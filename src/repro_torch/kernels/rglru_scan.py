@@ -19,7 +19,6 @@ and ``h_T`` ``(B, R)`` in fp32.  Any R: nothing is padded to a block.
 """
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -27,9 +26,6 @@ import torch
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-
-launches = 0          # kernel launches since the last reset (plain int)
-_count_lock = threading.Lock()
 
 
 def _check_shapes(log_a, b, h0) -> None:
@@ -69,28 +65,15 @@ def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
     """Launch the CUDA kernel.  log_a and b (B, S, R), each bf16 or fp32,
     contiguous, on one CUDA device; h0 (B, R) on it or None (it is read
     in fp32).  Returns (y in b's dtype, h_T fp32)."""
-    global launches
     _check_shapes(log_a, b, h0)
-    dev = b.device
-    named = [("log_a", log_a), ("b", b)] + ([("h0", h0)] if h0 is not None else [])
-    for name, t in named:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"rglru_scan_cuda: {name} is on {t.device}, expected one CUDA device")
-        if t.dtype not in DTYPES:
-            raise TypeError(f"rglru_scan_cuda: {name} is {t.dtype}, expected float32 or bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"rglru_scan_cuda: {name} must be contiguous")
+    dev = _build.require("rglru_scan_cuda", [("log_a", log_a, DTYPES), ("b", b, DTYPES)]
+                         + ([("h0", h0, DTYPES)] if h0 is not None else []))
     Bsz, S, R = b.shape
     h0f = h0.to(torch.float32) if h0 is not None else None
     y = torch.empty_like(b)
     h_last = torch.empty((Bsz, R), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.rglru_scan_launch(
-            log_a.data_ptr(), b.data_ptr(), h0f.data_ptr() if h0f is not None else None,
-            y.data_ptr(), h_last.data_ptr(), Bsz, S, R, int(log_a.dtype == torch.bfloat16),
-            int(b.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rglru_scan")
-    with _count_lock:
-        launches += 1
+    _build.launch("rglru_scan", "rglru_scan_launch", dev,
+                  log_a.data_ptr(), b.data_ptr(), h0f.data_ptr() if h0f is not None else None,
+                  y.data_ptr(), h_last.data_ptr(), Bsz, S, R, int(log_a.dtype == torch.bfloat16),
+                  int(b.dtype == torch.bfloat16))
     return y, h_last

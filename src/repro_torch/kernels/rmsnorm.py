@@ -21,16 +21,12 @@ fp32 before the multiply.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-
-launches = 0          # kernel launches since the last reset (plain int)
-_count_lock = threading.Lock()
 
 
 def _check_shapes(x, scale) -> None:
@@ -73,16 +69,8 @@ def layout(d: int, itemsize: int, vec: bool = True) -> tuple:
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Launch the CUDA kernel.  x (..., d) and scale (d,), each bf16 or
     fp32, contiguous, on one CUDA device.  Returns x's shape and dtype."""
-    global launches
     _check_shapes(x, scale)
-    dev = x.device
-    for name, t in (("x", x), ("scale", scale)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"rmsnorm_cuda: {name} is on {t.device}, expected one CUDA device")
-        if t.dtype not in DTYPES:
-            raise TypeError(f"rmsnorm_cuda: {name} is {t.dtype}, expected float32 or bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"rmsnorm_cuda: {name} must be contiguous")
+    dev = _build.require("rmsnorm_cuda", [("x", x, DTYPES), ("scale", scale, DTYPES)])
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -90,14 +78,8 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     # scale's packs load whole
     vec = (d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0 \
         and y.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.rmsnorm_launch(
-            x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
-            int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16), int(vec),
-            ctypes.c_float(eps), torch.cuda.get_device_properties(dev).multi_processor_count,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rmsnorm")
-    with _count_lock:
-        launches += 1
+    _build.launch("rmsnorm", "rmsnorm_launch", dev,
+                  x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
+                  int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16), int(vec),
+                  ctypes.c_float(eps), torch.cuda.get_device_properties(dev).multi_processor_count)
     return y

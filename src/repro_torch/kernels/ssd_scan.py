@@ -33,7 +33,6 @@ kernel is judged on y cast to x's dtype.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import torch
@@ -58,9 +57,6 @@ def smem_bytes(P: int, N: int) -> int:
     np_ = 16 * next(nk for nk in (1, 2, 4, 8) if 16 * nk >= N)
     stage = 2 * CHUNK * (pp + 8) + 4 * CHUNK * (np_ + 8) + 4 * CHUNK
     return _STAGES * stage + 4 * CHUNK * (CHUNK + 8)
-
-launches = 0          # kernel launches since the last reset (plain int)
-_count_lock = threading.Lock()
 
 
 def _check_shapes(x, dt, A, Bm, Cm) -> None:
@@ -127,12 +123,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
     contiguous last axis (any other strides); dt fp32 with any strides; A
     fp32; P and N at most 128; all on one CUDA device.  Returns (y (B, S,
     H, P) fp32, final state (B, H, P, N) fp32), both contiguous."""
-    global launches
     _check_shapes(x, dt, A, Bm, Cm)
-    dev = x.device
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, expected one CUDA device")
+    dev = _build.require("ssd_scan_cuda", [(name, t, None) for name, t in (
+        ("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm))], contiguous=False)
     for name, t in (("Bm", Bm), ("Cm", Cm)):
         if t.dtype != x.dtype:
             raise TypeError(f"ssd_scan_cuda: {name} is {t.dtype}, x is {x.dtype}")
@@ -153,13 +146,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
                                        *Cm.stride()[:2])
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, S, H, P, N, strides,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ssd_scan")
-    with _count_lock:
-        launches += 1
+    _build.launch("ssd_scan", "ssd_scan_launch", dev,
+                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                  y.data_ptr(), state.data_ptr(), B, S, H, P, N, strides,
+                  int(x.dtype == torch.bfloat16))
     return y, state

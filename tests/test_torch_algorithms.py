@@ -18,6 +18,7 @@ from repro.algorithms import linreg as jlinreg  # noqa: E402
 from repro.core import api as japi  # noqa: E402
 from repro_torch.algorithms import common, kmeans, knn, linreg  # noqa: E402
 from repro_torch.core import api  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 CPU = "cpu"
 
@@ -175,6 +176,39 @@ def test_generators_are_bit_identical(seed):
     assert lX.numpy().tobytes() == jlX.tobytes() and ly.numpy().tobytes() == jly.tobytes()
     assert linreg.lr_genpred(seed, 30, 12, device=CPU).numpy().tobytes() == \
         jlinreg.lr_genpred(seed, 30, 12).tobytes()
+
+
+# each fill body of the port on the CPU, and the JAX package's bytes for it
+FILLS = {
+    "KNN_fill_fragment": (
+        lambda seed: knn.knn_fill_fragment(seed, 500, 9, 3, device=CPU),
+        lambda seed: tuple(a.astype(t) for a, t in zip(jcommon.make_blobs(seed, 500, 9, 3),
+                                                       (np.float32, np.int32)))),
+    "KNN_gen_test": (lambda seed: knn.knn_gen_test(seed, 40, 9, 3, device=CPU),
+                     lambda seed: jknn.knn_gen_test(seed, 40, 9, 3).astype(np.float32)),
+    "fill_fragment": (lambda seed: kmeans.fill_fragment(seed, 400, 7, device=CPU),
+                      lambda seed: jkmeans.fill_fragment(seed, 400, 7).astype(np.float32)),
+    "LR_fill_fragment": (lambda seed: linreg.lr_fill_fragment(seed, 300, 12, device=CPU),
+                         lambda seed: jlinreg.lr_fill_fragment(seed, 300, 12)),
+    "LR_genpred": (lambda seed: linreg.lr_genpred(seed, 30, 12, device=CPU),
+                   lambda seed: jlinreg.lr_genpred(seed, 30, 12)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FILLS))
+def test_each_fill_draws_its_normals_through_the_op_on_the_cpu(name, monkeypatch):
+    """A fill body takes the card's path on the CPU too: it reaches
+    ``ops.normal_fill`` exactly once, and its bytes are the JAX
+    package's."""
+    calls = []
+    op = ops.normal_fill
+    monkeypatch.setattr(ops, "normal_fill", lambda *a, **kw: calls.append(a) or op(*a, **kw))
+    port, jax_fill = FILLS[name]
+    got, want = port(7), jax_fill(7)
+    assert len(calls) == 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert [g.numpy().tobytes() for g in got] == [np.asarray(w).tobytes() for w in want]
 
 
 def test_tree_reduce_helpers_match_the_jax_package():

@@ -97,7 +97,7 @@ def test_knn_topk_tensor_core_route_exact_and_repeatable(cuda, k, d):
     test, train, labels = _to(cuda, *_knn_inputs(k * 100 + d, 300, 3000, d, integer=True))
     ops.reset_launch_counts()
     got = tknn.knn_topk_cuda(test, train, labels, k)
-    assert tknn.route_launches == {"tensor_cores": 1, "wide": 0}
+    assert ops.route_counts("knn_topk") == {"tensor_cores": 1, "wide": 0}
     assert _same(got, tknn.knn_topk_plain(test, train, labels, k))
     assert _same(got, tknn.knn_topk_cuda(test, train, labels, k))
 

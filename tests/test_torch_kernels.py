@@ -13,6 +13,9 @@ themselves
 are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
+import contextlib
+import types
+
 import numpy as np
 import pytest
 
@@ -190,22 +193,48 @@ def test_ops_dispatch_by_device_and_count_only_kernel_launches():
         ops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c).to("meta"))
 
 
-def test_knn_route_counts_move_per_route_and_reset_with_launches():
-    """knn_topk counts its launches per route beside ``launches``: a
-    route's count moves only for that route's calls, the plain version
-    counts nothing, and ops.reset_launch_counts zeroes both."""
+def test_knn_route_counts_move_per_route_and_reset_with_launches(monkeypatch):
+    """``_build.launch`` counts knn_topk's launches and, beside them, its
+    calls per route: a route's count moves only for that route's calls,
+    the plain version and a failed launch count nothing, and
+    ops.reset_launch_counts zeroes both.  The library and the stream are
+    stand-ins here; the launch passes the device's stream last."""
+    calls = []
+
+    class Lib:
+        err = 0
+
+        def __getattr__(self, symbol):
+            return lambda *args: calls.append((symbol, args)) or self.err
+
+        def repro_cuda_error_string(self, err):
+            return b"stand-in error"
+
+    lib = Lib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
     ops.reset_launch_counts()
-    assert tknn.launches == 0 and tknn.route_launches == {"tensor_cores": 0, "wide": 0}
-    tknn._count(tknn.route(5, 50))
-    assert tknn.launches == 1 and tknn.route_launches == {"tensor_cores": 1, "wide": 0}
+    assert ops.launch_counts()["knn_topk"] == 0
+    assert ops.route_counts("knn_topk") == {"tensor_cores": 0, "wide": 0}
+    _build.launch("knn_topk", "knn_topk_launch", "cuda:0", 1, 2, route=tknn.route(5, 50))
+    assert calls == [("knn_topk_launch", (1, 2, 7))]
+    assert ops.launch_counts()["knn_topk"] == 1
+    assert ops.route_counts("knn_topk") == {"tensor_cores": 1, "wide": 0}
     for k, d in ((33, 50), (5, 65)):
-        tknn._count(tknn.route(k, d))
-    assert tknn.launches == 3 and tknn.route_launches == {"tensor_cores": 1, "wide": 2}
+        _build.launch("knn_topk", "knn_wide_launch", "cuda:0", route=tknn.route(k, d))
+    assert ops.launch_counts()["knn_topk"] == 3
+    assert ops.route_counts("knn_topk") == {"tensor_cores": 1, "wide": 2}
+    lib.err = 1
+    with pytest.raises(RuntimeError, match="stand-in error"):
+        _build.launch("knn_topk", "knn_wide_launch", "cuda:0", route="wide")
     test, train, labels = _knn_inputs(0, 10, 50, 4, integer=False)
     ops.knn_topk(torch.from_numpy(test), torch.from_numpy(train), torch.from_numpy(labels), k=3)
-    assert ops.launch_counts()["knn_topk"] == 3 and tknn.route_launches["wide"] == 2
+    assert ops.launch_counts()["knn_topk"] == 3 and ops.route_counts("knn_topk")["wide"] == 2
     ops.reset_launch_counts()
-    assert tknn.launches == 0 and tknn.route_launches == {"tensor_cores": 0, "wide": 0}
+    assert ops.launch_counts()["knn_topk"] == 0
+    assert ops.route_counts("knn_topk") == {"tensor_cores": 0, "wide": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_building():

@@ -25,6 +25,10 @@ FILLS = {
     "LR_fill_fragment": (linreg.lr_fill_fragment, (6, 64, 5, 1234, 0.1, "cpu")),
     "LR_genpred": (linreg.lr_genpred, (50_006, 64, 5, "cpu")),
 }
+# every device's span shape: the host's small draws, their move to the
+# device, the normals drawn there (LR_genpred draws no host values)
+FILL_SPANS = {name: ["generate"] if name == "LR_genpred" else ["generate", "upload", "generate"]
+              for name in FILLS}
 
 
 def _add(a, b):
@@ -106,9 +110,10 @@ def test_a_fill_records_generate_then_upload_inside_its_body(name):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
-    assert [s[0] for s in ev.spans] == ["generate", "upload"]
-    (_, g0, g1), (_, u0, u1) = ev.spans
-    assert ev.t_run <= g0 <= g1 <= u0 <= u1 <= ev.t_body
+    assert [s[0] for s in ev.spans] == FILL_SPANS[name]
+    # each span ends before the next starts, all inside the body
+    stamps = [ev.t_run, *(t for _, t0, t1 in ev.spans for t in (t0, t1)), ev.t_body]
+    assert stamps == sorted(stamps)
 
 
 @pytest.mark.parametrize("name", sorted(FILLS))
@@ -212,7 +217,7 @@ def test_the_chrome_trace_nests_each_attempts_phases_on_its_worker_row():
         assert queued[0]["ts"] == pytest.approx(us(e.t_ready), abs=1e-3)
         assert queued[1]["ts"] == pytest.approx(us(e.t0), abs=1e-3)
         assert all(r["tid"] == e.worker and r["pid"] == e.node for r in queued)
-    assert [s[0] for s in evs["fill_fragment"].spans] == ["generate", "upload"]
+    assert [s[0] for s in evs["fill_fragment"].spans] == FILL_SPANS["fill_fragment"]
 
 
 def test_many_no_op_tasks_keep_every_stamp():
